@@ -1,0 +1,68 @@
+"""Resize and pooling primitives (port of ``unet_embroidery_seg_tpu/ops/resize.py``).
+
+The JAX ``max_pool`` has no counterpart here: the stock ``nn.MaxPool2d`` has
+the semantics it reproduces.
+
+The 1-D interpolation tables are computed in float64 on the host exactly as
+the JAX package computes them, so the weights the CUDA upsample kernel reads
+are the JAX float32 weights bit for bit. Two conventions, as in the reference:
+
+  - ``align_corners=False`` (``nn.Upsample(mode="bilinear")``): half-pixel
+    centres;
+  - ``align_corners=True`` (``nn.UpsamplingBilinear2d``): the unet_resnet50
+    decoder's convention.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=None)
+def _linear_coords(in_size: int, out_size: int, align_corners: bool):
+    """(idx0, idx1, w1) tables for 1-D linear interpolation (float64 maths).
+
+    Cached per size: the arrays are shared, so callers must not write to them.
+    """
+    if align_corners and out_size > 1:
+        src = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (out_size - 1)
+    else:
+        scale = in_size / out_size
+        src = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    src = np.clip(src, 0.0, in_size - 1)
+    idx0 = np.floor(src).astype(np.int32)
+    idx1 = np.minimum(idx0 + 1, in_size - 1)
+    w1 = (src - idx0).astype(np.float32)
+    for a in (idx0, idx1, w1):
+        a.setflags(write=False)
+    return idx0, idx1, w1
+
+
+@lru_cache(maxsize=None)
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """(out, in) linear-interpolation matrix, 2 nonzeros per row (cached, read-only)."""
+    idx0, idx1, w1 = _linear_coords(in_size, out_size, align_corners)
+    m = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    m[rows, idx0] += 1.0 - w1
+    m[rows, idx1] += w1
+    m.setflags(write=False)
+    return m
+
+
+def upsample2x_plain(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """2x bilinear upsample of NCHW as the two interpolation-matrix contractions.
+
+    Maths in float32 whatever the input type (the CUDA kernel's convention);
+    the result is cast back to ``x.dtype`` in ``channels_last`` memory.
+    """
+    h, w = x.shape[-2], x.shape[-1]
+    mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=x.device)
+    mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=x.device)
+    y = torch.einsum("oh,nchw->ncow", mh, x.float())
+    y = torch.einsum("pw,ncow->ncop", mw, y)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+

@@ -1,0 +1,29 @@
+"""Experiment folders (copy of ``unet_embroidery_seg_tpu/utils/exp_folder.py``).
+
+Predictions land in ``run/predict/exp{,1,2,...}``, the first free index,
+as in the reference.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def _next_exp_dir(parent: str) -> str:
+    os.makedirs(parent, exist_ok=True)
+    candidate = os.path.join(parent, "exp")
+    if not os.path.exists(candidate):
+        return candidate
+    n = 1
+    while True:
+        candidate = os.path.join(parent, f"exp{n}")
+        if not os.path.exists(candidate):
+            return candidate
+        n += 1
+
+
+def create_val_exp_folder(root: str = "run") -> str:
+    """Create run/predict/expN and return its path."""
+    exp_folder = _next_exp_dir(os.path.join(root, "predict"))
+    os.makedirs(exp_folder)
+    return exp_folder
