@@ -9,7 +9,16 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    (5 upsample, 6 square conv3x3), plus one f32 case per kernel: hold the
    kernel against its plain PyTorch version and time kernel, plain version
    and the library call that computes the same function (``F.interpolate``,
-   ``F.conv2d``; the port never calls either) with CUDA events.
+   ``F.conv2d``; the port never calls either) with CUDA events, grad off as
+   in predict. ``ms`` and ``library_ms`` are the card's own time, by
+   CUDA-graph replay (``ms_method``); ``eager_ms`` and ``library_eager_ms``
+   are the same calls back to back from the host, dispatch included (the
+   method behind ``ms`` before the kernels' Hopper redesign); ``plain_ms``
+   is eager (the plain version builds its tables on the host). Each row
+   names the kernel path taken (conv: ``c64_persistent``, ``wgmma`` or
+   ``fma``) and its TFLOP/s and share of the bound, both from ``ms``.
+   Then an in-place weight update between two conv calls on signed inputs
+   must change the result (the wrapper's packed-weight cache repacks).
 3. The main path: full-width unet_resnet50 (2 classes, seeded random
    weights) predicting 16 seeded letterboxed 480^2 canvases in batches of
    8, bf16, through the port's batch-predict function. The launch counters
@@ -53,6 +62,10 @@ TOL_F32 = {"upsample2x": 1e-5, "conv3x3_same": 1e-4}
 # Phase 4: f32 on both sides, ~70 layers summed in other orders by cuDNN and
 # the CPU's convs: 1e-3 of the logit scale; softmax likewise to 1e-3.
 TOL_FORWARD_REL, TOL_SOFTMAX = 1e-3, 1e-3
+# How kernel and library ``ms`` are timed: calls captured into a CUDA graph
+# and replayed, so the host's dispatch (as long as the smallest sites' card
+# time) stays out; the eager time sits beside it as ``eager_ms``.
+MS_METHOD = "cuda_graph_replay"
 
 
 def card_line() -> str:
@@ -63,32 +76,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, budget_ms: float = 300.0) -> float:
-    """Mean ms per call over a run of calls, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    iters = int(max(3, min(50, budget_ms / max(start.elapsed_time(end), 1e-3))))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@torch.no_grad()
 def check_sites(gen: torch.Generator) -> list[dict]:
-    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
+    from unet_embroidery_seg_torch.ops.conv3x3 import (
+        conv3x3_bias_relu,
+        conv3x3_bias_relu_plain,
+        conv3x3_path,
+    )
     from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_plain
+    from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
 
     dev = torch.device("cuda")
     cases = [("upsample2x", f"up{c}x{h}", c, h, torch.bfloat16) for c, h in UPSAMPLE_SITES]
@@ -106,6 +107,7 @@ def check_sites(gen: torch.Generator) -> list[dict]:
             library = lambda: F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)  # noqa: E731
             nbytes = x.numel() * es * 5  # read x once, write 4x
             flops = 9.0 * 4 * x.numel()  # 3 lerps of 3 FLOP per output element
+            path = "staged"
         else:
             # decoder convs read ReLU outputs
             x = torch.relu(x).contiguous(memory_format=torch.channels_last)
@@ -117,6 +119,7 @@ def check_sites(gen: torch.Generator) -> list[dict]:
             library = lambda: F.conv2d(x, wd, bd, padding=1)  # noqa: E731
             nbytes = 2 * x.numel() * es + 9 * c * c * es + 4 * c
             flops = 2.0 * 9 * c * c * BATCH * h * h
+            path = conv3x3_path(c, dtype)
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -124,10 +127,16 @@ def check_sites(gen: torch.Generator) -> list[dict]:
         scale = want.float().abs().max().item()
         tol = (TOL_BF16 if dtype == torch.bfloat16 else TOL_F32[kernel]) * scale
         bound_ms, bound_by = bound(nbytes, flops, dtype)
+        eager_ms, library_eager_ms = event_ms(run), event_ms(library)
+        ms = graph_ms(run, eager_ms)
         row = {
-            "kernel": kernel, "site": site, "shape": list(x.shape), "dtype": str(dtype),
-            "max_abs_err": err, "tol": tol, "ms": time_ms(run), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel": kernel, "site": site, "path": path, "shape": list(x.shape),
+            "dtype": str(dtype), "max_abs_err": err, "tol": tol,
+            "ms_method": MS_METHOD, "ms": ms, "eager_ms": eager_ms, "plain_ms": event_ms(plain),
+            "library_ms": graph_ms(library, library_eager_ms),
+            "library_eager_ms": library_eager_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "tflops": flops / ms / 1e9,
         }
         print("site " + json.dumps(row), flush=True)
         if not (np.isfinite(err) and err <= tol):
@@ -135,6 +144,38 @@ def check_sites(gen: torch.Generator) -> list[dict]:
         rows.append(row)
         del x, got, want
     return rows
+
+
+@torch.no_grad()
+def weight_update_check(gen: torch.Generator) -> dict:
+    """An in-place weight update between two kernel calls changes the result.
+
+    With grad off the conv wrapper caches its packed weights per parameter
+    version; this holds, at one site of each tensor-core path, that the
+    second call sees the update (and matches the plain version after it).
+    The inputs are signed, where the decoder sites above read ReLU outputs.
+    """
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
+
+    dev = torch.device("cuda")
+    result = {}
+    for c, h in ((64, 240), (512, 30)):
+        x = torch.randn(BATCH, c, h, h, generator=gen).to(dev, torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        first = conv3x3_bias_relu(x, w, b)
+        w.mul_(-1.0)  # flips which outputs survive the ReLU
+        second = conv3x3_bias_relu(x, w, b)
+        want = conv3x3_bias_relu_plain(x, w, b)
+        changed = (first.float() - second.float()).abs().max().item()
+        err = (second.float() - want.float()).abs().max().item()
+        tol = TOL_BF16 * want.float().abs().max().item()
+        result[f"c{c}"] = {"changed_by": changed, "max_abs_err": err, "tol": tol}
+        if not (changed > 0 and err <= tol):
+            raise AssertionError(f"in-place weight update at C={c}: {result[f'c{c}']}")
+    print("weight_update " + json.dumps(result), flush=True)
+    return result
 
 
 def main_path(counters) -> dict:
@@ -222,11 +263,14 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            "ms_method": MS_METHOD,
             "ms": sum(r["ms"] for r in sites),
+            "eager_ms": sum(r["eager_ms"] for r in sites),
             "plain_ms": sum(r["plain_ms"] for r in sites),
             "bound_ms": sum(share.values()),
             "bound_by": max(share, key=share.get),
             "library_ms": sum(r["library_ms"] for r in sites),
+            "library_eager_ms": sum(r["library_eager_ms"] for r in sites),
         })
     return out
 
@@ -253,12 +297,14 @@ def main(argv=None) -> int:
     print(f"build: {build_s:.1f} s", flush=True)
 
     rows = check_sites(torch.Generator().manual_seed(0))
+    update = weight_update_check(torch.Generator().manual_seed(2))
     path = main_path([upsample2x, conv3x3_bias_relu])
     f32 = f32_card_vs_cpu()
     kernels = kernel_summary(rows, path["launches"])
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "sites": rows, "main_path": path,
+            json.dump({"card": card, "build_s": build_s, "sites": rows,
+                       "weight_update": update, "main_path": path,
                        "f32_card_vs_cpu": f32, "kernels": kernels,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

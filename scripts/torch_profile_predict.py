@@ -10,7 +10,10 @@ seeded letterboxed 480^2 canvases measures:
   (``predict.predict_probs``: host-to-card copy, bf16 forward, softmax,
   card-to-host copy), median and spread over 10 calls;
 - ``forward_ms``: CUDA-event time of the forward alone on a tensor already
-  on the card;
+  on the card, called eagerly back to back (the host's dispatch included);
+- ``forward_graph_ms``: the same forward captured once into a CUDA graph
+  and replayed: the card's own time, without the host. Where
+  ``forward_ms`` is the larger, the host holds the card back;
 - a ``torch.profiler`` window over 10 predict calls: card time by
   kernel group, and the card's idle share of the window.
 
@@ -35,6 +38,7 @@ from unet_embroidery_seg_torch.data.synthetic import letterboxed_canvases  # noq
 from unet_embroidery_seg_torch.engine.steps import make_predict_fn  # noqa: E402
 from unet_embroidery_seg_torch.models import build_model  # noqa: E402
 from unet_embroidery_seg_torch.predict import predict_probs  # noqa: E402
+from unet_embroidery_seg_torch.utils.timing import graph_ms  # noqa: E402
 
 SIZE = 480  # the predict letterbox (predict.py --input-size default)
 ITERS = 10  # calls per measurement
@@ -42,7 +46,7 @@ ITERS = 10  # calls per measurement
 # Kernel-name fragments -> group, first match wins.
 GROUPS = [
     ("port upsample2x", ("upsample2x_kernel",)),
-    ("port conv3x3", ("conv3x3_mma_kernel", "conv3x3_fma_kernel")),
+    ("port conv3x3", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("memcpy", ("Memcpy", "memcpy")),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "sm90", "cutlass", "implicit")),
     ("batch norm", ("batch_norm", "bn_fw", "bn_")),
@@ -86,6 +90,8 @@ def main(argv=None) -> int:
     end.synchronize()
     forward_ms = start.elapsed_time(end) / ITERS
 
+    forward_graph_ms = graph_ms(lambda: predict_fn(x), forward_ms)
+
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
@@ -112,6 +118,7 @@ def main(argv=None) -> int:
         "predict_ms_median": statistics.median(predict_ms),
         "predict_ms_min": min(predict_ms), "predict_ms_max": max(predict_ms),
         "forward_ms": forward_ms,
+        "forward_graph_ms": forward_graph_ms,
         "profiled_ms_per_call": per_call_window,
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": (1.0 - busy_ms / per_call_window) if per_call_window else None,

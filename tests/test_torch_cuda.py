@@ -3,13 +3,15 @@
 Marked ``cuda``: they skip on a machine without a card (a CUDA kernel has no
 interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
-vector width or of the 64-channel block, and for the conv both its paths
-(bf16 with C % 16 == 0 on the tensor cores, the rest on the CUDA cores).
+vector width or of the 64-channel block, and for the conv each of its paths
+(bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
+``wgmma`` above; the rest on the CUDA cores, ``fma``).
 """
 
 import pytest
 import torch
 
+from unet_embroidery_seg_torch.ops import conv3x3 as conv3x3_mod
 from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
 from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_plain
 
@@ -41,7 +43,12 @@ def _tol(ref: torch.Tensor, f32_rel: float) -> float:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("align_corners", [False, True])
-@pytest.mark.parametrize("shape", [(2, 64, 15, 15), (1, 5, 3, 7), (3, 24, 1, 2), (1, 2048, 4, 4)])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 64, 15, 15), (1, 5, 3, 7), (3, 24, 1, 2), (1, 2048, 4, 4),
+     (2, 72, 9, 21),    # 2W = 42: not a multiple of the 32-column tile; C: a partial chunk
+     (1, 64, 1, 40)],   # H = 1
+)
 def test_upsample_kernel_matches_plain(device, shape, align_corners, dtype):
     x = _x(shape, dtype, device, seed=sum(shape))
     before = upsample2x.launches
@@ -58,21 +65,60 @@ def test_upsample_kernel_rejects_nchw_contiguous(device):
         upsample2x(torch.zeros(1, 4, 3, 3, device=device), True)
 
 
+def _conv_params(c, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    weight = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(device)
+    bias = (0.1 * torch.randn(c, generator=g)).to(device)
+    return weight, bias
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape",
-    [(2, 64, 17, 33), (1, 48, 9, 20), (1, 16, 3, 3),  # bf16: tensor-core path
-     (1, 24, 9, 5), (1, 130, 8, 16), (2, 3, 1, 1)],  # bf16: CUDA-core path (C % 16)
+    [(2, 64, 17, 33), (1, 48, 9, 20), (1, 16, 3, 3),  # bf16: c64_persistent
+     (1, 64, 37, 45), (3, 64, 480, 17),               # ragged H, W; more tiles than CTAs
+     (4, 64, 256, 256),                                # 1024 tiles on ~132 CTAs
+     (2, 128, 9, 30), (1, 256, 30, 31), (1, 512, 15, 15), (1, 80, 11, 13),  # bf16: wgmma
+     (8, 128, 120, 120),                               # 960 items on ~132 CTAs
+     (1, 24, 9, 5), (1, 130, 8, 16), (2, 3, 1, 1)],   # bf16: fma (C % 16)
 )
-def test_conv3x3_kernel_matches_plain(device, shape, dtype):
+@pytest.mark.parametrize("relu_input", [False, True])  # signed (any input; dgrad) / the decoder's
+def test_conv3x3_kernel_matches_plain(device, shape, dtype, relu_input):
     n, c, h, w = shape
     x = _x(shape, dtype, device, seed=c)
-    g = torch.Generator(device="cpu").manual_seed(c + 1)
-    weight = (torch.randn(c, c, 3, 3, generator=g) / (3 * c ** 0.5)).to(device)
-    bias = (0.1 * torch.randn(c, generator=g)).to(device)
+    if relu_input:
+        x = torch.relu(x)
+    weight, bias = _conv_params(c, device, seed=c + 1)
     before = conv3x3_bias_relu.launches
     got = conv3x3_bias_relu(x, weight, bias)
     torch.cuda.synchronize()
     assert conv3x3_bias_relu.launches == before + 1
     want = conv3x3_bias_relu_plain(x, weight, bias)
-    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)  # up to 9*130 terms
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)  # up to 9*512 terms
+
+
+@pytest.mark.parametrize("c", [64, 256])
+def test_conv3x3_kernel_sees_in_place_weight_update(device, c):
+    # With grad off the wrapper caches packed weights per parameter version:
+    # an in-place update must repack, never serve the stale copy.
+    x = _x((1, c, 12, 20), torch.bfloat16, device, seed=3)
+    weight, bias = _conv_params(c, device, seed=4)
+    with torch.no_grad():
+        first = conv3x3_bias_relu(x, weight, bias)
+        assert (id(weight), id(bias), torch.bfloat16) in conv3x3_mod._packed
+        weight.mul_(-1.0)
+        bias.add_(0.05)
+        second = conv3x3_bias_relu(x, weight, bias)
+    torch.cuda.synchronize()
+    want = conv3x3_bias_relu_plain(x, weight, bias)
+    assert (second.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+    assert not torch.equal(first, second)
+
+
+def test_conv3x3_tensor_core_path_rejects_misaligned_input(device):
+    base = torch.zeros(4 * 4 * 64 + 1, dtype=torch.bfloat16, device=device)
+    x = base[1:].view(1, 4, 4, 64).permute(0, 3, 1, 2)  # channels_last, 2-byte offset
+    weight, bias = _conv_params(64, device, seed=0)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3_bias_relu(x, weight, bias)

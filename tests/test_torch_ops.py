@@ -8,12 +8,14 @@ hold against JAX; the CUDA kernels are held against the plain versions on
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import gc
 import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
@@ -22,8 +24,19 @@ from unet_embroidery_seg_tpu.models import blocks as jax_blocks
 from unet_embroidery_seg_tpu.ops import resize as jax_resize
 from unet_embroidery_seg_torch.models.resnet_backbone import ResNet50Backbone
 from unet_embroidery_seg_torch.ops import _build, resize
-from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
-from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_plain
+from unet_embroidery_seg_torch.ops import conv3x3 as conv3x3_mod
+from unet_embroidery_seg_torch.ops.conv3x3 import (
+    conv3x3_bias_relu,
+    conv3x3_bias_relu_plain,
+    conv3x3_path,
+    pack_conv3x3_weight,
+)
+from unet_embroidery_seg_torch.ops.upsample import (
+    TILE_SIZES,
+    tile_input_span,
+    upsample2x,
+    upsample2x_plain,
+)
 
 NEG = Path(__file__).resolve().parent.parent / "docs" / "negative-results"
 
@@ -93,6 +106,25 @@ def test_upsample_wrapper_takes_plain_version_on_cpu():
     assert upsample2x.launches == before  # no kernel launched on the CPU
     torch.testing.assert_close(out, upsample2x_plain(x, True), rtol=0, atol=0)
     assert out.shape == (2, 6, 10, 14)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("tile", TILE_SIZES)
+def test_upsample_tile_taps_fit_the_kernels_staging_area(tile, align_corners):
+    # The CUDA kernel stages tile/2 + 2 input rows (columns) per tile of
+    # outputs in shared memory; every 2x resize must fit, at every tile.
+    for size in range(1, 1100):
+        idx0, idx1, _ = resize._linear_coords(size, 2 * size, align_corners)
+        assert tile_input_span(idx0, idx1, tile) <= tile // 2 + 2, size
+
+
+@pytest.mark.parametrize("c,dtype,path", [
+    (64, torch.bfloat16, "c64_persistent"), (16, torch.bfloat16, "c64_persistent"),
+    (80, torch.bfloat16, "wgmma"), (2048, torch.bfloat16, "wgmma"),
+    (24, torch.bfloat16, "fma"), (130, torch.bfloat16, "fma"), (64, torch.float32, "fma"),
+])
+def test_conv3x3_path_by_dtype_and_channels(c, dtype, path):
+    assert conv3x3_path(c, dtype) == path
 
 
 def test_stem_max_pool_matches_jax():
@@ -171,6 +203,129 @@ def test_conv3x3_rejects_non_square_weights(w_shape, b_shape):
     x = torch.zeros(1, 4, 5, 5)
     with pytest.raises(ValueError):
         conv3x3_bias_relu(x, torch.zeros(w_shape), torch.zeros(b_shape))
+
+
+# --- conv3x3 weight packing and its cache -------------------------------------------
+
+PACK_CASES = [(64, torch.bfloat16), (48, torch.bfloat16), (80, torch.bfloat16),
+              (128, torch.bfloat16), (24, torch.bfloat16), (16, torch.float32)]
+
+
+def _oihw(c, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randn(c, c, 3, 3).astype(np.float32))
+
+
+def _unpack(packed, c, dtype):
+    """The OIHW weight back from the kernel's layout."""
+    if conv3x3_path(c, dtype) == "fma":  # [ky][kx][co][ci]
+        return packed.permute(2, 3, 0, 1)
+    chunks, co_pad = packed.shape[1], packed.shape[2]  # [tap][chunk][co_pad][64]
+    w = packed.permute(0, 2, 1, 3).reshape(3, 3, co_pad, chunks * 64)[:, :, :c, :c]
+    return w.permute(2, 3, 0, 1)
+
+
+@pytest.mark.parametrize("c,dtype", PACK_CASES)
+def test_pack_conv3x3_weight_round_trips(c, dtype):
+    weight = _oihw(c, seed=c)
+    packed = pack_conv3x3_weight(weight, dtype)
+    assert packed.dtype == dtype and packed.is_contiguous()
+    if conv3x3_path(c, dtype) != "fma":
+        # [tap][C_in chunk of 64][C_out padded to the 64- or 128-channel tile][64]
+        bn = 64 if c <= 64 else 128
+        assert tuple(packed.shape) == (9, -(-c // 64), -(-c // bn) * bn, 64)
+    torch.testing.assert_close(_unpack(packed, c, dtype), weight.to(dtype),
+                               rtol=0, atol=0)
+
+
+def _conv_from_packed(x, packed, bias, c, path):
+    """relu(conv + bias) in f32, reading the weights the way the kernel does."""
+    n, _, h, w = x.shape
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    acc = torch.zeros((n, c, h, w))
+    for ky in range(3):
+        for kx in range(3):
+            if path == "fma":  # [ky][kx][co][ci]
+                tap = packed[ky, kx]
+            else:  # [tap][chunk][co_pad][64]: the chunks side by side are C_in
+                chunks = [packed[ky * 3 + kx, k, :c] for k in range(packed.shape[1])]
+                tap = torch.cat(chunks, dim=1)[:, :c]
+            # One product over all of C_in per tap, as the plain version sums.
+            acc += torch.einsum("nihw,oi->nohw", xp[:, :, ky : ky + h, kx : kx + w], tap.float())
+    return torch.relu(acc + bias[None, :, None, None])
+
+
+@pytest.mark.parametrize("c,dtype", PACK_CASES)
+def test_conv_reading_the_packed_layout_equals_the_plain_version(c, dtype):
+    rng = np.random.RandomState(c + 1)
+    x = torch.from_numpy(rng.randn(2, c, 7, 9).astype(np.float32))
+    weight, bias = _oihw(c, seed=c) / (3 * c ** 0.5), torch.from_numpy(rng.randn(c).astype(np.float32))
+    packed = pack_conv3x3_weight(weight, dtype)
+    got = _conv_from_packed(x, packed, bias, c, conv3x3_path(c, dtype))
+    # The packed values are the weight rounded to ``dtype``; in f32 from the
+    # same rounded weights only the order of the f32 sums differs.
+    want = conv3x3_bias_relu_plain(x, weight.to(dtype).float(), bias)
+    torch.testing.assert_close(got, want.float(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_weight_cache_repacks_after_in_place_update(dtype):
+    weight, bias = _oihw(32, seed=1), torch.zeros(32)
+    with torch.no_grad():  # the cache serves grad-off calls (predict)
+        packed, b = conv3x3_mod._packed_params(weight, bias, dtype)
+        again, _ = conv3x3_mod._packed_params(weight, bias, dtype)
+        assert again is packed  # one pack per parameter version
+        version = weight._version
+        weight.add_(1.0)
+        assert weight._version != version  # the counter the cache compares
+        repacked, _ = conv3x3_mod._packed_params(weight, bias, dtype)
+        assert repacked is not packed
+        torch.testing.assert_close(repacked, pack_conv3x3_weight(weight, dtype), rtol=0, atol=0)
+        bias.add_(0.5)
+        _, b2 = conv3x3_mod._packed_params(weight, bias, dtype)
+    torch.testing.assert_close(b2, torch.full((32,), 0.5))
+    assert b2 is not b
+
+
+def test_packed_weight_cache_serves_only_the_tensor_it_was_made_from():
+    # The entry goes with its weight, so a later tensor (which may reuse the
+    # freed one's id and address) never gets the freed tensor's packing.
+    weight, bias = _oihw(16, seed=2), torch.zeros(16)
+    with torch.no_grad():
+        conv3x3_mod._packed_params(weight, bias, torch.bfloat16)
+        key = (id(weight), id(bias), torch.bfloat16)
+        assert key in conv3x3_mod._packed
+        other = weight.clone() * 2.0
+        del weight
+        gc.collect()
+        assert key not in conv3x3_mod._packed
+        packed, _ = conv3x3_mod._packed_params(other, bias, torch.bfloat16)
+    torch.testing.assert_close(packed, pack_conv3x3_weight(other, torch.bfloat16), rtol=0, atol=0)
+
+
+def test_packed_weight_cache_repacks_after_new_storage():
+    # ``p.data = t`` swaps the storage without touching the version counter.
+    weight, bias = torch.nn.Parameter(_oihw(16, seed=3)), torch.nn.Parameter(torch.zeros(16))
+    with torch.no_grad():
+        packed, _ = conv3x3_mod._packed_params(weight, bias, torch.bfloat16)
+        weight.data = _oihw(16, seed=4)
+        repacked, _ = conv3x3_mod._packed_params(weight, bias, torch.bfloat16)
+    assert repacked is not packed
+    torch.testing.assert_close(repacked, pack_conv3x3_weight(_oihw(16, seed=4), torch.bfloat16),
+                               rtol=0, atol=0)
+
+
+def test_packed_weight_cache_packs_every_call_with_grad_on():
+    # Training updates weights every step, some through ``.data`` (EMA,
+    # clipping), which the version counter does not see: with grad on, each
+    # call packs what the weight holds now.
+    weight, bias = torch.nn.Parameter(_oihw(16, seed=5)), torch.nn.Parameter(torch.zeros(16))
+    packed, _ = conv3x3_mod._packed_params(weight, bias, torch.bfloat16)
+    weight.data.mul_(-1.0)
+    bias.data.add_(0.25)
+    repacked, b = conv3x3_mod._packed_params(weight, bias, torch.bfloat16)
+    torch.testing.assert_close(repacked, -packed, rtol=0, atol=0)
+    torch.testing.assert_close(b, torch.full((16,), 0.25))
+    assert (id(weight), id(bias), torch.bfloat16) not in conv3x3_mod._packed
 
 
 @pytest.mark.parametrize("fn", ["upsample", "conv"])

@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}  # (name, symbol) -> typed function
 
 
 def _nvcc() -> str:
@@ -81,8 +82,12 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """C function ``symbol`` of ``csrc/<name>.cu``, building the library on first use.
 
     ``argtypes`` must give ``ctypes.c_void_p`` for every pointer and the
-    stream: ctypes would otherwise pass a Python int as a 32-bit int.
+    stream: ctypes would otherwise pass a Python int as a 32-bit int. After
+    the first call this is one dict lookup (wrappers call it per launch).
     """
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
         if name not in _libs:
             build([name])
@@ -90,6 +95,7 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn = getattr(_libs[name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
         return fn
 
 

@@ -6,9 +6,11 @@ package computes with ``ops/resize.py:upsample2x`` (an einsum).
 
 - Kernel: ``csrc/upsample2x.cu``. Bound by bytes on the H100: it reads each
   input byte about once and writes each output byte once, ~176 us per
-  forward at 480^2, batch 8, bf16 (3.35 TB/s). One thread per output pixel
-  and 16-byte channel vector; the tap tables come from the host, so any
-  H, W, C works.
+  forward at 480^2, batch 8, bf16 (3.35 TB/s). A block stages the input
+  pixels of an 8 x 32 output tile and a 128-byte channel chunk (8 x 16 and
+  256 bytes where C is wide) in shared memory once, then writes the tile
+  16 bytes a thread; the tap tables come from the host, so any H, W, C
+  works.
 - Plain version: ``ops/resize.py:upsample2x_plain``, the two
   interpolation-matrix contractions in float32.
 - Wrapper: ``upsample2x``. A CPU tensor takes the plain version; a CUDA
@@ -33,10 +35,28 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
+# Output rows and columns of the kernel's tiles (csrc/upsample2x.cu: TH, TW).
+TILE_SIZES = (8, 16, 32)
+
+
+def tile_input_span(idx0: np.ndarray, idx1: np.ndarray, tile: int) -> int:
+    """The most input rows (or columns) one ``tile`` of outputs reads."""
+    starts = np.arange(0, len(idx0), tile)
+    ends = np.minimum(starts + tile, len(idx0)) - 1
+    return int((idx1[ends] - idx0[starts]).max()) + 1
+
+
 @lru_cache(maxsize=None)
 def _device_tables(size: int, align_corners: bool, device: torch.device):
-    """([idx0, idx1] int32, w1 float32) on ``device`` for a 2x resize of ``size``."""
+    """([idx0, idx1] int32, w1 float32) on ``device`` for a 2x resize of ``size``.
+
+    Checks that every kernel tile's taps fit its shared-memory staging area
+    (tile/2 + 2 input rows and columns), which holds for any 2x resize.
+    """
     idx0, idx1, w1 = _linear_coords(size, 2 * size, align_corners)
+    for tile in TILE_SIZES:
+        if tile_input_span(idx0, idx1, tile) > tile // 2 + 2:
+            raise ValueError(f"upsample2x: a {tile}-output tile of size {size} reads too many inputs")
     idx = torch.tensor(np.concatenate([idx0, idx1]), dtype=torch.int32, device=device)
     return idx, torch.tensor(w1, dtype=torch.float32, device=device)
 
