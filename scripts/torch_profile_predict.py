@@ -38,30 +38,10 @@ from unet_embroidery_seg_torch.data.synthetic import letterboxed_canvases  # noq
 from unet_embroidery_seg_torch.engine.steps import make_predict_fn  # noqa: E402
 from unet_embroidery_seg_torch.models import build_model  # noqa: E402
 from unet_embroidery_seg_torch.predict import predict_probs  # noqa: E402
-from unet_embroidery_seg_torch.utils.timing import graph_ms  # noqa: E402
+from unet_embroidery_seg_torch.utils.timing import device_ms_by_group, graph_ms  # noqa: E402
 
 SIZE = 480  # the predict letterbox (predict.py --input-size default)
 ITERS = 10  # calls per measurement
-
-# Kernel-name fragments -> group, first match wins.
-GROUPS = [
-    ("port upsample2x", ("upsample2x_kernel",)),
-    ("port conv3x3", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
-    ("memcpy", ("Memcpy", "memcpy")),
-    ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "sm90", "cutlass", "implicit")),
-    ("batch norm", ("batch_norm", "bn_fw", "bn_")),
-    ("cat", ("CatArrayBatchedCopy", "cat")),
-    ("softmax", ("softmax",)),
-    ("pool", ("pool",)),
-]
-
-
-def group_of(name: str) -> str:
-    for group, keys in GROUPS:
-        if any(k in name for k in keys):
-            return group
-    return "other elementwise"
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -100,16 +80,7 @@ def main(argv=None) -> int:
             predict_probs(predict_fn, canvases)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    by_group: dict[str, float] = {}
-    top = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = evt.self_device_time_total / 1e3 / ITERS
-        if ms <= 0:
-            continue
-        by_group[group_of(evt.key)] = by_group.get(group_of(evt.key), 0.0) + ms
-        top.append((ms, evt.key[:90]))
+    by_group, top = device_ms_by_group(prof, ITERS)
     busy_ms = sum(by_group.values())
     per_call_window = window_ms / ITERS
     result = {
@@ -122,8 +93,8 @@ def main(argv=None) -> int:
         "profiled_ms_per_call": per_call_window,
         "device_busy_ms_per_call": busy_ms,
         "device_idle_share": (1.0 - busy_ms / per_call_window) if per_call_window else None,
-        "device_ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"ms": ms, "name": n} for ms, n in sorted(top, reverse=True)[:12]],
+        "device_ms_by_group": by_group,
+        "top_kernels": top,
     }
     print(json.dumps(result))
     return 0

@@ -5,15 +5,27 @@ interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
 vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
-``wgmma`` above; the rest on the CUDA cores, ``fma``).
+``wgmma`` above; the rest on the CUDA cores, ``fma``). The backward kernels
+(upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
+Functions' gradients are held against the plain versions' autograd.
 """
 
 import pytest
 import torch
 
 from unet_embroidery_seg_torch.ops import conv3x3 as conv3x3_mod
-from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
-from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_plain
+from unet_embroidery_seg_torch.ops.conv3x3 import (
+    conv3x3_bias_relu,
+    conv3x3_bias_relu_plain,
+    conv3x3_dgrad,
+    conv3x3_dgrad_plain,
+)
+from unet_embroidery_seg_torch.ops.upsample import (
+    upsample2x,
+    upsample2x_backward,
+    upsample2x_backward_plain,
+    upsample2x_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,3 +134,83 @@ def test_conv3x3_tensor_core_path_rejects_misaligned_input(device):
     weight, bias = _conv_params(64, device, seed=0)
     with pytest.raises(ValueError, match="aligned"):
         conv3x3_bias_relu(x, weight, bias)
+
+
+UPSAMPLE_BWD_SHAPES = [(2, 64, 15, 15), (1, 5, 3, 7), (3, 24, 1, 2), (1, 2048, 4, 4),
+                       (2, 72, 9, 21), (1, 64, 1, 40), (2, 128, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("shape", UPSAMPLE_BWD_SHAPES)
+def test_upsample_backward_kernel_matches_plain(device, shape, align_corners, dtype):
+    n, c, h, w = shape
+    g = _x((n, c, 2 * h, 2 * w), dtype, device, seed=sum(shape) + 1)
+    before = upsample2x_backward.launches
+    got = upsample2x_backward(g, align_corners)
+    torch.cuda.synchronize()
+    assert upsample2x_backward.launches == before + 1
+    want = upsample2x_backward_plain(g, align_corners)
+    assert got.shape == (n, c, h, w) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    # f32: at most 16 taps summed in another order. bf16: one ulp (see _tol).
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["cat_slice", "nchw"])
+def test_upsample_backward_reads_strided_gradients(device, layout):
+    # The decoder's gradient is a channel slice of torch.cat's (read in
+    # place); a plain NCHW gradient is copied to channels_last first.
+    skip, c, h, w = 24, 64, 6, 10
+    full = _x((2, skip + c, 2 * h, 2 * w), torch.bfloat16, device, seed=5)
+    g = full[:, skip:] if layout == "cat_slice" else full[:, skip:].contiguous()
+    got = upsample2x_backward(g, True)
+    want = upsample2x_backward_plain(g.contiguous(), True)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-5)
+
+
+def test_upsample_backward_is_deterministic(device):
+    g = _x((2, 64, 64, 64), torch.bfloat16, device, seed=6)
+    assert torch.equal(upsample2x_backward(g, True), upsample2x_backward(g, True))
+
+
+DGRAD_SHAPES = [(2, 64, 17, 33), (1, 48, 9, 20), (3, 64, 480, 17), (2, 128, 9, 30),
+                (1, 256, 30, 31), (1, 512, 15, 15), (1, 80, 11, 13), (1, 24, 9, 5), (2, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DGRAD_SHAPES)
+def test_conv3x3_dgrad_kernel_matches_plain(device, shape, dtype):
+    n, c, h, w = shape
+    g = _x(shape, dtype, device, seed=c + 7)  # signed, like a gradient
+    weight, _ = _conv_params(c, device, seed=c + 8)
+    before = conv3x3_dgrad.launches
+    got = conv3x3_dgrad(g, weight)
+    torch.cuda.synchronize()
+    assert conv3x3_dgrad.launches == before + 1
+    want = conv3x3_dgrad_plain(g, weight)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 20, 24), (1, 256, 12, 10), (1, 24, 9, 5)])
+def test_conv3x3_function_grads_match_plain_autograd(device, shape, dtype):
+    n, c, h, w = shape
+    x = torch.relu(_x(shape, dtype, device, seed=c + 9)).requires_grad_()
+    weight, bias = _conv_params(c, device, seed=c + 10)
+    weight.requires_grad_()
+    bias.requires_grad_()
+    g = _x(shape, dtype, device, seed=c + 11)
+    before = (conv3x3_bias_relu.launches, conv3x3_dgrad.launches)
+    y = conv3x3_bias_relu(x, weight, bias)
+    got = torch.autograd.grad(y, (x, weight, bias), g)
+    assert (conv3x3_bias_relu.launches, conv3x3_dgrad.launches) == (before[0] + 1, before[1] + 1)
+    y_ref = conv3x3_bias_relu_plain(x, weight, bias)  # differentiable torch ops
+    want = torch.autograd.grad(y_ref, (x, weight, bias), g)
+    for name, a, b in zip(("dx", "dW", "db"), got, want):
+        assert a.dtype == b.dtype, name
+        # bf16: the ReLU masks may differ where y rounds differently (one
+        # ulp); dW and db sum over every pixel, so hold them to 2% of scale.
+        tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * b.abs().max().item() + 1e-6
+        assert (a.float() - b.float()).abs().max().item() <= tol, name

@@ -2,7 +2,10 @@
 //
 // Replaces: docs/negative-results/pallas_conv.py, conv3x3_same
 // (pl.pallas_call over _kernel): NHWC x HWIO -> NHWC with f32 accumulation,
-// one im2col GEMM per kernel row on the TPU.
+// one im2col GEMM per kernel row on the TPU. As there, the same kernel
+// computes dgrad (dx of the conv) when given the weights flipped in space
+// and transposed in channels, with the epilogue's bias and ReLU off
+// (bias_relu = 0; ops/conv3x3.py:conv3x3_dgrad).
 //
 // Bound on the H100: 2*9*C*C FLOP per output pixel against 4*C bytes of
 // bf16 input and output. At the six unet_resnet50 decoder sites (480^2,
@@ -52,7 +55,7 @@
 //        dead rows), 30^2 takes 16 x 8 (12% dead), 60^2 takes 4 x 30 (120 of
 //        128 rows live, no ragged tile). Dead rows read a valid address and
 //        are not stored.
-//      * Epilogue: + bias (f32), ReLU, round to nearest even bf16 into
+//      * Epilogue: + bias (f32) and ReLU (forward; dgrad skips both), round to nearest even bf16 into
 //        shared memory (128-byte rows, swizzled), then TMA stores of
 //        (64, TW, TH, 1) boxes, which clip the ragged edges and C not a
 //        multiple of 64. The C <= 64 path stages in the halo stage it has
@@ -124,7 +127,7 @@ struct Cfg {
 };
 
 struct Params {
-  const float* bias;
+  const float* bias;  // read only by the BIAS_RELU kernels
   __nv_bfloat16* out;
   int h, w, c, th, tw, tiles_x, tiles_y, co_tiles, nchunks, co_pad, items;
   uint32_t halo_tx;  // bytes of one halo box
@@ -299,7 +302,7 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&
   else wgmma_m64n128k16(d, a, desc);
 }
 
-template <int BN, bool RESIDENT>
+template <int BN, bool RESIDENT, bool BIAS_RELU>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap,
@@ -454,7 +457,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int s = 0; s < SLABS; ++s) fence_operands(acc[s]);
 
-      // ---- epilogue: + bias, ReLU, bf16, TMA store ---------------------------
+      // ---- epilogue: (+ bias, ReLU if BIAS_RELU), bf16, TMA store ------------
       // The tile goes to shared memory as rows of 128 bytes (one pixel, 64
       // channels) with the 128-byte swizzle, conflict-free (the 8 rows of one
       // store get 8 distinct 16-byte chunks), then one TMA store per 64
@@ -473,9 +476,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int co = co0 + 8 * j;
-            const float b0 = co < p.c ? p.bias[co] : 0.0f, b1 = co < p.c ? p.bias[co + 1] : 0.0f;
-            const __nv_bfloat162 v = __floats2bfloat162_rn(
-                fmaxf(acc[s][4 * j + 2 * hf] + b0, 0.0f), fmaxf(acc[s][4 * j + 2 * hf + 1] + b1, 0.0f));
+            float v0 = acc[s][4 * j + 2 * hf], v1 = acc[s][4 * j + 2 * hf + 1];
+            if constexpr (BIAS_RELU) {
+              v0 = fmaxf(v0 + (co < p.c ? p.bias[co] : 0.0f), 0.0f);
+              v1 = fmaxf(v1 + (co < p.c ? p.bias[co + 1] : 0.0f), 0.0f);
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
             st_shared_b32(stage + (j / 8) * TILE_M * ROW_BYTES + m * ROW_BYTES +
                               ((((j % 8) ^ m) & 7) << 4) + 4 * (lane % 4),
                           *reinterpret_cast<const uint32_t*>(&v));
@@ -535,11 +541,11 @@ Tile pick_tile(int m, int max_halo_rows, int h, int w) {
   return best;
 }
 
-template <int BN, bool RESIDENT>
+template <int BN, bool RESIDENT, bool BIAS_RELU>
 int launch(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
            int c, cudaStream_t stream) {
   using C = Cfg<BN, RESIDENT>;
-  auto kernel = conv3x3_wgmma_kernel<BN, RESIDENT>;
+  auto kernel = conv3x3_wgmma_kernel<BN, RESIDENT, BIAS_RELU>;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
 
@@ -619,7 +625,7 @@ constexpr int PX = 4;          // neighbouring pixels per thread (along W)
 constexpr int CO_PER = 8;      // output channels per thread, strided by 8
 static_assert((TH * TW / PX) * (CO_T / CO_PER) == THREADS, "one thread per micro-tile");
 
-template <typename T>
+template <typename T, bool BIAS_RELU>
 __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
     const T* __restrict__ x, const T* __restrict__ wt, const float* __restrict__ bias,
     T* __restrict__ out, int h, int w, int c, int tiles_x) {
@@ -697,41 +703,59 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
 #pragma unroll
     for (int j = 0; j < CO_PER; ++j) {
       const int co = co0 + cg + CO_PER * j;
-      if (co < c) dst[co] = from_f32<T>(fmaxf(acc[p][j] + bias[co], 0.0f));
+      if (co < c) dst[co] = from_f32<T>(BIAS_RELU ? fmaxf(acc[p][j] + bias[co], 0.0f) : acc[p][j]);
     }
   }
 }
 
 }  // namespace
 
+// Epilogue mode, both paths: bias_relu = 1 stores relu(conv + bias) (the
+// forward), 0 stores the bare conv and never reads bias (dgrad). Each mode
+// is its own template instance, so the forward's code is the same as
+// without the mode.
+//
 // Tensor-core path. x, wpk (packed) and out bf16; bias f32. Needs C % 16 == 0
 // and 16-byte aligned x and wpk (TMA); C <= 64 takes the persistent
 // resident-weight kernel, C > 64 the streamed-weight one.
 extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* bias, void* out,
-                                    int n, int h, int w, int c, void* stream) {
+                                    int n, int h, int w, int c, int bias_relu, void* stream) {
   if (c % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= tc::CHUNK) return tc::launch<64, true>(x, wpk, bias, out, n, h, w, c, s);
-  return tc::launch<128, false>(x, wpk, bias, out, n, h, w, c, s);
+  if (c <= tc::CHUNK) {
+    if (bias_relu) return tc::launch<64, true, true>(x, wpk, bias, out, n, h, w, c, s);
+    return tc::launch<64, true, false>(x, wpk, bias, out, n, h, w, c, s);
+  }
+  if (bias_relu) return tc::launch<128, false, true>(x, wpk, bias, out, n, h, w, c, s);
+  return tc::launch<128, false, false>(x, wpk, bias, out, n, h, w, c, s);
 }
 
 // CUDA-core path. dtype: 0 = float32, 1 = bfloat16 (x, wt and out); bias is
 // float32; wt is [ky][kx][co][ci].
 extern "C" int conv3x3_fma_launch(const void* x, const void* wt, const void* bias, void* out,
-                                  int n, int h, int w, int c, int dtype, void* stream) {
+                                  int n, int h, int w, int c, int dtype, int bias_relu,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (w + TW - 1) / TW;
   const dim3 grid(tiles_x * ((h + TH - 1) / TH), (c + CO_T - 1) / CO_T, n);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) {
-    conv3x3_fma_kernel<float><<<grid, THREADS, 0, s>>>(
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && bias_relu) {
+    conv3x3_fma_kernel<float, true><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt), b,
         static_cast<float*>(out), h, w, c, tiles_x);
+  } else if (dtype == 0) {
+    conv3x3_fma_kernel<float, false><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(wt), b,
+        static_cast<float*>(out), h, w, c, tiles_x);
+  } else if (dtype == 1 && bias_relu) {
+    conv3x3_fma_kernel<bf16, true><<<grid, THREADS, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
+        static_cast<bf16*>(out), h, w, c, tiles_x);
   } else if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
-    conv3x3_fma_kernel<bf16><<<grid, THREADS, 0, s>>>(
+    conv3x3_fma_kernel<bf16, false><<<grid, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
         static_cast<bf16*>(out), h, w, c, tiles_x);
   } else {

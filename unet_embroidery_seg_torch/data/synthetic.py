@@ -1,4 +1,4 @@
-"""Seeded synthetic predict inputs that need no image library."""
+"""Seeded synthetic predict and train inputs that need no image library."""
 
 from __future__ import annotations
 
@@ -25,3 +25,17 @@ def letterboxed_canvases(n: int, size: int, seed: int) -> np.ndarray:
         top, left = (size - nh) // 2, (size - nw) // 2
         out[i, top : top + nh, left : left + nw] = img[0].clamp(0, 1).permute(1, 2, 0).numpy()
     return out
+
+
+def seeded_train_batch(batch: int, size: int, seed: int):
+    """(images, pngs, sample_mask) of one train batch, all from ``seed``.
+
+    Images are ``letterboxed_canvases``; each mask is one disc (a blob the
+    model can learn) of ~5-30% of the canvas; every sample is valid.
+    """
+    images = letterboxed_canvases(batch, size, seed=seed)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    cx, cy, r = rng.uniform(0.2, 0.8, (3, batch, 1, 1))
+    pngs = (((xx - cx) ** 2 + (yy - cy) ** 2) < (0.5 * r) ** 2).astype(np.int32)
+    return images, pngs, np.ones(batch, np.float32)

@@ -31,9 +31,34 @@ def conv1x1(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> nn.C
     return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
 
 
-def BatchNorm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm with torch's defaults, which the JAX package matches (momentum 0.1, eps 1e-5)."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm as the JAX package's flax ``nn.BatchNorm`` (momentum 0.1, eps 1e-5).
+
+    Normalisation uses the biased batch variance, as in torch. The running
+    variance is updated as flax does it, with the biased variance too:
+    ``ra_var = 0.9 * ra_var + 0.1 * var``, where ``nn.BatchNorm2d`` puts in
+    the unbiased one, n / (n - 1) times larger for n values per channel.
+    Train mode lets torch update the buffers and then scales its update
+    back (a few ops on C values), so the forward itself stays cuDNN's. The
+    corrected variance is a new tensor bound to the buffer: autograd saved
+    the one torch updated and checks that it is not modified in place.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            before = self.running_var.clone()
+        y = super().forward(x)
+        with torch.no_grad():
+            # torch: rv = (1 - m) * before + m * var * n / (n - 1); flax has m * var.
+            self.running_var = torch.add(self.running_var * ((n - 1) / n), before,
+                                         alpha=(1.0 - self.momentum) / n)
+        return y
 
 
 class Upsample2x(nn.Module):

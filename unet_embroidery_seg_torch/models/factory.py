@@ -2,7 +2,8 @@
 
 The registry keeps the reference's five names; only ``unet_resnet50`` is
 ported so far, and the other four raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+ROADMAP item that ports them. ``load_weights_flexible`` is the shape-matched
+partial load behind ``--weights``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def build_model(
     num_classes: int,
     *,
     decoder_width: float = 1.0,
+    diff_head: bool = False,
     generator: torch.Generator | None = None,
     device: str | torch.device = "cuda",
 ) -> nn.Module:
@@ -43,7 +45,9 @@ def build_model(
     The weights are the reference 'normal' init drawn on the CPU from
     ``generator`` (seed 0 when none is given), so they do not depend on the
     device. The model lives in ``channels_last`` memory with float32
-    parameters.
+    parameters. ``diff_head=True`` (binary training) makes the model return
+    the (N, H, W) logit difference instead of 2-channel logits, with the
+    same parameters (``blocks.ClassHead``).
     """
     dev = resolve_device(device)
     if model_name not in SUPPORTED_MODELS:
@@ -54,8 +58,24 @@ def build_model(
         raise NotImplementedError(
             f"{model_name} is not ported to PyTorch yet: {_NOT_PORTED[model_name]}"
         )
-    model = UNetResNet50(num_classes=num_classes, decoder_width=decoder_width)
+    model = UNetResNet50(num_classes=num_classes, decoder_width=decoder_width, diff_head=diff_head)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
     return model.to(device=dev, memory_format=torch.channels_last)
+
+
+def load_weights_flexible(model: nn.Module, state_dict: dict) -> tuple[int, int]:
+    """Load the entries of ``state_dict`` whose key and shape both match, in place.
+
+    The reference's ``model_factory.py:41-64`` semantics, as in the JAX
+    package: everything else in ``model`` is kept as it is (so a finetune
+    across a head-size change works), and (loaded, skipped) are returned.
+    """
+    own = model.state_dict()
+    matched = {k: v for k, v in state_dict.items()
+               if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    with torch.no_grad():
+        for k, v in matched.items():
+            own[k].copy_(v)
+    return len(matched), len(state_dict) - len(matched)

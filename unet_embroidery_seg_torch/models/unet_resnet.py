@@ -4,6 +4,8 @@ Decoder: 4 UnetUpNoBN stages over in_filters [192, 512, 1024, 3072] ->
 out_filters [64, 128, 256, 512], a final 2x upsample head back to full
 resolution, and a 1x1 class head. ``decoder_width`` scales the decoder
 widths (1.0 is the reference architecture); checkpoints are width-specific.
+``diff_head=True`` (binary training) returns the (N, H, W) logit difference
+instead of (N, 2, H, W) logits, with the same parameters.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from unet_embroidery_seg_torch.models.resnet_backbone import ResNet50Backbone
 
 
 class UNetResNet50(nn.Module):
-    def __init__(self, num_classes: int = 21, decoder_width: float = 1.0):
+    def __init__(self, num_classes: int = 21, decoder_width: float = 1.0, diff_head: bool = False):
         super().__init__()
         self.resnet = ResNet50Backbone()
         out = tuple(int(f * decoder_width) for f in (64, 128, 256, 512))
@@ -26,7 +28,7 @@ class UNetResNet50(nn.Module):
         self.up_concat2 = UnetUpNoBN(256 + out[2], out[1])
         self.up_concat1 = UnetUpNoBN(64 + out[1], out[0])
         self.up_conv = FinalUpConv(out[0])
-        self.final = ClassHead(out[0], num_classes)
+        self.final = ClassHead(out[0], num_classes, diff=diff_head)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat1, feat2, feat3, feat4, feat5 = self.resnet(x)

@@ -1,4 +1,4 @@
-"""Square SAME 3x3 conv + bias + ReLU: the CUDA kernel, its plain version, its wrapper.
+"""Square SAME 3x3 conv + bias + ReLU: the CUDA kernel, its plain versions, its wrappers.
 
 Replaces ``docs/negative-results/pallas_conv.py:conv3x3_same`` (the Pallas
 TPU kernel) at the six square decoder convs of unet_resnet50,
@@ -13,20 +13,26 @@ so the kernel does both in its epilogue and the plain version does the same.
   site) is an implicit GEMM on the tensor cores (TMA halo ring, ``wgmma``):
   ``c64_persistent`` for C <= 64, ``wgmma`` above; everything else runs on
   the CUDA cores (``fma``). ``conv3x3_path`` names the path a call takes.
-- Plain version: ``conv3x3_bias_relu_plain``, nine shifted-slice products
-  accumulated in float32, the arithmetic of the Pallas kernel's per-row
-  im2col GEMMs.
-- Wrapper: ``conv3x3_bias_relu``. A CPU tensor takes the plain version; a
-  CUDA tensor launches the kernel or raises on what the kernel does not
-  take. ``conv3x3_bias_relu.launches`` counts kernel launches and nothing
-  else.
+- dgrad: the same kernel, as the Pallas kernel's docstring has it: dx is
+  the same conv of the output's gradient with the weights flipped in space
+  and transposed in channels, the epilogue's bias and ReLU off
+  (``conv3x3_dgrad``). wgrad is cuDNN's (``torch.nn.grad.conv2d_weight``):
+  the Pallas kernel never computed it, the JAX package left it to XLA.
+- Plain versions: ``conv3x3_bias_relu_plain`` and ``conv3x3_dgrad_plain``,
+  nine shifted-slice products accumulated in float32, the arithmetic of the
+  Pallas kernel's per-row im2col GEMMs.
+- Wrappers: ``conv3x3_bias_relu``, a ``torch.autograd.Function`` whose
+  backward runs ``conv3x3_dgrad``, and ``conv3x3_dgrad``. A CPU tensor takes
+  the plain versions; a CUDA tensor launches the kernel or raises on what
+  the kernel does not take. ``conv3x3_bias_relu.launches`` and
+  ``conv3x3_dgrad.launches`` count kernel launches and nothing else.
 
 Weights are OIHW (``nn.Conv2d``'s layout). ``pack_conv3x3_weight`` puts them
-in the kernel's layout. With grad mode off (predict) the wrapper packs a
-weight once per parameter version and keeps the packed copy, and the
+in the kernel's layout. With grad mode off (predict, eval) the wrapper packs
+a weight once per parameter version and keeps the packed copy, and the
 float32 bias, until the parameter is updated in place, given a new storage,
-or freed; with grad on it packs on every call (``_packed_params``, which
-also states what the cache cannot see).
+or freed; with grad on (training) and in dgrad it packs on every call
+(``_packed_params``, which also states what the cache cannot see).
 """
 
 from __future__ import annotations
@@ -36,22 +42,24 @@ import weakref
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from unet_embroidery_seg_torch.ops import _build
 
-__all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_path", "pack_conv3x3_weight"]
+__all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
+           "conv3x3_path", "pack_conv3x3_weight"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 CHUNK = 64  # input channels per halo stage of the tensor-core path
 
 
-def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
+def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> None:
     if x.dim() != 4:
         raise ValueError(f"conv3x3: x must be NCHW, got shape {tuple(x.shape)}")
     c = x.shape[1]
-    if tuple(weight.shape) != (c, c, 3, 3) or tuple(bias.shape) != (c,):
+    if tuple(weight.shape) != (c, c, 3, 3) or (bias is not None and tuple(bias.shape) != (c,)):
         raise ValueError(
             f"conv3x3: needs a ({c}, {c}, 3, 3) weight and a ({c},) bias for "
             f"{c} channels, got {tuple(weight.shape)} and {tuple(bias.shape)}"
@@ -127,15 +135,8 @@ def _packed_params(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype)
     return packed, b
 
 
-def conv3x3_bias_relu_plain(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
-) -> torch.Tensor:
-    """relu(conv3x3_same(x, weight) + bias) as nine shifted-slice products.
-
-    The weights are rounded to ``x.dtype`` (as the kernel reads them), then
-    everything is accumulated in float32 and the result cast to ``x.dtype``.
-    """
-    _check_shapes(x, weight, bias)
+def _conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv as nine shifted-slice products, weights rounded to ``x.dtype``, in f32."""
     n, c, h, w = x.shape
     xp = F.pad(x.float(), (1, 1, 1, 1))
     wf = weight.to(x.dtype).float()
@@ -145,44 +146,147 @@ def conv3x3_bias_relu_plain(
             acc += torch.einsum(
                 "nihw,oi->nohw", xp[:, :, ky : ky + h, kx : kx + w], wf[:, :, ky, kx]
             )
-    y = torch.relu(acc + bias.float()[None, :, None, None])
+    return acc
+
+
+def conv3x3_bias_relu_plain(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """relu(conv3x3_same(x, weight) + bias) as nine shifted-slice products.
+
+    The weights are rounded to ``x.dtype`` (as the kernel reads them), then
+    everything is accumulated in float32 and the result cast to ``x.dtype``.
+    """
+    _check_shapes(x, weight, bias)
+    y = torch.relu(_conv3x3_f32(x, weight) + bias.float()[None, :, None, None])
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """relu(conv3x3_same(x, weight) + bias) for an NCHW tensor (channels_last on the card)."""
-    if x.device.type == "cpu":
-        return conv3x3_bias_relu_plain(x, weight, bias)
+def _dgrad_weight(weight: torch.Tensor) -> torch.Tensor:
+    """W flipped in space and transposed in channels: dgrad's conv weight."""
+    return weight.detach().flip(2, 3).transpose(0, 1)
+
+
+def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """dx of conv3x3_same(x, weight) from the output's gradient ``g``, as nine products.
+
+    The same conv of ``g`` with the weights flipped in space and transposed
+    in channels, rounded to ``g.dtype``, accumulated in float32, cast to
+    ``g.dtype`` (the kernel's arithmetic).
+    """
+    _check_shapes(g, weight, None)
+    dx = _conv3x3_f32(g, _dgrad_weight(weight))
+    return dx.to(g.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
+            what: str) -> torch.Tensor:
+    """The kernel on ``x`` with packed weights; bias and ReLU fused when ``bias`` is given."""
     if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: unsupported device {x.device}")
-    _check_shapes(x, weight, bias)
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"conv3x3: needs float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"{what}: needs float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("conv3x3: the CUDA kernel needs channels_last memory")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("conv3x3: x, weight and bias must be on one device")
+        raise ValueError(f"{what}: the CUDA kernel needs channels_last memory")
+    if packed.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError(f"{what}: x, weight and bias must be on one device")
     n, c, h, w = x.shape
     path = conv3x3_path(c, x.dtype)
     if path != "fma" and x.data_ptr() % 16 != 0:
-        raise ValueError("conv3x3: the tensor-core path needs a 16-byte aligned input (TMA)")
+        raise ValueError(f"{what}: the tensor-core path needs a 16-byte aligned input (TMA)")
     out = torch.empty_like(x, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    packed, b = _packed_params(weight, bias, x.dtype)
+    b = 0 if bias is None else bias.data_ptr()
+    fused = int(bias is not None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if path == "fma":
             fn = _build.load("conv3x3_same", "conv3x3_fma_launch", _FMA_ARGTYPES)
-            code = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
-                      _DTYPE_CODES[x.dtype], stream)
+            code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c,
+                      _DTYPE_CODES[x.dtype], fused, stream)
         else:
             fn = _build.load("conv3x3_same", "conv3x3_wgmma_launch", _WGMMA_ARGTYPES)
-            code = fn(x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
+            code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c, fused,
                       stream)
-    _build.check(code, "conv3x3")
+    _build.check(code, what)
+    return out
+
+
+def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             cache: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return conv3x3_bias_relu_plain(x, weight, bias)
+    _check_shapes(x, weight, bias)
+    if cache:
+        packed, b = _packed_params(weight, bias, x.dtype)
+    else:
+        packed, b = pack_conv3x3_weight(weight, x.dtype), bias.detach().float().contiguous()
+    out = _launch(x, packed, b, "conv3x3")
     conv3x3_bias_relu.launches += 1
     return out
+
+
+def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """dx of conv3x3_same(x, weight) from the output's gradient ``g`` (NCHW).
+
+    A CPU tensor takes ``conv3x3_dgrad_plain``; a CUDA tensor (channels_last)
+    runs the conv kernel on ``g`` with the flipped, transposed weights
+    (packed anew on every call) and its epilogue's bias and ReLU off.
+    """
+    if g.device.type == "cpu":
+        return conv3x3_dgrad_plain(g, weight)
+    _check_shapes(g, weight, None)
+    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad")
+    conv3x3_dgrad.launches += 1
+    return dx
+
+
+conv3x3_dgrad.launches = 0
+
+
+class _Conv3x3BiasRelu(torch.autograd.Function):
+    """relu(conv(x, W) + b) with the kernels forward and (dgrad) backward.
+
+    Backward of the fused op: g_pre = g * (y > 0) with y the saved output;
+    dx = dgrad(g_pre) through the conv kernel; db = sum of g_pre; dW by
+    ``torch.nn.grad.conv2d_weight`` (cuDNN on the card), as the JAX package
+    left wgrad to XLA. dW and db come back in the parameters' dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, cache: bool):
+        y = _forward(x, weight, bias, cache)
+        if not cache:  # grad mode on: a backward may follow
+            ctx.save_for_backward(x, weight, y)
+            ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, y = ctx.saved_tensors
+        g_pre = torch.empty_like(y, memory_format=torch.channels_last)
+        torch.ops.aten.threshold_backward.grad_input(g, y, 0, grad_input=g_pre)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_dgrad(g_pre, weight).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(x, weight.shape, g_pre.to(x.dtype), padding=1)
+            dw = dw.to(weight.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g_pre.sum(dim=(0, 2, 3), dtype=torch.float32).to(ctx.bias_dtype)
+        return dx, dw, db, None
+
+
+def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3_same(x, weight) + bias) for an NCHW tensor (channels_last on the card).
+
+    Differentiable in x, weight and bias. With grad mode off the packed
+    weights come from the per-version cache; with it on (training) every
+    call packs what the weight holds now.
+    """
+    return _Conv3x3BiasRelu.apply(x, weight, bias, not torch.is_grad_enabled())
 
 
 conv3x3_bias_relu.launches = 0

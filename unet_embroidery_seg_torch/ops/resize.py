@@ -5,7 +5,9 @@ the semantics it reproduces.
 
 The 1-D interpolation tables are computed in float64 on the host exactly as
 the JAX package computes them, so the weights the CUDA upsample kernel reads
-are the JAX float32 weights bit for bit. Two conventions, as in the reference:
+are the JAX float32 weights bit for bit; the backward kernel's inverse
+tables are entries of the same matrices. Two conventions, as in the
+reference:
 
   - ``align_corners=False`` (``nn.Upsample(mode="bilinear")``): half-pixel
     centres;
@@ -65,4 +67,18 @@ def upsample2x_plain(x: torch.Tensor, align_corners: bool = False) -> torch.Tens
     y = torch.einsum("oh,nchw->ncow", mh, x.float())
     y = torch.einsum("pw,ncow->ncop", mw, y)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def upsample2x_backward_plain(g: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """dx of ``upsample2x_plain`` from the output's gradient: the transposed contractions.
+
+    ``g`` is (N, C, 2H, 2W); maths in float32, the result cast back to
+    ``g.dtype`` in ``channels_last`` memory (the backward kernel's convention).
+    """
+    h, w = g.shape[-2] // 2, g.shape[-1] // 2
+    mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=g.device)
+    mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=g.device)
+    dx = torch.einsum("oh,ncop->nchp", mh, g.float())
+    dx = torch.einsum("pw,nchp->nchw", mw, dx)
+    return dx.to(g.dtype).contiguous(memory_format=torch.channels_last)
 

@@ -1,7 +1,8 @@
 """Experiment folders (copy of ``unet_embroidery_seg_tpu/utils/exp_folder.py``).
 
-Predictions land in ``run/predict/exp{,1,2,...}``, the first free index,
-as in the reference.
+Training runs land in ``run/train/exp{,1,2,...}`` (the first free index)
+with a ``weights/`` subfolder, predictions in ``run/predict/expN``, as in
+the reference. ``scripts/make_tables.py`` globs ``run/train/exp*``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ def _next_exp_dir(parent: str) -> str:
         if not os.path.exists(candidate):
             return candidate
         n += 1
+
+
+def create_exp_folder(root: str = "run") -> tuple[str, str]:
+    """Create run/train/expN and its weights/; returns (exp_dir, weights_dir)."""
+    exp_folder = _next_exp_dir(os.path.join(root, "train"))
+    weights_folder = os.path.join(exp_folder, "weights")
+    os.makedirs(weights_folder)
+    return exp_folder, weights_folder
 
 
 def create_val_exp_folder(root: str = "run") -> str:

@@ -4,14 +4,15 @@
 time is shorter than its Python dispatch (~20 us for a kernel wrapper) is
 timed as the host issues it. ``graph_ms`` captures the calls into a CUDA
 graph and replays it, which takes the host out of the loop: the card's own
-time. Both need a CUDA card.
+time. Both need a CUDA card. ``device_ms_by_group`` sums a
+``torch.profiler`` window's card time by kernel group.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["event_ms", "graph_ms"]
+__all__ = ["KERNEL_GROUPS", "device_ms_by_group", "event_ms", "graph_ms"]
 
 
 def event_ms(fn, budget_ms: float = 300.0) -> float:
@@ -54,3 +55,48 @@ def graph_ms(fn, probe_ms: float, budget_ms: float = 300.0) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * rounds)
+
+
+# Kernel-name fragments -> group, first match wins; the rest is "other elementwise".
+KERNEL_GROUPS = [
+    ("port upsample2x backward", ("upsample2x_bwd_kernel",)),
+    ("port upsample2x", ("upsample2x_kernel",)),
+    ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
+    ("memcpy", ("Memcpy", "memcpy")),
+    ("Adam (foreach)", ("multi_tensor", "foreach", "Adam", "adam")),
+    ("sort (Lovasz)", ("sort", "Sort", "radix", "Radix")),
+    ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "sm90", "cutlass", "implicit",
+                                    "dgrad", "wgrad")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "bn_")),
+    ("cat", ("CatArrayBatchedCopy", "cat")),
+    ("softmax", ("softmax",)),
+    ("reductions and scans", ("reduce", "scan", "Scan")),
+    ("pool", ("pool",)),
+]
+
+
+def _group_of(name: str) -> str:
+    for group, keys in KERNEL_GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other elementwise"
+
+
+def device_ms_by_group(prof, calls: int) -> tuple[dict[str, float], list[dict]]:
+    """(card ms per call by kernel group, largest first; the 15 largest kernels) of a window.
+
+    ``prof`` is a finished ``torch.profiler.profile`` over ``calls`` calls.
+    The optimizer's profiler annotation is skipped: its kernels count on
+    their own.
+    """
+    by_group: dict[str, float] = {}
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key.startswith("Optimizer."):
+            continue
+        ms = evt.self_device_time_total / 1e3 / calls
+        if ms > 0:
+            by_group[_group_of(evt.key)] = by_group.get(_group_of(evt.key), 0.0) + ms
+            top.append((ms, evt.key[:90]))
+    return (dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+            [{"ms": ms, "name": n} for ms, n in sorted(top, reverse=True)[:15]])
