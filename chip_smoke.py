@@ -266,7 +266,7 @@ def check_backward_sites(gen: torch.Generator) -> list[dict]:
                 g, [2 * h, 2 * h], [BATCH, c, h, h], True)
             nbytes = g.numel() * es * 5 / 4  # read g once, write dx (a quarter of it)
             flops = 8.0 * g.numel()  # each g element feeds <= 4 dx elements, one FMA each
-            path = "gather, cat slice" if skip else "gather"
+            path = "staged, cat slice" if skip else "staged"
         else:
             g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(memory_format=cl)
             es = g.element_size()

@@ -137,7 +137,10 @@ def test_conv3x3_tensor_core_path_rejects_misaligned_input(device):
 
 
 UPSAMPLE_BWD_SHAPES = [(2, 64, 15, 15), (1, 5, 3, 7), (3, 24, 1, 2), (1, 2048, 4, 4),
-                       (2, 72, 9, 21), (1, 64, 1, 40), (2, 128, 16, 16)]
+                       (2, 72, 9, 21), (1, 64, 1, 40), (2, 128, 16, 16),
+                       # across band and strip edges, a partial last band and strip
+                       (2, 64, 40, 70), (1, 256, 33, 17), (1, 16, 37, 50),
+                       (1, 64, 1, 1), (2, 8, 23, 1), (1, 128, 1, 33)]  # H = 1, W = 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -157,12 +160,14 @@ def test_upsample_backward_kernel_matches_plain(device, shape, align_corners, dt
     assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-5)
 
 
-@pytest.mark.parametrize("layout", ["cat_slice", "nchw"])
-def test_upsample_backward_reads_strided_gradients(device, layout):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,skip", [("cat_slice", 24), ("nchw", 24),
+                                         ("cat_slice", 5)])  # 5: not a vector: VEC = 1
+def test_upsample_backward_reads_strided_gradients(device, layout, skip, dtype):
     # The decoder's gradient is a channel slice of torch.cat's (read in
     # place); a plain NCHW gradient is copied to channels_last first.
-    skip, c, h, w = 24, 64, 6, 10
-    full = _x((2, skip + c, 2 * h, 2 * w), torch.bfloat16, device, seed=5)
+    c, h, w = 64, 6, 10
+    full = _x((2, skip + c, 2 * h, 2 * w), dtype, device, seed=5)
     g = full[:, skip:] if layout == "cat_slice" else full[:, skip:].contiguous()
     got = upsample2x_backward(g, True)
     want = upsample2x_backward_plain(g.contiguous(), True)

@@ -17,13 +17,19 @@ import jax
 import jax.numpy as jnp
 
 from unet_embroidery_seg_tpu.ops import resize as jax_resize
+from unet_embroidery_seg_torch.ops import upsample as upsample_mod
 from unet_embroidery_seg_torch.ops.conv3x3 import (
     conv3x3_bias_relu,
     conv3x3_dgrad,
     conv3x3_dgrad_plain,
 )
 from unet_embroidery_seg_torch.ops.upsample import (
+    BWD_BANDS,
+    BWD_STRIPS,
+    backward_reach,
+    backward_taps,
     inverse_taps,
+    tile_input_span,
     upsample2x,
     upsample2x_backward,
     upsample2x_backward_plain,
@@ -149,3 +155,114 @@ def test_inverse_taps_are_the_transposed_interpolation_matrix(size, align_corner
         for k in range(idx.shape[1]):
             m[idx[i, k], i] += wgt[i, k]
     np.testing.assert_array_equal(m, jax_resize._interp_matrix(size, 2 * size, align_corners))
+
+
+# --- the backward kernel's tables and schedule (csrc/upsample2x_bwd.cu) --------
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("band", BWD_BANDS + BWD_STRIPS)
+def test_backward_band_reads_at_most_2t_plus_2_outputs(band, align_corners):
+    # A block streams the output rows (columns) its band (strip) of inputs
+    # reads through a ring sized for 2 T + 2 of them; every 2x resize fits.
+    for size in range(1, 1101):
+        first, last = backward_reach(size, align_corners)
+        assert tile_input_span(first, last, band) <= 2 * band + 2, size
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("size", [1, 2, 3, 15, 16, 17, 30, 33, 64, 255, 256])
+def test_backward_taps_transpose_to_inverse_taps(size, align_corners):
+    # Row pass (per output) and column pass (per input) multiply by the same
+    # matrix entries, entry by entry, as the transposed contraction.
+    i0, i1, w0, w1 = backward_taps(size, align_corners)
+    per_output = {}
+    for o in range(2 * size):
+        per_output[(o, int(i0[o]))] = w0[o]
+        if i1[o] != i0[o]:
+            per_output[(o, int(i1[o]))] = w1[o]
+        else:
+            assert w1[o] == 0
+    idx, wgt = inverse_taps(size, align_corners)
+    per_input = {(int(idx[i, k]), i): wgt[i, k]
+                 for i in range(size) for k in range(idx.shape[1]) if wgt[i, k] != 0}
+    assert {k: v for k, v in per_output.items() if v != 0} == per_input
+    first, last = backward_reach(size, align_corners)
+    for i in range(size):  # every output that reads i, and no other
+        reads = [o for o in range(2 * size) if i in (i0[o], i1[o])]
+        assert (first[i], last[i]) == (reads[0], reads[-1])
+        assert reads == list(range(first[i], last[i] + 1))
+
+
+def _streamed_backward(g: np.ndarray, align_corners: bool, band: int, strip: int) -> np.ndarray:
+    """numpy model of the backward kernel's schedule on NHWC ``g``, in float32.
+
+    Reads the device tables as the kernel does (same layout and offsets),
+    with the kernel's band and strip edges: per block, the output rows
+    [first, last] of its band streamed top to bottom, each cut to the
+    strip's output columns; a column pass over each input column's 4
+    inverse taps; a row pass into the two rolling input-row accumulators,
+    storing a row when i0 moves past it. Every dx element is written once.
+    """
+    n, oh, ow, c = g.shape
+    h, w = oh // 2, ow // 2
+    cpu = torch.device("cpu")
+    ridx, rw = (t.numpy() for t in upsample_mod._backward_tables(h, align_corners, cpu))
+    cidx, cw = (t.numpy() for t in upsample_mod._backward_tables(w, align_corners, cpu))
+    dx = np.full((n, h, w, c), np.nan, np.float32)
+    written = np.zeros((h, w), np.int32)
+    taps = np.arange(4)
+    for iy0 in range(0, h, band):
+        nr = min(band, h - iy0)
+        oy0 = ridx[oh + iy0]
+        nrows = ridx[oh + h + iy0 + nr - 1] - oy0 + 1
+        assert nrows <= 2 * band + 2
+        for ix0 in range(0, w, strip):
+            nc = min(strip, w - ix0)
+            ox0 = cidx[ow + ix0]
+            ncols = cidx[ow + w + ix0 + nc - 1] - ox0 + 1
+            assert ncols <= 2 * strip + 2
+            ix = ix0 + np.arange(nc)
+            wx = cw[2 * ow + ix[:, None] * 4 + taps]                      # (nc, 4)
+            off = np.where(wx != 0, cidx[ow + 2 * w + ix[:, None] * 4 + taps] - ox0, 0)
+            assert off.min() >= 0 and off.max() < ncols
+
+            def store(r, acc):
+                if iy0 <= r < iy0 + nr:
+                    dx[:, r, ix0 : ix0 + nc] = acc
+                    written[r, ix0 : ix0 + nc] += 1
+
+            rlo = ridx[oy0]
+            lo = np.zeros((n, nc, c), np.float32)
+            hi = np.zeros((n, nc, c), np.float32)
+            for k in range(nrows):
+                staged = g[:, oy0 + k, ox0 : ox0 + ncols]                 # (n, ncols, c)
+                racc = np.zeros((n, nc, c), np.float32)
+                for j in range(4):
+                    racc += wx[None, :, j, None] * staged[:, off[:, j]]
+                i0 = ridx[oy0 + k]
+                if i0 != rlo:
+                    assert i0 == rlo + 1
+                    store(rlo, lo)
+                    lo, hi, rlo = hi, np.zeros_like(hi), i0
+                lo += rw[oy0 + k] * racc
+                hi += rw[oh + oy0 + k] * racc
+            store(rlo, lo)
+            store(rlo + 1, hi)
+    assert (written == 1).all()
+    return dx
+
+
+@pytest.mark.parametrize("band,strip", [(b, s) for b in BWD_BANDS for s in BWD_STRIPS])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_streamed_backward_schedule_matches_plain(band, strip, align_corners):
+    # Odd sizes, sizes that leave a partial last band and strip, H = 1 and
+    # W = 1: the kernel's index and weight logic against the transposed
+    # contraction, without a card.
+    rng = np.random.RandomState(band * 100 + strip + int(align_corners))
+    for n, h, w, c in [(2, 7, 37, 3), (1, 19, 5, 2), (1, 1, 9, 2), (1, 6, 1, 3), (1, 34, 40, 1)]:
+        g = rng.randn(n, 2 * h, 2 * w, c).astype(np.float32)
+        got = _streamed_backward(g, align_corners, band, strip)
+        want = _nhwc(upsample2x_backward_plain(_nchw(g), align_corners))
+        # f32 both sides, <= 16 taps of O(1) values summed in another order.
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

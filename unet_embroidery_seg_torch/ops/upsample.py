@@ -12,10 +12,14 @@ einsum).
   16 and 256 bytes where C is wide) in shared memory once, then writes the
   tile 16 bytes a thread; the tap tables come from the host, so any H, W, C
   works.
-- Backward kernel: ``csrc/upsample2x_bwd.cu``, gather-style: each input
-  pixel sums its own output taps, read through the inverse tables
-  (``_inverse_tables``), with no atomics, so the gradient is deterministic.
-  Bound by bytes: it reads the output's gradient once and writes dx once.
+- Backward kernel: ``csrc/upsample2x_bwd.cu``. Bound by bytes: it reads
+  the output's gradient once and writes dx once. A block owns a band of
+  input rows, a strip of input columns and a channel chunk, and streams the
+  output rows the band reads through a ring in shared memory (``cp.async``);
+  each staged row is reduced to the strip's columns (column pass), then
+  added into the two input rows it reads, which roll down the band (row
+  pass). The tables come from ``backward_taps``, ``backward_reach`` and
+  ``inverse_taps``; no atomics, so the gradient is deterministic.
 - Plain versions: ``ops/resize.py:upsample2x_plain`` and
   ``upsample2x_backward_plain``, the interpolation-matrix contractions (the
   backward's are the transposed ones) in float32.
@@ -47,7 +51,7 @@ __all__ = ["upsample2x", "upsample2x_backward", "upsample2x_backward_plain", "up
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
@@ -56,7 +60,11 @@ TILE_SIZES = (8, 16, 32)
 
 
 def tile_input_span(idx0: np.ndarray, idx1: np.ndarray, tile: int) -> int:
-    """The most input rows (or columns) one ``tile`` of outputs reads."""
+    """The most input rows (or columns) one ``tile`` of outputs reads.
+
+    With ``backward_reach``'s (first, last) in place of the forward's taps:
+    the most outputs one ``tile`` of inputs is read by.
+    """
     starts = np.arange(0, len(idx0), tile)
     ends = np.minimum(starts + tile, len(idx0)) - 1
     return int((idx1[ends] - idx0[starts]).max()) + 1
@@ -97,11 +105,63 @@ def inverse_taps(size: int, align_corners: bool) -> tuple[np.ndarray, np.ndarray
     return idx, wgt
 
 
+# Input rows per band and input columns per strip of the backward kernel's
+# blocks (csrc/upsample2x_bwd.cu: band, TW); each reads at most 2 T + 2
+# outputs, the kernel's ring and table sizes.
+BWD_BANDS = (2, 4, 8, 16)
+BWD_STRIPS = (16, 32)
+BWD_TAPS = 4  # inverse taps per input (csrc/upsample2x_bwd.cu: TAPS)
+
+
+def backward_taps(size: int, align_corners: bool):
+    """Per-output taps of a 2x resize, for the backward kernel: ``(i0, i1, w0, w1)``.
+
+    Output o reads inputs ``i0[o]`` and ``i1[o]`` (equal at a clipped edge)
+    with the interpolation matrix's entries ``w0[o] = M[o, i0]`` and
+    ``w1[o] = M[o, i1]``, or 0 where ``i1 == i0`` (one entry, ``M[o, i0]``).
+    """
+    i0, i1, _ = _linear_coords(size, 2 * size, align_corners)
+    m = _interp_matrix(size, 2 * size, align_corners)
+    o = np.arange(2 * size)
+    w1 = np.where(i1 != i0, m[o, i1], np.float32(0.0)).astype(np.float32)
+    return i0, i1, m[o, i0], w1
+
+
+def backward_reach(size: int, align_corners: bool) -> tuple[np.ndarray, np.ndarray]:
+    """(first, last) int32: input i of a 2x resize is read by outputs first[i]..last[i], no others.
+
+    Both index tables are non-decreasing and step by at most one, so the
+    first output with ``i1 >= i`` and the last with ``i0 <= i`` read i.
+    """
+    i0, i1, _ = _linear_coords(size, 2 * size, align_corners)
+    inputs = np.arange(size)
+    first = np.searchsorted(i1, inputs, side="left")
+    last = np.searchsorted(i0, inputs, side="right") - 1
+    return first.astype(np.int32), last.astype(np.int32)
+
+
 @lru_cache(maxsize=None)
-def _inverse_tables(size: int, align_corners: bool, device: torch.device):
-    """``inverse_taps`` on ``device``: (index int32, weight float32, K)."""
-    idx, wgt = inverse_taps(size, align_corners)
-    return (torch.tensor(idx, device=device), torch.tensor(wgt, device=device), idx.shape[1])
+def _backward_tables(size: int, align_corners: bool, device: torch.device):
+    """(idx int32, wgt float32) on ``device``, laid out as csrc/upsample2x_bwd.cu reads them.
+
+    idx = [i0, first, last, inverse index (size x 4)], wgt = [w0, w1,
+    inverse weight (size x 4)]. Checks what the kernel relies on: i0 steps
+    by at most one from output to output, every band and strip reads at most
+    2 T + 2 outputs, and no input has more than 4 nonzero taps.
+    """
+    i0, _, w0, w1 = backward_taps(size, align_corners)
+    first, last = backward_reach(size, align_corners)
+    inv_idx, inv_w = inverse_taps(size, align_corners)
+    if np.diff(i0).max(initial=0) > 1 or inv_idx.shape[1] > BWD_TAPS:
+        raise ValueError(f"upsample2x_backward: unexpected taps for size {size}")
+    for t in BWD_BANDS + BWD_STRIPS:
+        if tile_input_span(first, last, t) > 2 * t + 2:
+            raise ValueError(f"upsample2x_backward: a {t}-input band of size {size} "
+                             "reads too many outputs")
+    pad = ((0, 0), (0, BWD_TAPS - inv_idx.shape[1]))
+    idx = np.concatenate([i0, first, last, np.pad(inv_idx, pad).ravel()]).astype(np.int32)
+    wgt = np.concatenate([w0, w1, np.pad(inv_w, pad).ravel()]).astype(np.float32)
+    return torch.tensor(idx, device=device), torch.tensor(wgt, device=device)
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
@@ -174,12 +234,12 @@ def upsample2x_backward(g: torch.Tensor, align_corners: bool = False) -> torch.T
         g = g.contiguous(memory_format=torch.channels_last)
         strides = _pixel_strides(g)
     g_img, g_pix = strides
-    rows_idx, rows_w, kr = _inverse_tables(h, align_corners, g.device)
-    cols_idx, cols_w, kc = _inverse_tables(w, align_corners, g.device)
+    rows_idx, rows_w = _backward_tables(h, align_corners, g.device)
+    cols_idx, cols_w = _backward_tables(w, align_corners, g.device)
     fn = _build.load("upsample2x_bwd", "upsample2x_bwd_launch", _BWD_ARGTYPES)
     with torch.cuda.device(g.device):
         code = fn(g.data_ptr(), dx.data_ptr(), rows_idx.data_ptr(), rows_w.data_ptr(),
-                  cols_idx.data_ptr(), cols_w.data_ptr(), n, h, w, c, kr, kc, g_img, g_pix,
+                  cols_idx.data_ptr(), cols_w.data_ptr(), n, h, w, c, g_img, g_pix,
                   _DTYPE_CODES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream)
     _build.check(code, "upsample2x_backward")
     upsample2x_backward.launches += 1
