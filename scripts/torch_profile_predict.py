@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's predict time goes, on one CUDA card.
 
-    python scripts/torch_profile_predict.py [--batch 8]
+    python scripts/torch_profile_predict.py [--model unet_resnet50] [--batch 8]
 
-Builds full-width unet_resnet50 (2 classes, seeded random weights), then for
+Builds a full-width model (``--model``: unet_resnet50, unet_plain,
+attention_unet or dualdense_unet; 2 classes, seeded random weights), then for
 seeded letterboxed 480^2 canvases measures:
 
 - ``predict_ms``: host clock per call of the port's batch-predict function
@@ -38,6 +39,7 @@ from unet_embroidery_seg_torch.data.synthetic import letterboxed_canvases  # noq
 from unet_embroidery_seg_torch.engine.steps import make_predict_fn  # noqa: E402
 from unet_embroidery_seg_torch.models import build_model  # noqa: E402
 from unet_embroidery_seg_torch.predict import predict_probs  # noqa: E402
+from unet_embroidery_seg_torch.train import TRAINED_MODELS as PORTED  # noqa: E402
 from unet_embroidery_seg_torch.utils.timing import device_ms_by_group, graph_ms  # noqa: E402
 
 SIZE = 480  # the predict letterbox (predict.py --input-size default)
@@ -45,10 +47,11 @@ ITERS = 10  # calls per measurement
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="unet_resnet50", choices=PORTED)
     parser.add_argument("--batch", type=int, default=8)
     args = parser.parse_args(argv)
 
-    model = build_model("unet_resnet50", 2, generator=torch.Generator().manual_seed(0))
+    model = build_model(args.model, 2, generator=torch.Generator().manual_seed(0))
     predict_fn = make_predict_fn(model, amp=True)
     canvases = letterboxed_canvases(args.batch, SIZE, seed=0)
     for _ in range(3):
@@ -84,7 +87,7 @@ def main(argv=None) -> int:
     busy_ms = sum(by_group.values())
     per_call_window = window_ms / ITERS
     result = {
-        "card": torch.cuda.get_device_name(0),
+        "card": torch.cuda.get_device_name(0), "model": args.model,
         "batch": args.batch, "size": SIZE, "iters": ITERS,
         "predict_ms_median": statistics.median(predict_ms),
         "predict_ms_min": min(predict_ms), "predict_ms_max": max(predict_ms),

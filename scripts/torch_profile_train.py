@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's binary train step goes, on one CUDA card.
 
-    python scripts/torch_profile_train.py [--batch 8] [--size 512] [--loss lovasz_hinge]
+    python scripts/torch_profile_train.py [--model unet_resnet50] [--batch 8] [--size 512]
+        [--loss lovasz_hinge] [--no-amp]
 
-Builds full-width unet_resnet50 with the diff head (seeded random weights)
+Builds a full-width model (``--model``: unet_resnet50, unet_plain,
+attention_unet or dualdense_unet) with the diff head (seeded random weights)
 and the port's train step (bf16 autocast, Adam over float32 masters), then
 on one seeded batch measures:
 
@@ -34,21 +36,27 @@ from unet_embroidery_seg_torch.data.synthetic import seeded_train_batch  # noqa:
 from unet_embroidery_seg_torch.engine.steps import make_binary_train_step  # noqa: E402
 from unet_embroidery_seg_torch.models import build_model  # noqa: E402
 from unet_embroidery_seg_torch.ops import schedules  # noqa: E402
+from unet_embroidery_seg_torch.train import TRAINED_MODELS as PORTED  # noqa: E402
 from unet_embroidery_seg_torch.utils.timing import device_ms_by_group  # noqa: E402
 
 ITERS, PROFILED = 10, 5
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="unet_resnet50", choices=PORTED)
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--size", type=int, default=512)
     parser.add_argument("--loss", default="lovasz_hinge", choices=["bce", "lovasz_hinge"])
+    parser.add_argument("--amp", action=argparse.BooleanOptionalAction, default=True,
+                        help="bf16 autocast (default); --no-amp trains in f32, cuDNN with "
+                             "PyTorch's default TF32")
     args = parser.parse_args(argv)
 
-    model = build_model("unet_resnet50", 2, diff_head=True,
+    model = build_model(args.model, 2, diff_head=True,
                         generator=torch.Generator().manual_seed(0))
     opt = schedules.make_train_optimizer(model.parameters(), 1e-4)
-    step = make_binary_train_step(model, opt, args.loss, 3.0 if args.loss == "bce" else None)
+    step = make_binary_train_step(model, opt, args.loss, 3.0 if args.loss == "bce" else None,
+                                  amp=args.amp)
     batch = seeded_train_batch(args.batch, args.size, seed=0)
     for _ in range(3):
         step(*batch)
@@ -73,8 +81,9 @@ def main(argv=None) -> int:
     busy_ms = sum(by_group.values())
     per_step_window = window_ms / PROFILED
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
-        "batch": args.batch, "size": args.size, "loss": args.loss, "iters": ITERS,
+        "card": torch.cuda.get_device_name(0), "model": args.model,
+        "batch": args.batch, "size": args.size, "loss": args.loss, "amp": args.amp,
+        "iters": ITERS,
         "step_ms_median": statistics.median(step_ms),
         "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
         "images_per_s": args.batch / statistics.median(step_ms) * 1e3,

@@ -7,7 +7,9 @@ vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
 ``wgmma`` above; the rest on the CUDA cores, ``fma``). The backward kernels
 (upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
-Functions' gradients are held against the plain versions' autograd.
+Functions' gradients are held against the plain versions' autograd. The
+bias-free conv (``conv3x3_same``, epilogue off) runs at the same paths and
+at C = 1024, the widest DoubleConv of unet_plain and attention_unet.
 """
 
 import pytest
@@ -19,6 +21,8 @@ from unet_embroidery_seg_torch.ops.conv3x3 import (
     conv3x3_bias_relu_plain,
     conv3x3_dgrad,
     conv3x3_dgrad_plain,
+    conv3x3_same,
+    conv3x3_same_plain,
 )
 from unet_embroidery_seg_torch.ops.upsample import (
     upsample2x,
@@ -217,5 +221,67 @@ def test_conv3x3_function_grads_match_plain_autograd(device, shape, dtype):
         assert a.dtype == b.dtype, name
         # bf16: the ReLU masks may differ where y rounds differently (one
         # ulp); dW and db sum over every pixel, so hold them to 2% of scale.
+        tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * b.abs().max().item() + 1e-6
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+
+
+SAME_SHAPES = [(2, 64, 17, 33), (1, 48, 9, 20), (1, 128, 30, 32), (1, 256, 15, 15),
+               (1, 512, 7, 9), (1, 1024, 3, 5), (2, 1024, 4, 4),  # wgmma: 16 chunks of 64
+               (1, 80, 11, 13), (1, 24, 9, 5), (2, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SAME_SHAPES)
+def test_conv3x3_same_kernel_matches_plain(device, shape, dtype):
+    n, c, h, w = shape
+    x = torch.relu(_x(shape, dtype, device, seed=c + 12))  # the DoubleConv feeds it a ReLU
+    weight, _ = _conv_params(c, device, seed=c + 13)
+    before = (conv3x3_same.launches, conv3x3_bias_relu.launches)
+    got = conv3x3_same(x, weight)
+    torch.cuda.synchronize()
+    assert (conv3x3_same.launches, conv3x3_bias_relu.launches) == (before[0] + 1, before[1])
+    want = conv3x3_same_plain(x, weight)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1024, 3, 5), (2, 1024, 4, 4)])
+def test_conv3x3_dgrad_kernel_matches_plain_at_1024_channels(device, shape, dtype):
+    g = _x(shape, dtype, device, seed=shape[2] + 14)
+    weight, _ = _conv_params(shape[1], device, seed=15)
+    got = conv3x3_dgrad(g, weight)
+    want = conv3x3_dgrad_plain(g, weight)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+def test_conv3x3_same_cache_sees_in_place_weight_update(device):
+    x = _x((1, 128, 12, 20), torch.bfloat16, device, seed=16)
+    weight, _ = _conv_params(128, device, seed=17)
+    with torch.no_grad():
+        first = conv3x3_same(x, weight)
+        assert (id(weight), None, torch.bfloat16) in conv3x3_mod._packed
+        weight.mul_(-0.5)
+        second = conv3x3_same(x, weight)
+    want = conv3x3_same_plain(x, weight)
+    assert (second.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+    assert not torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 20, 24), (1, 1024, 4, 6), (1, 24, 9, 5)])
+def test_conv3x3_same_function_grads_match_plain_autograd(device, shape, dtype):
+    c = shape[1]
+    x = torch.relu(_x(shape, dtype, device, seed=c + 18)).requires_grad_()
+    weight, _ = _conv_params(c, device, seed=c + 19)
+    weight.requires_grad_()
+    g = _x(shape, dtype, device, seed=c + 20)
+    before = (conv3x3_same.launches, conv3x3_dgrad.launches)
+    got = torch.autograd.grad(conv3x3_same(x, weight), (x, weight), g)
+    assert (conv3x3_same.launches, conv3x3_dgrad.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(conv3x3_same_plain(x, weight), (x, weight), g)
+    for name, a, b in zip(("dx", "dW"), got, want):
+        assert a.dtype == b.dtype, name
+        # bf16: dW sums over every pixel (cuDNN's wgrad against f32 sums): 2% of scale.
         tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * b.abs().max().item() + 1e-6
         assert (a.float() - b.float()).abs().max().item() <= tol, name

@@ -205,6 +205,14 @@ def test_conv3x3_rejects_non_square_weights(w_shape, b_shape):
         conv3x3_bias_relu(x, torch.zeros(w_shape), torch.zeros(b_shape))
 
 
+@pytest.mark.parametrize("fn", ["conv3x3_same", "conv3x3_same_plain", "conv3x3_dgrad",
+                                "conv3x3_dgrad_plain"])
+def test_bias_free_convs_reject_a_wrong_weight_with_value_error(fn):
+    # No bias to format: the shape check must still raise its ValueError.
+    with pytest.raises(ValueError, match=r"\(4, 4, 3, 3\) weight"):
+        getattr(conv3x3_mod, fn)(torch.zeros(1, 4, 5, 5), torch.zeros(4, 3, 3, 3))
+
+
 # --- conv3x3 weight packing and its cache -------------------------------------------
 
 PACK_CASES = [(64, torch.bfloat16), (48, torch.bfloat16), (80, torch.bfloat16),
@@ -328,13 +336,46 @@ def test_packed_weight_cache_packs_every_call_with_grad_on():
     assert (id(weight), id(bias), torch.bfloat16) not in conv3x3_mod._packed
 
 
-@pytest.mark.parametrize("fn", ["upsample", "conv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_weight_only_cache_repacks_after_in_place_update_and_goes_with_the_weight(dtype):
+    # conv3x3_same's entries: keyed on the weight alone, same version,
+    # pointer and clean-up rules as the weight-and-bias entries.
+    weight = _oihw(32, seed=6)
+    key = (id(weight), None, dtype)
+    with torch.no_grad():
+        packed, b = conv3x3_mod._packed_params(weight, None, dtype)
+        assert b is None and key in conv3x3_mod._packed
+        assert conv3x3_mod._packed_params(weight, None, dtype)[0] is packed
+        weight.add_(1.0)
+        repacked, _ = conv3x3_mod._packed_params(weight, None, dtype)
+        assert repacked is not packed
+        torch.testing.assert_close(repacked, pack_conv3x3_weight(weight, dtype), rtol=0, atol=0)
+        weight.data = _oihw(32, seed=7)  # a new storage, the version counter untouched
+        torch.testing.assert_close(conv3x3_mod._packed_params(weight, None, dtype)[0],
+                                   pack_conv3x3_weight(_oihw(32, seed=7), dtype), rtol=0, atol=0)
+        del weight
+        gc.collect()
+        assert key not in conv3x3_mod._packed
+
+
+def test_weight_only_cache_packs_every_call_with_grad_on():
+    weight = torch.nn.Parameter(_oihw(16, seed=8))
+    packed, _ = conv3x3_mod._packed_params(weight, None, torch.bfloat16)
+    weight.data.mul_(-1.0)
+    repacked, _ = conv3x3_mod._packed_params(weight, None, torch.bfloat16)
+    torch.testing.assert_close(repacked, -packed, rtol=0, atol=0)
+    assert (id(weight), None, torch.bfloat16) not in conv3x3_mod._packed
+
+
+@pytest.mark.parametrize("fn", ["upsample", "conv", "conv_same"])
 def test_wrappers_raise_off_cpu_and_cuda(fn):
     # The meta device is neither: no plain fallback, no kernel, an error.
     x = torch.empty(1, 4, 5, 5, device="meta")
     with pytest.raises(ValueError):
         if fn == "upsample":
             upsample2x(x, True)
+        elif fn == "conv_same":
+            conv3x3_mod.conv3x3_same(x, torch.empty(4, 4, 3, 3, device="meta"))
         else:
             conv3x3_bias_relu(x, torch.empty(4, 4, 3, 3, device="meta"),
                               torch.empty(4, device="meta"))

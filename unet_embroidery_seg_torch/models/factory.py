@@ -1,9 +1,10 @@
 """Model registry and construction (port of ``unet_embroidery_seg_tpu/models/factory.py``).
 
-The registry keeps the reference's five names; only ``unet_resnet50`` is
-ported so far, and the other four raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. ``load_weights_flexible`` is the shape-matched
-partial load behind ``--weights``.
+The registry keeps the reference's five names. ``unet_resnet50``,
+``unet_plain``, ``attention_unet`` and ``dualdense_unet`` are ported;
+``multitask_unet`` raises ``NotImplementedError`` naming the ROADMAP item
+that ports it. ``load_weights_flexible`` is the shape-matched partial load
+behind ``--weights``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import torch
 import torch.nn as nn
 
 from unet_embroidery_seg_torch.models.blocks import init_weights
+from unet_embroidery_seg_torch.models.unet_attention import AttentionUNet
+from unet_embroidery_seg_torch.models.unet_dualdense import DualDenseUNet
+from unet_embroidery_seg_torch.models.unet_plain import UNetPlain
 from unet_embroidery_seg_torch.models.unet_resnet import UNetResNet50
 from unet_embroidery_seg_torch.utils.device import resolve_device
 
@@ -23,11 +27,14 @@ SUPPORTED_MODELS = (
     "multitask_unet",
 )
 
+_FAMILIES = {
+    "unet_plain": UNetPlain,
+    "attention_unet": AttentionUNet,
+    "dualdense_unet": DualDenseUNet,
+}
+
 _NOT_PORTED = {
-    "unet_plain": "ROADMAP.md Queue 1 item 7 (other model families)",
-    "attention_unet": "ROADMAP.md Queue 1 item 7 (other model families)",
-    "dualdense_unet": "ROADMAP.md Queue 1 item 7 (other model families)",
-    "multitask_unet": "ROADMAP.md Queue 1 items 7-8 (multitask model and task)",
+    "multitask_unet": "ROADMAP.md Queue 1 item 8 (multitask model and task)",
 }
 
 
@@ -58,7 +65,14 @@ def build_model(
         raise NotImplementedError(
             f"{model_name} is not ported to PyTorch yet: {_NOT_PORTED[model_name]}"
         )
-    model = UNetResNet50(num_classes=num_classes, decoder_width=decoder_width, diff_head=diff_head)
+    if decoder_width != 1.0 and model_name != "unet_resnet50":
+        raise ValueError(f"decoder_width is a unet_resnet50 option; got {decoder_width} "
+                         f"for {model_name}")
+    if model_name == "unet_resnet50":
+        model = UNetResNet50(num_classes=num_classes, decoder_width=decoder_width,
+                             diff_head=diff_head)
+    else:
+        model = _FAMILIES[model_name](num_classes=num_classes, diff_head=diff_head)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -1,11 +1,18 @@
-"""Square SAME 3x3 conv + bias + ReLU: the CUDA kernel, its plain versions, its wrappers.
+"""Square SAME 3x3 conv: the CUDA kernel, its plain versions, its wrappers.
 
 Replaces ``docs/negative-results/pallas_conv.py:conv3x3_same`` (the Pallas
-TPU kernel) at the six square decoder convs of unet_resnet50,
-``up_concat{4,3,2,1}.conv2`` and ``up_conv.1`` / ``up_conv.3``, which the JAX
-package computes with a flax ``nn.Conv`` (``models/blocks.py:conv3x3``).
-Every one of those sites adds a bias and applies ReLU right after the conv,
-so the kernel does both in its epilogue and the plain version does the same.
+TPU kernel) at every square (C_in = C_out) 3x3 conv of the ported models,
+which the JAX package computes with a flax ``nn.Conv``
+(``models/blocks.py:conv3x3``). Two forms:
+
+- ``conv3x3_bias_relu``: relu(conv + bias), the kernel's epilogue doing
+  both. The six square decoder convs of unet_resnet50,
+  ``up_concat{4,3,2,1}.conv2`` and ``up_conv.1`` / ``up_conv.3``, add a bias
+  and apply ReLU right after the conv.
+- ``conv3x3_same``: the bias-free conv alone, the Pallas kernel's own
+  function (its epilogue off). The ``conv2`` of every ``DoubleConv`` of
+  unet_plain and attention_unet (nine per model, C = 64 to 1024), which BN
+  and ReLU follow as stock ops.
 
 - Kernel: ``csrc/conv3x3_same.cu``. 408 GFLOP per forward at 480^2, batch 8,
   bf16; its bound on the H100 is ~420 us, set by operations at C >= 128 and
@@ -18,21 +25,23 @@ so the kernel does both in its epilogue and the plain version does the same.
   and transposed in channels, the epilogue's bias and ReLU off
   (``conv3x3_dgrad``). wgrad is cuDNN's (``torch.nn.grad.conv2d_weight``):
   the Pallas kernel never computed it, the JAX package left it to XLA.
-- Plain versions: ``conv3x3_bias_relu_plain`` and ``conv3x3_dgrad_plain``,
-  nine shifted-slice products accumulated in float32, the arithmetic of the
-  Pallas kernel's per-row im2col GEMMs.
-- Wrappers: ``conv3x3_bias_relu``, a ``torch.autograd.Function`` whose
-  backward runs ``conv3x3_dgrad``, and ``conv3x3_dgrad``. A CPU tensor takes
-  the plain versions; a CUDA tensor launches the kernel or raises on what
-  the kernel does not take. ``conv3x3_bias_relu.launches`` and
+- Plain versions: ``conv3x3_bias_relu_plain``, ``conv3x3_same_plain`` and
+  ``conv3x3_dgrad_plain``, nine shifted-slice products accumulated in
+  float32, the arithmetic of the Pallas kernel's per-row im2col GEMMs.
+- Wrappers: ``conv3x3_bias_relu`` and ``conv3x3_same``, each a
+  ``torch.autograd.Function`` whose backward runs ``conv3x3_dgrad``, and
+  ``conv3x3_dgrad``. A CPU tensor takes the plain versions; a CUDA tensor
+  launches the kernel or raises on what the kernel does not take.
+  ``conv3x3_bias_relu.launches``, ``conv3x3_same.launches`` and
   ``conv3x3_dgrad.launches`` count kernel launches and nothing else.
 
 Weights are OIHW (``nn.Conv2d``'s layout). ``pack_conv3x3_weight`` puts them
-in the kernel's layout. With grad mode off (predict, eval) the wrapper packs
-a weight once per parameter version and keeps the packed copy, and the
-float32 bias, until the parameter is updated in place, given a new storage,
-or freed; with grad on (training) and in dgrad it packs on every call
-(``_packed_params``, which also states what the cache cannot see).
+in the kernel's layout. With grad mode off (predict, eval) the wrappers pack
+a weight once per parameter version and keep the packed copy, and the
+float32 bias where there is one, until the parameter is updated in place,
+given a new storage, or freed; with grad on (training) and in dgrad they
+pack on every call (``_packed_params``, which also states what the cache
+cannot see).
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from torch.autograd.function import once_differentiable
 from unet_embroidery_seg_torch.ops import _build
 
 __all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
-           "conv3x3_path", "pack_conv3x3_weight"]
+           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -59,11 +68,11 @@ def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | No
     if x.dim() != 4:
         raise ValueError(f"conv3x3: x must be NCHW, got shape {tuple(x.shape)}")
     c = x.shape[1]
-    if tuple(weight.shape) != (c, c, 3, 3) or (bias is not None and tuple(bias.shape) != (c,)):
-        raise ValueError(
-            f"conv3x3: needs a ({c}, {c}, 3, 3) weight and a ({c},) bias for "
-            f"{c} channels, got {tuple(weight.shape)} and {tuple(bias.shape)}"
-        )
+    if tuple(weight.shape) != (c, c, 3, 3):
+        raise ValueError(f"conv3x3: needs a ({c}, {c}, 3, 3) weight for {c} channels, "
+                         f"got {tuple(weight.shape)}")
+    if bias is not None and tuple(bias.shape) != (c,):
+        raise ValueError(f"conv3x3: needs a ({c},) bias for {c} channels, got {tuple(bias.shape)}")
 
 
 def conv3x3_path(c: int, dtype: torch.dtype) -> str:
@@ -97,11 +106,12 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return w.reshape(9, co_pad, chunks, CHUNK).permute(0, 2, 1, 3).contiguous()
 
 
-# (id weight, id bias, dtype) -> (weight ptr, version, bias ptr, version,
-# packed weight, f32 bias). An entry goes when its weight or bias is freed
-# (``weakref.finalize``), so a later tensor with a reused id never sees it,
-# and it serves only at the pointers and versions it was made at: an
-# in-place update (``_version``) or a new storage (``p.data = t``) repacks.
+# (id weight, id bias or None, dtype) -> ((ptr, version) of the weight and
+# the bias, packed weight, f32 bias or None). An entry goes when its weight
+# or bias is freed (``weakref.finalize``), so a later tensor with a reused
+# id never sees it, and it serves only at the pointers and versions it was
+# made at: an in-place update (``_version``) or a new storage (``p.data =
+# t``) repacks. ``conv3x3_same`` keeps weight-only entries (no bias).
 _packed: dict[tuple, tuple] = {}
 
 
@@ -109,29 +119,35 @@ def _version(t: torch.Tensor) -> int | None:
     return None if t.is_inference() else t._version  # inference tensors keep no counter
 
 
-def _packed_params(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype):
-    """The packed weight and f32 bias, cached only while grad mode is off.
+def _pack(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype):
+    b = None if bias is None else bias.detach().float().contiguous()
+    return pack_conv3x3_weight(weight, dtype), b
+
+
+def _packed_params(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype):
+    """The packed weight and f32 bias (None without one), cached only while grad mode is off.
 
     With grad on (training) the weights change every step, so each call
-    packs. Grad off (``no_grad``, ``inference_mode``: predict) caches one
-    packing per parameter version. An update made through ``p.data``
+    packs. Grad off (``no_grad``, ``inference_mode``: predict, eval) caches
+    one packing per parameter version. An update made through ``p.data``
     (``p.data.mul_(...)``) bypasses the version counter, as it bypasses
     autograd, and is not seen there: update parameters in place under
     ``torch.no_grad()`` instead, or assign a new tensor.
     """
-    wv, bv = _version(weight), _version(bias)
-    if torch.is_grad_enabled() or wv is None or bv is None:
-        return pack_conv3x3_weight(weight, dtype), bias.detach().float().contiguous()
-    key = (id(weight), id(bias), dtype)
-    state = (weight.data_ptr(), wv, bias.data_ptr(), bv)
+    tensors = (weight,) if bias is None else (weight, bias)
+    versions = [_version(t) for t in tensors]
+    if torch.is_grad_enabled() or None in versions:
+        return _pack(weight, bias, dtype)
+    key = (id(weight), None if bias is None else id(bias), dtype)
+    state = tuple((t.data_ptr(), v) for t, v in zip(tensors, versions))
     hit = _packed.get(key)
-    if hit is not None and hit[:4] == state:
-        return hit[4], hit[5]
+    if hit is not None and hit[0] == state:
+        return hit[1], hit[2]
     if hit is None:
-        for t in (weight, bias):
+        for t in tensors:
             weakref.finalize(t, _packed.pop, key, None)
-    packed, b = pack_conv3x3_weight(weight, dtype), bias.detach().float().contiguous()
-    _packed[key] = (*state, packed, b)
+    packed, b = _pack(weight, bias, dtype)
+    _packed[key] = (state, packed, b)
     return packed, b
 
 
@@ -160,6 +176,17 @@ def conv3x3_bias_relu_plain(
     _check_shapes(x, weight, bias)
     y = torch.relu(_conv3x3_f32(x, weight) + bias.float()[None, :, None, None])
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def conv3x3_same_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """conv3x3_same(x, weight), no bias, as nine shifted-slice products.
+
+    The Pallas kernel's own function. The weights are rounded to ``x.dtype``
+    (as the kernel reads them), everything is accumulated in float32 and the
+    result cast to ``x.dtype``, in ``channels_last`` memory.
+    """
+    _check_shapes(x, weight, None)
+    return _conv3x3_f32(x, weight).to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def _dgrad_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -218,10 +245,7 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_bias_relu_plain(x, weight, bias)
     _check_shapes(x, weight, bias)
-    if cache:
-        packed, b = _packed_params(weight, bias, x.dtype)
-    else:
-        packed, b = pack_conv3x3_weight(weight, x.dtype), bias.detach().float().contiguous()
+    packed, b = _packed_params(weight, bias, x.dtype) if cache else _pack(weight, bias, x.dtype)
     out = _launch(x, packed, b, "conv3x3")
     conv3x3_bias_relu.launches += 1
     return out
@@ -290,3 +314,56 @@ def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
 
 
 conv3x3_bias_relu.launches = 0
+
+
+def _same_forward(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return conv3x3_same_plain(x, weight)
+    _check_shapes(x, weight, None)
+    packed, _ = _packed_params(weight, None, x.dtype) if cache else _pack(weight, None, x.dtype)
+    out = _launch(x, packed, None, "conv3x3_same")
+    conv3x3_same.launches += 1
+    return out
+
+
+class _Conv3x3Same(torch.autograd.Function):
+    """conv(x, W), no bias, with the kernel forward (epilogue off) and dgrad backward.
+
+    Backward: dx = dgrad(g) through the conv kernel; dW by
+    ``torch.nn.grad.conv2d_weight`` (cuDNN on the card), as the JAX package
+    left wgrad to XLA. There is no ReLU mask: BN and ReLU follow as stock
+    ops. On the card ``g`` (BN's input gradient) is made ``channels_last``
+    if it is not, which the kernel reads.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, cache: bool):
+        y = _same_forward(x, weight, cache)
+        if not cache:  # grad mode on: a backward may follow
+            ctx.save_for_backward(x, weight)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_dgrad(g, weight)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1).to(weight.dtype)
+        return dx, dw, None
+
+
+def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """conv3x3_same(x, weight), no bias, for an NCHW tensor (channels_last on the card).
+
+    Differentiable in x and weight. With grad mode off the packed weights
+    come from the per-version cache; with it on (training) every call packs
+    what the weight holds now.
+    """
+    return _Conv3x3Same.apply(x, weight, not torch.is_grad_enabled())
+
+
+conv3x3_same.launches = 0

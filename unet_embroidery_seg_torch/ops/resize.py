@@ -1,7 +1,10 @@
 """Resize and pooling primitives (port of ``unet_embroidery_seg_tpu/ops/resize.py``).
 
 The JAX ``max_pool`` has no counterpart here: the stock ``nn.MaxPool2d`` has
-the semantics it reproduces.
+the semantics it reproduces. ``center_pad_to`` and ``resize_bilinear`` run
+only where an odd map makes a decoder stage's sizes differ from its skip's
+(never at 480^2 or 512^2, whose maps halve evenly down to 30^2 and 32^2), so
+they are plain torch ops, not kernels.
 
 The 1-D interpolation tables are computed in float64 on the host exactly as
 the JAX package computes them, so the weights the CUDA upsample kernel reads
@@ -82,3 +85,37 @@ def upsample2x_backward_plain(g: torch.Tensor, align_corners: bool = False) -> t
     dx = torch.einsum("pw,nchp->nchw", mw, dx)
     return dx.to(g.dtype).contiguous(memory_format=torch.channels_last)
 
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NCHW to ``out_hw`` as interpolation-matrix contractions.
+
+    The JAX package's ``resize_bilinear``: one contraction per axis whose
+    size changes (an axis of equal size is left alone), with the matrices
+    of ``_interp_matrix``. Maths in float32, the result cast back to
+    ``x.dtype`` in ``channels_last`` memory. Its gradient is the transposed
+    contractions, deterministic like the upsample kernel's (where
+    ``F.interpolate``'s backward adds with atomics on the card).
+    """
+    h, w = x.shape[-2], x.shape[-1]
+    y = x.float()
+    if out_hw[0] != h:
+        mh = torch.tensor(_interp_matrix(h, out_hw[0], align_corners), device=x.device)
+        y = torch.einsum("oh,nchw->ncow", mh, y)
+    if out_hw[1] != w:
+        mw = torch.tensor(_interp_matrix(w, out_hw[1], align_corners), device=x.device)
+        y = torch.einsum("pw,nchw->nchp", mw, y)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def center_pad_to(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
+    """Symmetric zero pad of NCHW to ``target_hw`` (the extra row or column at the end).
+
+    The JAX package's ``center_pad_to`` (unet_plain's decoder); the result
+    is in ``channels_last`` memory.
+    """
+    dh, dw = target_hw[0] - x.shape[-2], target_hw[1] - x.shape[-1]
+    if dh == 0 and dw == 0:
+        return x
+    y = torch.nn.functional.pad(x, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+    return y.contiguous(memory_format=torch.channels_last)

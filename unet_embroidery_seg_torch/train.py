@@ -1,11 +1,12 @@
-"""Training CLI (port of the repo-root ``train.py``): binary unet_resnet50.
+"""Training CLI (port of the repo-root ``train.py``): the binary task.
 
 ``python -m unet_embroidery_seg_torch.train --data-path DIR --task binary --model unet_resnet50``
 
 The argparse surface of ``train.py`` plus ``--device`` (default ``cuda``;
 raises without a card, ``cpu`` runs the kernels' plain versions). This
-slice trains ``--task binary`` with ``--model unet_resnet50`` on the host
-input pipeline, with the diff head, bf16 autocast (``--amp``, the default)
+slice trains ``--task binary`` with ``--model`` unet_resnet50, unet_plain,
+attention_unet or dualdense_unet on the host input pipeline, with the diff
+head, bf16 autocast (``--amp``, the default)
 and Adam over float32 masters. It writes what ``scripts/make_tables.py``
 and ``run.sh`` read, under ``run/train/expN``: ``config.json`` (with
 ``resolved_pos_weight``), ``summary.json``, ``test_metrics.json``,
@@ -14,7 +15,7 @@ and ``run.sh`` read, under ``run/train/expN``: ``config.json`` (with
 state, every ``--ckpt-every`` epochs, for ``--resume``).
 
 Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
-item: the multiclass and multitask tasks, the other model families,
+item: the multiclass and multitask tasks, ``multitask_unet``,
 ``--device-augment`` (the device-resident input path), ``--mesh-data`` /
 ``--mesh-space`` above 1 (multi-GPU), ``--profile`` (tooling) and
 ``--export-vis`` (curves and ``vis/``, off by default here).
@@ -45,12 +46,14 @@ from unet_embroidery_seg_torch.utils.seeding import seed_everything
 
 NOT_PORTED = {
     "task": "ROADMAP.md Queue 1 item 8 (multiclass and multitask tasks)",
-    "model": "ROADMAP.md Queue 1 item 7 (other model families)",
+    "model": "ROADMAP.md Queue 1 item 8 (multitask model and task)",
     "device_augment": "ROADMAP.md Queue 1 item 9 (device-resident input path)",
     "mesh": "ROADMAP.md Queue 1 item 10 (multi-GPU)",
     "profile": "ROADMAP.md Queue 1 item 11 (tooling)",
     "export_vis": "ROADMAP.md Queue 1 item 6 (curves and vis/, a later slice)",
 }
+
+TRAINED_MODELS = ("unet_resnet50", "unet_plain", "attention_unet", "dualdense_unet")
 
 
 class LogColor:
@@ -64,7 +67,7 @@ def check_supported(args) -> None:
     """Raise ``NotImplementedError`` for what this slice does not train."""
     if args.task != "binary":
         raise NotImplementedError(f"--task {args.task} is not ported yet: {NOT_PORTED['task']}")
-    if args.model != "unet_resnet50":
+    if args.model not in TRAINED_MODELS:
         raise NotImplementedError(f"--model {args.model} is not ported yet: {NOT_PORTED['model']}")
     if args.device_augment:
         raise NotImplementedError(f"--device-augment is not ported yet: {NOT_PORTED['device_augment']}")
@@ -354,7 +357,7 @@ def parse_args(argv=None):
     parser.add_argument("--task", default="binary", choices=["binary", "multiclass", "multitask"],
                         help="Segmentation task (this slice trains binary)")
     parser.add_argument("--model", default="unet_resnet50", choices=sorted(SUPPORTED_MODELS),
-                        help="Model architecture (this slice trains unet_resnet50)")
+                        help="Model architecture (this slice trains all but multitask_unet)")
     parser.add_argument("--decoder-width", default=1.0, type=float,
                         help="unet_resnet50 only: decoder width multiplier (1.0 = reference "
                              "decoder; checkpoints are width-specific)")

@@ -9,8 +9,9 @@ uses to export reference checkpoints, plus layout conversion:
     -> ``weight``/``bias``/``running_mean``/``running_var``, with
     ``num_batches_tracked`` emitted as 0.
 
-Only the unet_resnet50 name map is here; the other families come with
-their models. Pure numpy in, torch tensors out: this module imports no JAX.
+The name maps of unet_resnet50, unet_plain, attention_unet and
+dualdense_unet are here; multitask_unet's comes with its model. Pure numpy
+in, torch tensors out: this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -37,8 +38,41 @@ _UP_CONV_RULES = [
     (r"^up_conv\.conv2$", "up_conv.3"),
 ]
 
+# DoubleConv: Sequential[conv, bn, relu, conv, bn, relu] -> indices 0/1/3/4.
+_DC = {"conv1": "net.0", "norm1": "net.1", "conv2": "net.3", "norm2": "net.4"}
+_DC_GROUP = "(conv1|norm1|conv2|norm2)"
+
+
+def _double_conv_rules(down_slot: str) -> list:
+    """``inc``, ``down{i}`` (its DoubleConv at ``down{i}.<down_slot>``) and ``up{i}.conv``."""
+    return [
+        (rf"^inc\.{_DC_GROUP}$", lambda m: f"inc.{_DC[m.group(1)]}"),
+        (rf"^down(\d)\.conv\.{_DC_GROUP}$",
+         lambda m: f"down{m.group(1)}.{down_slot}.{_DC[m.group(2)]}"),
+        (rf"^up(\d)\.conv\.{_DC_GROUP}$", lambda m: f"up{m.group(1)}.conv.{_DC[m.group(2)]}"),
+    ]
+
+
+# A dense layer is Sequential[bn, relu, conv] -> 0/2; the 1x1 transition
+# Sequential[conv, bn] -> 0/1.
+_DENSE_RULES = [
+    (r"dense\.norm(\d+)$", r"dense.layers.\1.net.0"),
+    (r"dense\.conv(\d+)$", r"dense.layers.\1.net.2"),
+    (r"trans_conv$", "trans.0"),
+    (r"trans_bn$", "trans.1"),
+]
+
 _MODEL_RULES = {
     "unet_resnet50": _backbone_rules("resnet.") + _UP_CONV_RULES,
+    # Down: a module whose ``net`` is Sequential[maxpool, DoubleConv].
+    "unet_plain": _double_conv_rules("net.1"),
+    # Down: Sequential[maxpool, DoubleConv]; gate branches Sequential[conv, bn].
+    "attention_unet": _double_conv_rules("1") + [
+        (r"^(up\d\.attn\.(?:theta|phi|psi))_bn$", r"\1.1"),
+        (r"^(up\d\.attn\.(?:theta|phi|psi))$", r"\1.0"),
+    ],
+    # Down: Sequential[maxpool, DenseConvBlock].
+    "dualdense_unet": [(r"^down(\d)\.", r"down\1.1.")] + _DENSE_RULES,
 }
 
 # (collection, JAX path suffix, torch suffix)
