@@ -8,19 +8,22 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    parallel).
 2. Forward sites: at each of the 11 kernel sites of unet_resnet50 at 480^2,
    batch 8, bf16 (5 upsample, 6 square conv3x3), plus one f32 case per
-   kernel: hold the kernel against its plain PyTorch version and time
+   kernel (the conv's on ``tf32x3``, the CUDA-core ``fma`` kernel timed on
+   the same call as ``fma_ms``): hold the kernel against its plain PyTorch version and time
    kernel, plain version and the library call that computes the same
    function (``F.interpolate``, ``F.conv2d``; the port never calls either)
    with CUDA events, grad off as in predict. ``ms`` and ``library_ms`` are
    the card's own time, by CUDA-graph replay (``ms_method``); ``eager_ms``
    and ``library_eager_ms`` are the same calls back to back from the host,
    dispatch included; ``plain_ms`` is eager. Each row names the kernel path
-   taken (conv: ``c64_persistent``, ``wgmma`` or ``fma``) and its TFLOP/s
-   and share of the bound, both from ``ms``. Then an in-place weight update
+   taken (conv: ``c64_persistent``, ``wgmma``, ``tf32x3`` or ``fma``) and its TFLOP/s
+   and share of the bound, both from ``ms``; ``tf32x3`` rows are bound at
+   the 3xTF32 rate (495/3 TFLOP/s), with the CUDA cores' 67 TFLOP/s bound
+   beside it (``cuda_core_bound_ms``). Then an in-place weight update
    between two conv calls on signed inputs must change the result (the
    wrapper's packed-weight cache repacks).
 3. Backward sites, at the train shapes (512^2, batch 8, bf16) plus one f32
-   case per kernel: upsample2x's backward at its 5 sites (the four decoder
+   case per kernel (dgrad's on ``tf32x3``, ``fma`` beside it): upsample2x's backward at its 5 sites (the four decoder
    ones read their gradient as a channel slice of ``torch.cat``'s, in
    place) and conv3x3's dgrad at its 6, each against its plain version and
    timed like phase 2 (dgrad's time includes packing the flipped weights).
@@ -49,19 +52,21 @@ Phases 7-9 take the same kernels to their sites in unet_plain, attention_unet
 and dualdense_unet (upsample in align_corners=False; the bias-free conv, its
 epilogue off, at the conv2 of every DoubleConv):
 
-7. Forward sites at 480^2, batch 8, bf16, as phase 2: the bias-free conv
-   at its 5 distinct shapes (9 sites, C = 64 to 1024, signed inputs) and
-   the upsample at its 4 sites, plus one f32 case of each (the conv at
-   C = 1024 on ``fma``); yardsticks ``F.conv2d`` without bias and
-   ``F.interpolate(align_corners=False)``. Backward sites at 512^2 as
-   phase 3: the upsample backward at its 4 sites (channel slices of cat
-   gradients after skips of 512, 256, 128 and 64), dgrad at the 5 shapes,
-   plus one f32 case of each. The Functions' gradients against plain
+7. Forward sites at 480^2, batch 8, as phase 2: the bias-free conv at its
+   5 distinct shapes (9 sites, C = 64 to 1024, signed inputs) in bf16 and
+   in f32 (``tf32x3``, ``fma`` beside it), the upsample at its 4 sites in
+   bf16 plus one f32 case, and the ``fma`` kernel at C = 130 (which no
+   tensor-core path takes) in f32 and bf16; yardsticks ``F.conv2d``
+   without bias (TF32 off) and ``F.interpolate(align_corners=False)``.
+   Backward sites at 512^2 as phase 3: the upsample backward at its 4 sites
+   (channel slices of cat gradients after skips of 512, 256, 128 and 64)
+   plus one f32 case, dgrad at the 5 shapes in bf16 and in f32 (``tf32x3``,
+   ``fma`` beside it). The Functions' gradients against plain
    autograd: the bias-free conv's dx and dW; the upsample's dx where its
    output feeds both a concat and a 1x1 conv (attention_unet's gate), with
    the layout in which that summed gradient reaches the kernel. Then the
    card and host cost of packing the 9 sites' weights (forward and dgrad)
-   in one train step.
+   in one train step, bf16 and f32.
 8. For each family, full width, seeded weights: predict as phase 4 (4
    upsample and 9 bias-free conv launches per forward; dualdense_unet 4
    and 0; no fused conv), and 20 train steps as phase 5 but with BCE
@@ -71,11 +76,17 @@ epilogue off, at the conv2 of every DoubleConv):
    conv biases, whose gradient is 0 by construction, need only be finite). Then phase 6's f32 train step, card
    against CPU, for unet_plain and attention_unet.
 9. Three f32 train steps of unet_plain at 512^2, batch 8 (the paper
-   pipeline's ``--no-amp``; the square convs on ``fma``, cuDNN's with TF32
-   as PyTorch sets it by default): timed, finite, launch counts held.
+   pipeline's ``--no-amp``; the square convs on ``tf32x3``, cuDNN's with
+   TF32 as PyTorch sets it by default and the CLIs state it): timed,
+   finite, launch counts held.
+
+The model phases (5, 6, 8, 9) record each model's ``square_conv_paths`` in
+the dtype they run, and fail if a square conv site would take the CUDA-core
+kernel: in f32 every site is ``tf32x3``.
 
 Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
-families' under names of their own), the card line, and the result line.
+families' under names of their own, then the f32 conv's, ``[f32]``, with
+phase 9's launches), the card line, and the result line.
 
 Imports nothing of JAX, PIL or cv2. Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -96,6 +107,11 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off the tensor cores
+# f32-accurate work on the tensor cores: 3xTF32 is three TF32 products per
+# f32 product, at the 495 TFLOP/s dense TF32 rate. The conv's ``tf32x3``
+# rows are bound against it (the least time the card takes for f32-accurate
+# work); ``cuda_core_bound_ms`` keeps the 67 TFLOP/s one beside it.
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 BATCH, SIZE = 8, 480
 TRAIN_SIZE, TRAIN_STEPS = 512, 60
 UPSAMPLE_SITES = [(2048, 15), (512, 30), (256, 60), (128, 120), (64, 240)]  # (C, H_in)
@@ -154,6 +170,9 @@ FAMILY_UPSAMPLE_SITES = [("up1.up", 1024, 30), ("up2.up", 512, 60), ("up3.up", 2
 FAMILY_UPSAMPLE_BWD_SITES = [("up1.up", 1024, 32, 512), ("up2.up", 512, 64, 256),
                              ("up3.up", 256, 128, 128), ("up4.up", 128, 256, 64)]
 FAMILY_DGRAD_SITES = [(n, c, h * TRAIN_SIZE // SIZE, k) for n, c, h, k in SAME_SITES]
+# The CUDA-core conv kernel where no tensor-core path takes the call (C % 4
+# in f32, C % 16 in bf16): (C, label, dtype), at 60^2, phase 7.
+FMA_CASES = [(130, "f32", torch.float32), (130, "bf16", torch.bfloat16)]
 # Kernel launches per forward (predict) and per train step, by family.
 FAMILY_FORWARD_LAUNCHES = {
     "unet_plain": {"upsample2x": 4, "conv3x3_bias_relu": 0, "conv3x3_same": 9},
@@ -177,17 +196,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+def bound(nbytes: float, flops: float, dtype, path: str = "") -> tuple[float, str]:
+    peak = PEAK_FLOPS_3XTF32 if path == "tf32x3" else PEAK_FLOPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, plain, library,
-                 nbytes: float, flops: float, shapes: dict) -> dict:
+                 nbytes: float, flops: float, shapes: dict, fma=None) -> dict:
     """Hold ``run`` against ``plain`` and time it, ``plain`` and ``library``: one site row.
 
-    Prints the row after ``prefix``, then raises if the error is over the
-    tolerance.
+    ``fma`` (the conv's f32 rows on ``tf32x3``): the CUDA-core kernel on the
+    same call, timed beside it as ``fma_ms``. Prints the row after
+    ``prefix``, then raises if the error is over the tolerance.
     """
     from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
 
@@ -197,7 +218,7 @@ def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, pla
     err = (got.float() - want.float()).abs().max().item()
     tol = (TOL_BF16 if dtype == torch.bfloat16 else TOL_F32[kernel]) * want.float().abs().max().item()
     del got, want
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, dtype, path)
     eager_ms, library_eager_ms = event_ms(run), event_ms(library)
     ms = graph_ms(run, eager_ms)
     row = {
@@ -208,21 +229,41 @@ def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, pla
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
         "tflops": flops / ms / 1e9,
     }
+    if fma is not None:
+        row["fma_ms"] = graph_ms(fma, event_ms(fma))
+        row["cuda_core_bound_ms"] = bound(nbytes, flops, dtype, "fma")[0]
     print(f"{prefix} " + json.dumps(row), flush=True)
     if not (np.isfinite(err) and err <= tol):
         raise AssertionError(f"{kernel} at {site}: max abs err {err} > tol {tol}")
     return row
 
 
+def _fma_call(x, w, bias=None, dgrad: bool = False):
+    """The CUDA-core (``fma``) kernel on the call ``x``'s f32 ``tf32x3`` site makes.
+
+    Forward: weights packed once, as the grad-off cache serves them. dgrad
+    packs the flipped weights on every call, as ``conv3x3_dgrad`` does.
+    """
+    from unet_embroidery_seg_torch.ops.conv3x3 import _dgrad_weight, _launch, pack_conv3x3_weight
+
+    if dgrad:
+        return lambda: _launch(x, pack_conv3x3_weight(_dgrad_weight(w), x.dtype, "fma"), None,
+                               "fma dgrad", "fma")
+    packed = pack_conv3x3_weight(w, x.dtype, "fma")
+    return lambda: _launch(x, packed, bias, "fma", "fma")
+
+
 def _forward_case(kernel: str, c: int, h: int, dtype, gen: torch.Generator,
                   align_corners: bool = True, epilogue: bool = True):
-    """(run, plain, library, nbytes, flops, path, x) of one forward site, batch 8.
+    """(run, plain, library, nbytes, flops, path, x, fma) of one forward site, batch 8.
 
     upsample2x: a random input, the upsample in ``align_corners``.
     conv3x3_same: with ``epilogue`` the fused relu(conv + bias) on a ReLU
     output (unet_resnet50's decoder); without, the bias-free conv alone
     (a DoubleConv's conv2) on a signed input, its output (BN's input)
     signed too. Weights fan-in scaled, float32 as the model holds them.
+    ``fma`` is the CUDA-core kernel on the same call where the path is
+    ``tf32x3``, else None.
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import (
         conv3x3_bias_relu,
@@ -244,11 +285,12 @@ def _forward_case(kernel: str, c: int, h: int, dtype, gen: torch.Generator,
                                         align_corners=align_corners)
         nbytes = x.numel() * es * 5  # read x once, write 4x
         flops = 9.0 * 4 * x.numel()  # 3 lerps of 3 FLOP per output element
-        return run, plain, library, nbytes, flops, "staged", x
+        return run, plain, library, nbytes, flops, "staged", x, None
     x = (torch.relu(x) if epilogue else x).contiguous(memory_format=cl)
     w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
     nbytes = 2 * x.numel() * es + 9 * c * c * es
     flops = 2.0 * 9 * c * c * BATCH * h * h
+    path, b = conv3x3_path(c, dtype), None
     if epilogue:
         b = (0.1 * torch.randn(c, generator=gen)).to(dev)
         wd, bd = w.to(dtype), b.to(dtype)
@@ -261,22 +303,26 @@ def _forward_case(kernel: str, c: int, h: int, dtype, gen: torch.Generator,
         run = lambda: conv3x3_same(x, w)  # noqa: E731
         plain = lambda: conv3x3_same_plain(x, w)  # noqa: E731
         library = lambda: F.conv2d(x, wd, padding=1)  # noqa: E731
-    return run, plain, library, nbytes, flops, conv3x3_path(c, dtype), x
+    fma = _fma_call(x, w, b) if path == "tf32x3" else None
+    return run, plain, library, nbytes, flops, path, x, fma
 
 
 @torch.no_grad()
 def check_sites(gen: torch.Generator) -> list[dict]:
-    """Phase 2: unet_resnet50's 11 forward sites at 480^2 (align_corners=True, fused epilogue)."""
+    """Phase 2: unet_resnet50's 11 forward sites at 480^2 (align_corners=True, fused epilogue).
+
+    Plus one f32 case per kernel (the conv's on ``tf32x3``, ``fma`` beside it).
+    """
     cases = [("upsample2x", f"up{c}x{h}", c, h, torch.bfloat16) for c, h in UPSAMPLE_SITES]
     cases.append(("upsample2x", "up64x240.f32", 64, 240, torch.float32))
     cases += [("conv3x3_same", n, c, h, torch.bfloat16) for n, c, h in CONV_SITES]
     cases.append(("conv3x3_same", "up_concat2.conv2.f32", 128, 120, torch.float32))
     rows = []
     for kernel, site, c, h, dtype in cases:
-        run, plain, library, nbytes, flops, path, x = _forward_case(kernel, c, h, dtype, gen)
+        run, plain, library, nbytes, flops, path, x, fma = _forward_case(kernel, c, h, dtype, gen)
         rows.append(measure_site("site", kernel, site, path, dtype, run, plain, library,
                                  nbytes, flops, {"shape": list(x.shape), "count": 1,
-                                                 "sites_of": "unet_resnet50"}))
+                                                 "sites_of": "unet_resnet50"}, fma))
     return rows
 
 
@@ -285,22 +331,25 @@ def check_family_sites(gen: torch.Generator) -> list[dict]:
     """Phase 7: the families' forward sites at 480^2, align_corners=False, no epilogue.
 
     The bias-free conv at its 5 distinct DoubleConv shapes (9 sites, C = 64
-    to 1024) and the upsample at its 4, bf16, plus one f32 case of each (the
-    conv at C = 1024 on the CUDA cores, ``fma``). ``count`` is the number of
-    sites of that shape in one forward.
+    to 1024) in bf16 and in f32 (``tf32x3``, the ``fma`` kernel timed beside
+    it: ``--no-amp``), the upsample at its 4 sites in bf16 plus one f32
+    case, and the CUDA-core kernel at C = 130 (no tensor-core path takes it)
+    in both types, held but no model site (``count`` 0). ``count`` is the
+    number of sites of that shape in one forward.
     """
     cases = [("upsample2x", n, c, h, 1, torch.bfloat16) for n, c, h in FAMILY_UPSAMPLE_SITES]
     cases.append(("upsample2x", "up4.up.f32", 128, 240, 1, torch.float32))
     cases += [("conv3x3_same", n, c, h, k, torch.bfloat16) for n, c, h, k in SAME_SITES]
-    cases.append(("conv3x3_same", "down4.f32", 1024, 30, 1, torch.float32))
+    cases += [("conv3x3_same", f"{n}.f32", c, h, k, torch.float32) for n, c, h, k in SAME_SITES]
+    cases += [("conv3x3_same", f"fma.c{c}.{t}", c, 60, 0, dtype) for c, t, dtype in FMA_CASES]
     rows = []
     for kernel, site, c, h, count, dtype in cases:
-        run, plain, library, nbytes, flops, path, x = _forward_case(
+        run, plain, library, nbytes, flops, path, x, fma = _forward_case(
             kernel, c, h, dtype, gen, align_corners=False, epilogue=False)
         rows.append(measure_site("family_site", kernel, site, path, dtype, run, plain, library,
                                  nbytes, flops, {"shape": list(x.shape), "count": count,
                                                  "sites_of": "families", "align_corners": False,
-                                                 "epilogue": False}))
+                                                 "epilogue": False}, fma))
     return rows
 
 
@@ -338,12 +387,13 @@ def weight_update_check(gen: torch.Generator) -> dict:
 
 def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Generator,
                    align_corners: bool = True):
-    """(run, plain, library, nbytes, flops, path, g) of one backward site, batch 8.
+    """(run, plain, library, nbytes, flops, path, g, fma) of one backward site, batch 8.
 
     upsample2x_backward: the gradient of an upsample of (C, H, H), channels
     [skip:] of the ``torch.cat`` gradient when ``skip`` (read in place).
     conv3x3_dgrad: a signed (C, H, H) gradient; its time includes packing
-    the flipped weights.
+    the flipped weights (``fma``, the CUDA-core kernel beside an f32
+    ``tf32x3`` site, likewise).
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import (
         conv3x3_dgrad,
@@ -365,7 +415,8 @@ def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Gen
             g, [2 * h, 2 * h], [BATCH, c, h, h], align_corners)
         nbytes = g.numel() * g.element_size() * 5 / 4  # read g once, write dx (a quarter of it)
         flops = 8.0 * g.numel()  # each g element feeds <= 4 dx elements, one FMA each
-        return run, plain, library, nbytes, flops, "staged, cat slice" if skip else "staged", g
+        path = "staged, cat slice" if skip else "staged"
+        return run, plain, library, nbytes, flops, path, g, None
     g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(memory_format=cl)
     es = g.element_size()
     w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
@@ -377,7 +428,9 @@ def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Gen
     library = lambda: torch.nn.grad.conv2d_input(g.shape, wd, g, padding=1)  # noqa: E731
     nbytes = 2 * g.numel() * es + 9 * c * c * es
     flops = 2.0 * 9 * c * c * BATCH * h * h
-    return run, plain, library, nbytes, flops, conv3x3_path(c, dtype), g
+    path = conv3x3_path(c, dtype)
+    fma = _fma_call(g, w, dgrad=True) if path == "tf32x3" else None
+    return run, plain, library, nbytes, flops, path, g, fma
 
 
 def check_backward_sites(gen: torch.Generator) -> list[dict]:
@@ -389,11 +442,12 @@ def check_backward_sites(gen: torch.Generator) -> list[dict]:
     cases.append(("conv3x3_dgrad", "up_concat2.conv2.f32", 128, 128, 0, torch.float32))
     rows = []
     for kernel, site, c, h, skip, dtype in cases:
-        run, plain, library, nbytes, flops, path, g = _backward_case(kernel, c, h, skip, dtype, gen)
+        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
+            kernel, c, h, skip, dtype, gen)
         rows.append(measure_site("backward_site", kernel, site, path, dtype, run, plain, library,
                                  nbytes, flops,
                                  {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
-                                  "count": 1, "sites_of": "unet_resnet50"}))
+                                  "count": 1, "sites_of": "unet_resnet50"}, fma))
     return rows
 
 
@@ -401,23 +455,25 @@ def check_family_backward_sites(gen: torch.Generator) -> list[dict]:
     """Phase 7: the families' backward sites at 512^2, align_corners=False.
 
     The upsample backward at its 4 sites, each reading its channel slice of
-    the cat gradient (skip widths 512, 256, 128, 64), and dgrad at the 5
-    DoubleConv shapes (9 sites), bf16, plus one f32 case of each.
+    the cat gradient (skip widths 512, 256, 128, 64), bf16 plus one f32
+    case, and dgrad at the 5 DoubleConv shapes (9 sites) in bf16 and in f32
+    (``tf32x3``, ``fma`` beside it).
     """
     cases = [("upsample2x_backward", n, c, h, skip, 1, torch.bfloat16)
              for n, c, h, skip in FAMILY_UPSAMPLE_BWD_SITES]
     cases.append(("upsample2x_backward", "up4.up.f32", 128, 256, 64, 1, torch.float32))
     cases += [("conv3x3_dgrad", n, c, h, 0, k, torch.bfloat16) for n, c, h, k in FAMILY_DGRAD_SITES]
-    cases.append(("conv3x3_dgrad", "down4.f32", 1024, 32, 0, 1, torch.float32))
+    cases += [("conv3x3_dgrad", f"{n}.f32", c, h, 0, k, torch.float32)
+              for n, c, h, k in FAMILY_DGRAD_SITES]
     rows = []
     for kernel, site, c, h, skip, count, dtype in cases:
-        run, plain, library, nbytes, flops, path, g = _backward_case(
+        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
             kernel, c, h, skip, dtype, gen, align_corners=False)
         rows.append(measure_site("family_backward_site", kernel, site, path, dtype, run, plain,
                                  library, nbytes, flops,
                                  {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
                                   "count": count, "sites_of": "families",
-                                  "align_corners": False}))
+                                  "align_corners": False}, fma))
     return rows
 
 
@@ -428,8 +484,18 @@ def function_check(gen: torch.Generator) -> dict:
     up_concat2.up (256 channels, 64^2 -> 128^2, its output concatenated
     after a skip as in the decoder), batch 8, bf16 activations, float32
     parameters.
+
+    The conv's reference is the plain version's pre-activation (f32 sums,
+    the bf16-valued weights and bias) differentiated under the ReLU mask of
+    the kernel's output, which the Function's backward uses: where a
+    pre-activation is within f32 summation noise of 0 the two sums may take
+    opposite signs, and one such pixel moves dx by a whole |g| * |W| column
+    (0.125 at seed 5 once the bias was read as bf16). Those pixels are
+    counted and held to lie within TOL_F32 (f32 summation noise, 1e-4 of
+    the largest pre-activation) of 0 (``relu_mask_flips``), so a wrong
+    mask still fails.
     """
-    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_bias_relu_plain
+    from unet_embroidery_seg_torch.ops.conv3x3 import _conv3x3_f32, conv3x3_bias_relu
     from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_plain
 
     dev, cl = torch.device("cuda"), torch.channels_last
@@ -438,9 +504,16 @@ def function_check(gen: torch.Generator) -> dict:
     w = (torch.randn(128, 128, 3, 3, generator=gen) / (3 * 128 ** 0.5)).to(dev).requires_grad_()
     b = (0.1 * torch.randn(128, generator=gen)).to(dev).requires_grad_()
     g = torch.randn(BATCH, 128, 128, 128, generator=gen).to(dev, torch.bfloat16)
-    got = torch.autograd.grad(conv3x3_bias_relu(x, w, b), (x, w, b), g)
-    want = torch.autograd.grad(conv3x3_bias_relu_plain(x, w, b), (x, w, b), g)
-    result = {}
+    y = conv3x3_bias_relu(x, w, b)
+    got = torch.autograd.grad(y, (x, w, b), g)
+    z = _conv3x3_f32(x, w) + b.to(torch.bfloat16).float()[None, :, None, None]
+    mask = y.detach() > 0
+    want = torch.autograd.grad(z, (x, w, b), g.float() * mask)
+    flips = (z.detach() > 0) != mask
+    flip_z = z.detach().abs()[flips].max().item() if flips.any() else 0.0
+    result = {"relu_mask_flips": {"pixels": int(flips.sum()), "max_abs_preactivation": flip_z,
+                                  "max_abs_err": flip_z,
+                                  "tol": TOL_F32["conv3x3_same"] * z.detach().abs().max().item()}}
     for name, a, r in zip(("conv_dx", "conv_dW", "conv_db"), got, want):
         result[name] = {"max_abs_err": (a.float() - r.float()).abs().max().item(),
                         "tol": TOL_FUNCTION * r.float().abs().max().item()}
@@ -522,6 +595,26 @@ def family_function_check(gen: torch.Generator) -> dict:
     return result
 
 
+def square_conv_paths(model, dtype) -> dict:
+    """{kernel path: square conv sites of ``model``} for calls in ``dtype``.
+
+    Every site must take a tensor-core path (bf16 ``c64_persistent`` /
+    ``wgmma``, f32 ``tf32x3``): a model site on the CUDA cores (``fma``)
+    fails the run.
+    """
+    from unet_embroidery_seg_torch.models.blocks import Conv3x3Same, SquareConv3x3
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_path
+
+    paths: dict[str, int] = {}
+    for m in model.modules():
+        if isinstance(m, (SquareConv3x3, Conv3x3Same)):
+            path = conv3x3_path(m.weight.shape[0], dtype)
+            paths[path] = paths.get(path, 0) + 1
+    if "fma" in paths:
+        raise AssertionError(f"square conv sites on the CUDA cores in {dtype}: {paths}")
+    return paths
+
+
 def main_path(counters, name: str = "unet_resnet50", per_forward: dict | None = None) -> dict:
     """Predict 16 seeded letterboxed 480^2 canvases with full-width ``name``, batches of 8, bf16.
 
@@ -589,7 +682,8 @@ def f32_card_vs_cpu() -> dict:
     logit_err = (on_card - on_cpu).abs().max().item()
     softmax_err = (on_card.softmax(-1) - on_cpu.softmax(-1)).abs().max().item()
     result = {"logit_scale": scale, "max_logit_diff": logit_err,
-              "max_softmax_diff": softmax_err}
+              "max_softmax_diff": softmax_err,
+              "square_conv_paths": square_conv_paths(card_model, torch.float32)}
     print("f32_card_vs_cpu " + json.dumps(result), flush=True)
     if not (logit_err <= TOL_FORWARD_REL * scale and softmax_err <= TOL_SOFTMAX):
         raise AssertionError(f"f32 card vs CPU disagree: {result}")
@@ -653,6 +747,7 @@ def train_path(counters, name: str = "unet_resnet50", loss: str = "lovasz_hinge"
         "losses": losses, "launches": launches, "launches_per_step": {
             k: v / steps for k, v in launches.items()},
         "params_with_grad": sum(1 for _ in model.parameters()), "peak_mem_gb": peak_gb,
+        "square_conv_paths": square_conv_paths(model, torch.bfloat16 if amp else torch.float32),
     }
     if checks:
         result.update(_train_checks(model, step, batch, name, loss, pos_weight, losses))
@@ -767,6 +862,8 @@ def f32_train_card_vs_cpu(name: str = "unet_resnet50") -> dict:
         opt = schedules.make_train_optimizer(model.parameters(), 1e-4)
         loss[run] = float(make_binary_train_step(model, opt, "bce", 3.0, amp=False)(imgs, pngs, sm))
         grads[run] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        if dev == "cuda":
+            paths = square_conv_paths(model, torch.float32)
     exact = name != "unet_resnet50"
     if exact:
         loss["cpu_f64"], grads["cpu_f64"] = _f64_train_grads(name, state, images, pngs, sm)
@@ -777,7 +874,7 @@ def f32_train_card_vs_cpu(name: str = "unet_resnet50") -> dict:
 
     card, up, down = rel("card"), rel("cpu_up"), rel("cpu_down")
     noise = {n: max(up[n], down[n]) for n in card}
-    result, live = {"model": name}, list(card)
+    result, live = {"model": name, "square_conv_paths": paths}, list(card)
     if exact:
         cpu_err, card_err = rel("cpu", "cpu_f64"), rel("card", "cpu_f64")
         noise = {n: max(noise[n], cpu_err[n]) for n in card}
@@ -818,8 +915,9 @@ def packing_cost() -> dict:
 
     With grad on, each of the 9 DoubleConv sites packs its weight for the
     forward and its flipped, transposed weight for dgrad on every call:
-    float32 OIHW in, bf16 in the kernel's layout out (~31 MB written per
-    pass). ``card_ms`` by graph replay of all 18 packs; ``host_ms`` the time
+    float32 OIHW in; bf16 in the kernel's layout out (~31 MB written per
+    pass), or under ``--no-amp`` the two f32 tf32 planes (~126 MB). Per
+    type: ``card_ms`` by graph replay of all 18 packs; ``host_ms`` the time
     the host takes to issue them (the card's queue not waited on).
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import _dgrad_weight, pack_conv3x3_weight
@@ -828,25 +926,27 @@ def packing_cost() -> dict:
     gen = torch.Generator().manual_seed(6)
     weights = [torch.randn(c, c, 3, 3, generator=gen).cuda()
                for _, c, _, k in SAME_SITES for _ in range(k)]
-
-    def pack_all():
-        for w in weights:
-            pack_conv3x3_weight(w, torch.bfloat16)
-            pack_conv3x3_weight(_dgrad_weight(w), torch.bfloat16)
-
-    eager = event_ms(pack_all)
-    host = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pack_all()
-        host.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
     n = sum(w.numel() for w in weights)
-    result = {"sites": len(weights), "packs_per_step": 2 * len(weights),
-              "bytes_written_per_step": 2 * 2 * n, "bytes_read_per_step": 2 * 4 * n,
-              "card_ms": graph_ms(pack_all, eager), "eager_ms": eager,
-              "host_ms_median": statistics.median(host)}
+    result = {"sites": len(weights), "packs_per_step": 2 * len(weights)}
+    for dtype, written in ((torch.bfloat16, 2 * n), (torch.float32, 2 * 4 * n)):
+
+        def pack_all(dtype=dtype):
+            for w in weights:
+                pack_conv3x3_weight(w, dtype)
+                pack_conv3x3_weight(_dgrad_weight(w), dtype)
+
+        eager = event_ms(pack_all)
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pack_all()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        result[str(dtype)] = {"bytes_written_per_step": 2 * written,
+                              "bytes_read_per_step": 2 * 4 * n,
+                              "card_ms": graph_ms(pack_all, eager), "eager_ms": eager,
+                              "host_ms_median": statistics.median(host)}
     print("packing_cost " + json.dumps(result), flush=True)
     return result
 
@@ -862,58 +962,76 @@ KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "conv3x3_dgrad": ("unet_embroidery_seg_torch/csrc/conv3x3_same.cu",
                       "docs/negative-results/pallas_conv.py:61", "conv3x3_dgrad"),
 }
-# The families' entries: the same kernels at their new sites, under names of their own.
+# The families' entries: the same kernels at their new sites, under names of
+# their own: (kernel, launch counter, dtype of the sites summed).
 FAMILY_KERNELS = {
-    "upsample2x[align_corners=False]": ("upsample2x", "upsample2x"),
-    "upsample2x_backward[align_corners=False]": ("upsample2x_backward", "upsample2x_backward"),
-    "conv3x3_same[no epilogue]": ("conv3x3_same", "conv3x3_same"),
-    "conv3x3_dgrad[DoubleConv]": ("conv3x3_dgrad", "conv3x3_dgrad"),
+    "upsample2x[align_corners=False]": ("upsample2x", "upsample2x", "torch.bfloat16"),
+    "upsample2x_backward[align_corners=False]": ("upsample2x_backward", "upsample2x_backward",
+                                                 "torch.bfloat16"),
+    "conv3x3_same[no epilogue]": ("conv3x3_same", "conv3x3_same", "torch.bfloat16"),
+    "conv3x3_dgrad[DoubleConv]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.bfloat16"),
+}
+# The f32 (``--no-amp``) entries: the conv on ``tf32x3`` at the DoubleConv
+# sites, launches from phase 9's f32 steps of unet_plain.
+F32_KERNELS = {
+    "conv3x3_same[f32]": ("conv3x3_same", "conv3x3_same", "torch.float32"),
+    "conv3x3_dgrad[f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
 }
 
 
-def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, sites: str) -> dict:
-    """One ``kernels`` entry: a pass over the bf16 sites of ``kernel`` in ``rows``.
+def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, sites: str,
+                   dtype: str = "torch.bfloat16") -> dict:
+    """One ``kernels`` entry: a pass over the ``dtype`` model sites of ``kernel`` in ``rows``.
 
     A pass runs its sites one after another, each ``count`` times, so its
     times and its bound are the counted sums of theirs; bound_by names the
-    limit behind most of that bound.
+    limit behind most of that bound. Rows of no model site (``count`` 0)
+    are held but not summed.
     """
     source, replaces, _ = KERNEL_META[kernel]
-    mine = [r for r in rows if r["kernel"] == kernel]
-    bf16 = [r for r in mine if r["dtype"] == "torch.bfloat16"]
+    mine = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype and r["count"] > 0]
 
     def total(key):
-        return sum(r[key] * r["count"] for r in bf16)
+        return sum(r[key] * r["count"] for r in mine)
 
     share: dict[str, float] = {}
-    for r in bf16:
+    for r in mine:
         share[r["bound_by"]] = share.get(r["bound_by"], 0.0) + r["bound_ms"] * r["count"]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms_method": MS_METHOD, "ms": total("ms"), "eager_ms": total("eager_ms"),
         "plain_ms": total("plain_ms"), "bound_ms": sum(share.values()),
         "bound_by": max(share, key=share.get), "library_ms": total("library_ms"),
         "library_eager_ms": total("library_eager_ms"), "sites": sites,
+        "paths": sorted({r["path"] for r in mine}),
     }
+    if all("fma_ms" in r for r in mine):
+        entry.update({"fma_ms": total("fma_ms"), "cuda_core_bound_ms": total("cuda_core_bound_ms")})
+    return entry
 
 
 def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
-                   family_launches: dict) -> list[dict]:
-    """Every kernel entry: unet_resnet50's sites, then the families' sites.
+                   family_launches: dict, f32_launches: dict) -> list[dict]:
+    """Every kernel entry: unet_resnet50's sites, the families' sites, then the f32 ones.
 
     ``launches`` are unet_resnet50's train path's counts; ``family_launches``
-    the three families' train paths' counts summed.
+    the three families' train paths' counts summed; ``f32_launches`` phase
+    9's f32 train path's counts.
     """
     out = []
     for kernel, (_, _, counter) in KERNEL_META.items():
         where = "480^2 forward" if kernel in ("upsample2x", "conv3x3_same") else "512^2 backward"
         out.append(_summary_entry(kernel, kernel, rows, launches[counter],
                                   f"unet_resnet50, {where}"))
-    for name, (kernel, counter) in FAMILY_KERNELS.items():
+    for name, (kernel, counter, dtype) in FAMILY_KERNELS.items():
         where = "480^2 forward" if kernel in ("upsample2x", "conv3x3_same") else "512^2 backward"
         out.append(_summary_entry(name, kernel, family_rows, family_launches[counter],
-                                  f"unet_plain, attention_unet, dualdense_unet, {where}"))
+                                  f"unet_plain, attention_unet, dualdense_unet, {where}", dtype))
+    for name, (kernel, counter, dtype) in F32_KERNELS.items():
+        where = "480^2 forward" if kernel == "conv3x3_same" else "512^2 backward"
+        out.append(_summary_entry(name, kernel, family_rows, f32_launches[counter],
+                                  f"unet_plain, attention_unet in f32 (--no-amp), {where}", dtype))
     return out
 
 
@@ -927,6 +1045,7 @@ def main(argv=None) -> int:
     from unet_embroidery_seg_torch.ops import _build
     from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad, conv3x3_same
     from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
+    from unet_embroidery_seg_torch.utils.device import set_float32_precision
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -967,8 +1086,8 @@ def main(argv=None) -> int:
     for name in ("unet_plain", "attention_unet"):
         families[name]["f32_train_card_vs_cpu"] = f32_train_card_vs_cpu(name)
     # The paper pipeline's --no-amp run: f32 convs, cuDNN's with TF32 as
-    # PyTorch has it by default (the train CLI does not change it).
-    torch.backends.cudnn.allow_tf32 = True
+    # PyTorch has it by default (the train CLI sets it so).
+    set_float32_precision()
     f32_full = train_path(train_counters, "unet_plain", "bce", FAMILY_F32_STEPS,
                           {**FAMILY_FORWARD_LAUNCHES["unet_plain"], "upsample2x_backward": 4,
                            "conv3x3_dgrad": 9}, amp=False, checks=False)
@@ -976,7 +1095,8 @@ def main(argv=None) -> int:
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
-    kernels = kernel_summary(rows + bwd_rows, train["launches"], family_rows, family_launches)
+    kernels = kernel_summary(rows + bwd_rows, train["launches"], family_rows, family_launches,
+                             f32_full["launches"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "sites": rows,

@@ -5,7 +5,8 @@ interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
 vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
-``wgmma`` above; the rest on the CUDA cores, ``fma``). The backward kernels
+``wgmma`` above; f32 with C % 4 == 0 on the TF32 tensor cores, ``tf32x3``,
+held to f32's tolerance; the rest on the CUDA cores, ``fma``). The backward kernels
 (upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
 Functions' gradients are held against the plain versions' autograd. The
 bias-free conv (``conv3x3_same``, epilogue off) runs at the same paths and
@@ -285,3 +286,109 @@ def test_conv3x3_same_function_grads_match_plain_autograd(device, shape, dtype):
         # bf16: dW sums over every pixel (cuDNN's wgrad against f32 sums): 2% of scale.
         tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * b.abs().max().item() + 1e-6
         assert (a.float() - b.float()).abs().max().item() <= tol, name
+
+
+# --- tf32x3: the f32 path on the TF32 tensor cores (3xTF32) ---------------------------
+
+TF32X3_SHAPES = [(1, 32, 8, 16),     # one 16 x 8 tile, one chunk
+                 (2, 64, 17, 33),    # N = 64 tiles, ragged H and W
+                 (1, 96, 9, 20),     # 3 chunks; 96 of 128 output channels, the rest clipped
+                 (2, 36, 7, 9),      # C % 32 != 0: TMA's zero fill pads the last chunk
+                 (1, 4, 5, 6),       # the fewest channels the path takes
+                 (2, 128, 30, 32), (1, 256, 15, 15),
+                 (1, 1024, 3, 5), (2, 1024, 4, 4),  # 32 chunks of 32
+                 (1, 128, 1, 1), (3, 64, 120, 17)]  # H = W = 1; more tiles than CTAs
+
+
+@pytest.mark.parametrize("fn", ["bias_relu", "same", "dgrad"])
+@pytest.mark.parametrize("shape", TF32X3_SHAPES)
+def test_tf32x3_kernel_matches_plain(device, shape, fn):
+    n, c, h, w = shape
+    assert conv3x3_mod.conv3x3_path(c, torch.float32) == "tf32x3"
+    x = _x(shape, torch.float32, device, seed=c + h + 21)  # signed
+    weight, bias = _conv_params(c, device, seed=c + 22)
+    run, plain, counter = {
+        "bias_relu": (lambda: conv3x3_bias_relu(x, weight, bias),
+                      lambda: conv3x3_bias_relu_plain(x, weight, bias), conv3x3_bias_relu),
+        "same": (lambda: conv3x3_same(x, weight), lambda: conv3x3_same_plain(x, weight),
+                 conv3x3_same),
+        "dgrad": (lambda: conv3x3_dgrad(x, weight), lambda: conv3x3_dgrad_plain(x, weight),
+                  conv3x3_dgrad),
+    }[fn]
+    before = counter.launches
+    with torch.no_grad():
+        got = run()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = plain()
+    assert got.dtype == torch.float32 and got.is_contiguous(memory_format=torch.channels_last)
+    # f32-accurate: about 2^-21 of each product, summed over 9*C terms in
+    # another order: within 1e-4 of the largest value, as f32 on the CUDA cores.
+    assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+@pytest.mark.parametrize("tap", [4, 0, 8, 5])  # centre, the two corners, a side
+@pytest.mark.parametrize("c", [32, 64])
+def test_tf32x3_a_fragment_on_one_tile_is_exact(device, c, tap):
+    # One 16 x 8 tile. Each input value names its pixel and channel and is an
+    # integer below 2^10 (exact in tf32, so its small part is 0); the weight
+    # is the identity between channels at one tap. Each output is then one
+    # input value moved by the tap's shift, exactly: a wrong row or column of
+    # the register fragment, or a wrong shift or swizzle, gives another value.
+    h, w = 8, 16
+    idx = torch.arange(h * w * c, dtype=torch.float32).view(1, h, w, c)
+    x = ((idx * 37) % 1021 - 510).permute(0, 3, 1, 2).to(device)
+    x = x.contiguous(memory_format=torch.channels_last)
+    weight = torch.zeros(c, c, 3, 3, device=device)
+    weight[:, :, tap // 3, tap % 3] = torch.eye(c, device=device)
+    got = conv3x3_same(x, weight)
+    want = conv3x3_same_plain(x, weight)
+    assert torch.equal(got, want)
+    assert got.abs().max().item() > 0
+
+
+def test_tf32x3_keeps_the_bits_one_tf32_pass_loses(device):
+    # x = 1 + 2^-20 (its tf32 part is 1, the rest lives in the small part),
+    # weight 1 at the centre tap: a single TF32 pass would give 1.0.
+    c = 32
+    x = torch.full((1, c, 8, 16), 1.0 + 2.0 ** -20, device=device)
+    x = x.contiguous(memory_format=torch.channels_last)
+    weight = torch.zeros(c, c, 3, 3, device=device)
+    weight[:, :, 1, 1] = torch.eye(c, device=device) * (1.0 + 2.0 ** -19)
+    got = conv3x3_same(x, weight)
+    want = conv3x3_same_plain(x, weight)  # (1 + 2^-20)(1 + 2^-19), rounded to f32
+    assert (got - want).abs().max().item() <= 2.0 ** -22
+
+
+def test_tf32x3_path_rejects_misaligned_input(device):
+    base = torch.zeros(4 * 4 * 64 + 1, device=device)
+    x = base[1:].view(1, 4, 4, 64).permute(0, 3, 1, 2)  # channels_last, 4-byte offset
+    weight, bias = _conv_params(64, device, seed=0)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3_bias_relu(x, weight, bias)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 6), (torch.float32, 130), (torch.float32, 3),
+                                     (torch.bfloat16, 24), (torch.bfloat16, 40)])
+@pytest.mark.parametrize("fn", ["bias_relu", "same", "dgrad"])
+def test_fma_takes_the_channels_the_tensor_cores_do_not(device, dtype, c, fn):
+    assert conv3x3_mod.conv3x3_path(c, dtype) == "fma"
+    x = _x((2, c, 9, 13), dtype, device, seed=c + 23)
+    weight, bias = _conv_params(c, device, seed=c + 24)
+    got, want = {
+        "bias_relu": lambda: (conv3x3_bias_relu(x, weight, bias), conv3x3_bias_relu_plain(x, weight, bias)),
+        "same": lambda: (conv3x3_same(x, weight), conv3x3_same_plain(x, weight)),
+        "dgrad": lambda: (conv3x3_dgrad(x, weight), conv3x3_dgrad_plain(x, weight)),
+    }[fn]()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+def test_fma_path_still_runs_f32_at_tensor_core_channels_when_asked(device):
+    # chip_smoke.py times the CUDA-core kernel beside tf32x3 at the model's
+    # f32 sites: the fma layout and launch at C = 128, f32.
+    x = _x((2, 128, 12, 20), torch.float32, device, seed=25)
+    weight, _ = _conv_params(128, device, seed=26)
+    packed = conv3x3_mod.pack_conv3x3_weight(weight, torch.float32, path="fma")
+    got = conv3x3_mod._launch(x, packed, None, "fma f32", path="fma")
+    want = conv3x3_same_plain(x, weight)
+    assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)

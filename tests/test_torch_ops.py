@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -121,7 +122,10 @@ def test_upsample_tile_taps_fit_the_kernels_staging_area(tile, align_corners):
 @pytest.mark.parametrize("c,dtype,path", [
     (64, torch.bfloat16, "c64_persistent"), (16, torch.bfloat16, "c64_persistent"),
     (80, torch.bfloat16, "wgmma"), (2048, torch.bfloat16, "wgmma"),
-    (24, torch.bfloat16, "fma"), (130, torch.bfloat16, "fma"), (64, torch.float32, "fma"),
+    (24, torch.bfloat16, "fma"), (130, torch.bfloat16, "fma"), (64, torch.float32, "tf32x3"),
+    # f32 with C % 4 == 0 (TMA's 16-byte strides) on the TF32 tensor cores, the rest fma
+    (4, torch.float32, "tf32x3"), (36, torch.float32, "tf32x3"), (1024, torch.float32, "tf32x3"),
+    (3, torch.float32, "fma"), (6, torch.float32, "fma"), (130, torch.float32, "fma"),
 ])
 def test_conv3x3_path_by_dtype_and_channels(c, dtype, path):
     assert conv3x3_path(c, dtype) == path
@@ -216,7 +220,8 @@ def test_bias_free_convs_reject_a_wrong_weight_with_value_error(fn):
 # --- conv3x3 weight packing and its cache -------------------------------------------
 
 PACK_CASES = [(64, torch.bfloat16), (48, torch.bfloat16), (80, torch.bfloat16),
-              (128, torch.bfloat16), (24, torch.bfloat16), (16, torch.float32)]
+              (128, torch.bfloat16), (24, torch.bfloat16), (16, torch.float32),
+              (96, torch.float32), (36, torch.float32), (130, torch.float32)]
 
 
 def _oihw(c, seed):
@@ -224,11 +229,18 @@ def _oihw(c, seed):
 
 
 def _unpack(packed, c, dtype):
-    """The OIHW weight back from the kernel's layout."""
-    if conv3x3_path(c, dtype) == "fma":  # [ky][kx][co][ci]
+    """The OIHW weight back from the kernel's layout (tf32x3: its two planes, stacked)."""
+    path = conv3x3_path(c, dtype)
+    if path == "fma":  # [ky][kx][co][ci]
         return packed.permute(2, 3, 0, 1)
-    chunks, co_pad = packed.shape[1], packed.shape[2]  # [tap][chunk][co_pad][64]
-    w = packed.permute(0, 2, 1, 3).reshape(3, 3, co_pad, chunks * 64)[:, :, :c, :c]
+    if path == "tf32x3":  # [plane][tap][chunk][co_pad][32]
+        return torch.stack([_unpack_planar(p, c, 32) for p in packed])
+    return _unpack_planar(packed, c, 64)
+
+
+def _unpack_planar(packed, c, chunk):
+    chunks, co_pad = packed.shape[1], packed.shape[2]  # [tap][chunk][co_pad][chunk]
+    w = packed.permute(0, 2, 1, 3).reshape(3, 3, co_pad, chunks * chunk)[:, :, :c, :c]
     return w.permute(2, 3, 0, 1)
 
 
@@ -237,12 +249,17 @@ def test_pack_conv3x3_weight_round_trips(c, dtype):
     weight = _oihw(c, seed=c)
     packed = pack_conv3x3_weight(weight, dtype)
     assert packed.dtype == dtype and packed.is_contiguous()
-    if conv3x3_path(c, dtype) != "fma":
-        # [tap][C_in chunk of 64][C_out padded to the 64- or 128-channel tile][64]
-        bn = 64 if c <= 64 else 128
-        assert tuple(packed.shape) == (9, -(-c // 64), -(-c // bn) * bn, 64)
-    torch.testing.assert_close(_unpack(packed, c, dtype), weight.to(dtype),
-                               rtol=0, atol=0)
+    bn = 64 if c <= 64 else 128
+    if conv3x3_path(c, dtype) == "tf32x3":
+        # [w_big, w_small][tap][C_in chunk of 32][C_out padded to the tile][32]
+        assert tuple(packed.shape) == (2, 9, -(-c // 32), -(-c // bn) * bn, 32)
+        want = torch.stack(conv3x3_mod.tf32_split(weight))
+    else:
+        if conv3x3_path(c, dtype) != "fma":
+            # [tap][C_in chunk of 64][C_out padded to the 64- or 128-channel tile][64]
+            assert tuple(packed.shape) == (9, -(-c // 64), -(-c // bn) * bn, 64)
+        want = weight.to(dtype)
+    torch.testing.assert_close(_unpack(packed, c, dtype), want, rtol=0, atol=0)
 
 
 def _conv_from_packed(x, packed, bias, c, path):
@@ -254,6 +271,9 @@ def _conv_from_packed(x, packed, bias, c, path):
         for kx in range(3):
             if path == "fma":  # [ky][kx][co][ci]
                 tap = packed[ky, kx]
+            elif path == "tf32x3":  # [plane][tap][chunk][co_pad][32]: w_big + w_small
+                tap = sum(torch.cat([p[ky * 3 + kx, k, :c] for k in range(p.shape[1])],
+                                    dim=1)[:, :c] for p in packed)
             else:  # [tap][chunk][co_pad][64]: the chunks side by side are C_in
                 chunks = [packed[ky * 3 + kx, k, :c] for k in range(packed.shape[1])]
                 tap = torch.cat(chunks, dim=1)[:, :c]
@@ -269,10 +289,77 @@ def test_conv_reading_the_packed_layout_equals_the_plain_version(c, dtype):
     weight, bias = _oihw(c, seed=c) / (3 * c ** 0.5), torch.from_numpy(rng.randn(c).astype(np.float32))
     packed = pack_conv3x3_weight(weight, dtype)
     got = _conv_from_packed(x, packed, bias, c, conv3x3_path(c, dtype))
-    # The packed values are the weight rounded to ``dtype``; in f32 from the
-    # same rounded weights only the order of the f32 sums differs.
+    # The packed values are the weight rounded to ``dtype`` (tf32x3: two
+    # parts whose sum is within 2^-22 of it); in f32 from the same weights
+    # only the order of the f32 sums differs.
     want = conv3x3_bias_relu_plain(x, weight.to(dtype).float(), bias)
     torch.testing.assert_close(got, want.float(), rtol=0, atol=1e-6)
+
+
+def _tf32_rna_reference(w: np.ndarray) -> np.ndarray:
+    """f32 -> tf32 (11 significant bits), nearest with ties away from zero, in float64."""
+    m, e = np.frexp(w.astype(np.float64))  # w = m * 2^e, 0.5 <= |m| < 1
+    q = m * 2.0 ** 11
+    return (np.sign(q) * np.floor(np.abs(q) + 0.5) * 2.0 ** (e - 11)).astype(np.float32)
+
+
+def test_pack_conv3x3_weight_takes_fma_or_the_calls_own_path():
+    weight = _oihw(64, seed=3)
+    fma = pack_conv3x3_weight(weight, torch.float32, path="fma")
+    torch.testing.assert_close(fma, weight.permute(2, 3, 0, 1), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not take"):
+        pack_conv3x3_weight(weight, torch.float32, path="wgmma")
+
+
+@pytest.mark.parametrize("c", [16, 96, 1024])
+def test_tf32_split_of_the_packed_weights(c):
+    weight = _oihw(c, seed=c + 2) * 0.02  # the reference init's scale
+    packed = pack_conv3x3_weight(weight, torch.float32)
+    # Both planes are tf32 values: the 13 low mantissa bits are zero, so the
+    # kernel's tensor cores read them as they are.
+    assert (packed.view(torch.int32) & 0x1FFF).eq(0).all()
+    big, small = conv3x3_mod.tf32_split(weight)
+    np.testing.assert_array_equal(big.numpy(), _tf32_rna_reference(weight.numpy()))
+    np.testing.assert_array_equal(small.numpy(), _tf32_rna_reference((weight - big).numpy()))
+    # big + small is within 2^-21 of the weight (2^-22 by construction).
+    err = ((big.double() + small.double()) - weight.double()).abs()
+    assert (err <= 2.0 ** -21 * weight.double().abs()).all()
+    assert (small.abs() <= 2.0 ** -11 * weight.abs()).all()
+
+
+def _conv_3xtf32_emulated(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """What the tf32x3 kernel computes, in torch: both operands split, three products, f32 sums."""
+    x_big, x_small = conv3x3_mod.tf32_split(x)
+    w_big, w_small = conv3x3_mod.tf32_split(weight)
+    f32 = conv3x3_mod._conv3x3_f32
+    return f32(x_small, w_big) + f32(x_big, w_small) + f32(x_big, w_big)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 9, 11), (1, 96, 7, 5), (1, 1024, 4, 5)])
+def test_3xtf32_arithmetic_meets_the_f32_tolerance(shape):
+    # The card holds the tf32x3 kernel to chip_smoke.py's TOL_F32, 1e-4 of
+    # the largest value. Its arithmetic, emulated here, lands within 1e-5
+    # of it (against the f32 plain version and JAX's conv at HIGHEST), ten
+    # times inside: dropping a_small * w_small and rounding the small parts
+    # leaves ~2^-21 of each product, against f32's own ~2^-24 per sum.
+    # One TF32 pass would miss by ~1e-3.
+    n, c, h, w = shape
+    rng = np.random.RandomState(c)
+    x = torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32))
+    weight = torch.from_numpy((rng.randn(c, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32))
+    got = _conv_3xtf32_emulated(x, weight)
+    plain = conv3x3_mod.conv3x3_same_plain(x, weight)
+    x_nhwc, w_hwio = x.permute(0, 2, 3, 1).numpy(), weight.permute(2, 3, 1, 0).numpy()
+    lax = jax.lax.conv_general_dilated(jnp.asarray(x_nhwc), jnp.asarray(w_hwio), (1, 1), "SAME",
+                                       dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                       precision=jax.lax.Precision.HIGHEST)
+    lax = torch.from_numpy(np.array(lax)).permute(0, 3, 1, 2)
+    one_pass = conv3x3_mod._conv3x3_f32(conv3x3_mod.tf32_split(x)[0],
+                                        conv3x3_mod.tf32_split(weight)[0])
+    for want in (plain, lax):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        assert (one_pass - want).abs().max().item() > 1e-4 * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

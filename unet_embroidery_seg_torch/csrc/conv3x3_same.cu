@@ -14,7 +14,7 @@
 // the bytes take about as long (the 480^2 sites: 141 us of bytes, 137 us of
 // operations).
 //
-// Two paths:
+// Three paths:
 //
 //  - bf16 with C % 16 == 0 (every decoder site): conv3x3_wgmma_kernel, an
 //    implicit GEMM on the tensor cores. M = output pixels, N = output
@@ -60,7 +60,37 @@
 //        (64, TW, TH, 1) boxes, which clip the ragged edges and C not a
 //        multiple of 64. The C <= 64 path stages in the halo stage it has
 //        just consumed, the C > 64 path in a 32 KB buffer of its own.
-//  - everything else (f32, odd C): conv3x3_fma_kernel on the CUDA cores. An
+//  - f32 with C % 4 == 0 (every f32 model site): "tf32x3", the same
+//    streamed kernel (template instances for float) on the TF32 tensor
+//    cores, f32-accurate by the three-pass split: a = a_big + a_small and
+//    w = w_big + w_small, each part rounded to tf32 (cvt.rna: nearest, ties
+//    away), acc += a_small*w_big + a_big*w_small + a_big*w_big in f32
+//    (a_small*w_small, ~2^-22 of a product, is dropped). Bound: 2*9*C*C
+//    FLOP per pixel at 495/3 = 165 TFLOP/s, 0.824 ms at C = 1024, 30^2,
+//    batch 8 (the CUDA cores' f32 peak, 67 TFLOP/s, would be 2.03 ms).
+//      * A 32-channel f32 chunk is 128 bytes: the bf16 path's halo box,
+//        swizzle and ldmatrix addresses carry over unchanged, CHUNK = 32.
+//        An ldmatrix 8x8 b16 matrix is 8 rows x 4 f32, so the x4 load that
+//        gives bf16's k16 fragment gives exactly the tf32 m64k8 fragment
+//        (a0..a3 = rows g / g+8, columns t / t+4). The split is done in
+//        registers right after the load and serves N = 64 or 128 columns
+//        of three wgmma.m64nNk8.f32.tf32.tf32 each.
+//      * B: the packed weights hold two planes, w_big and w_small, already
+//        rounded on the host (the same rounding as cvt.rna); K-major, the
+//        only layout wgmma takes for tf32; a weight stage is one tap-chunk
+//        of both planes (two TMA loads on one barrier).
+//      * Shared memory (the bf16 layout would take 265 KB here): 2 halo
+//        stages of 24 KB, 128 KB of weight stages (4 x 32 KB at N = 128,
+//        8 x 16 KB at N = 64: 12 wgmma per stage), and the 64 KB f32
+//        epilogue staged as rounds of 64 channels through one 32 KB buffer;
+//        214 KB in all.
+//      * Tiles of 64 output channels for C <= 64 (no padded half), 128
+//        above; no resident-weight variant (two f32 planes at C = 64 are
+//        288 KB).
+//      * Epilogue: + bias (f32) and ReLU, f32 rows of 32 channels with the
+//        128-byte swizzle, TMA stores of (32, TW, TH, 1) boxes.
+//  - everything else (C % 4 != 0 in f32, C % 16 != 0 in bf16):
+//    conv3x3_fma_kernel on the CUDA cores. An
 //    8 x 16 pixel tile x 64 output channels per block; each stage holds 8
 //    input channels of the (8+2) x (16+2) halo tile as f32; each thread
 //    accumulates 4 neighbouring pixels x 8 output channels and reuses the 6
@@ -69,8 +99,9 @@
 //
 // Weights arrive packed once per parameter version by the wrapper
 // (ops/conv3x3.py:pack_conv3x3_weight), bias as f32:
-//  - tensor-core path: bf16 [tap = ky*3+kx][C_in chunk of 64][co_pad][64],
+//  - bf16 tensor-core path: [tap = ky*3+kx][C_in chunk of 64][co_pad][64],
 //    zero in the padding (co_pad = C rounded up to N);
+//  - tf32x3: f32 [plane: w_big, w_small][tap][C_in chunk of 32][co_pad][32];
 //  - CUDA-core path: [ky][kx][co][ci] in the activation type.
 //
 // C interface (ctypes): pointers and the stream are void*; each entry point
@@ -93,37 +124,53 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// ---- tensor-core path: bf16, C % 16 == 0 -------------------------------------
+// ---- tensor-core paths: bf16 with C % 16 == 0, f32 (3xTF32) with C % 4 == 0 ---
 
 namespace tc {
 
 constexpr int CONSUMERS = 256;             // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128;   // and one producer warpgroup
-constexpr int CHUNK = 64;                  // input channels per halo stage
-constexpr int ROW_BYTES = CHUNK * 2;       // one pixel or weight row: 128 bytes
+constexpr int ROW_BYTES = 128;             // one pixel or weight row of a chunk
 constexpr int TILE_M = 128;                // pixels per tile
 constexpr int HALO_ROWS = 192;             // most (TH+2)*(TW+2) of a tile shape (4 x 30)
 
+// T is the activation type: __nv_bfloat16, or float for 3xTF32.
+//
 // A "group" is one pipeline: its consumer warpgroups share a tile, a halo
-// ring and a producer thread. RESIDENT (C <= 64): two groups of one
+// ring and a producer thread. RESIDENT (bf16, C <= 64): two groups of one
 // warpgroup each (two slabs of m64), so one group's epilogue overlaps the
-// other's MMAs; both read the one resident weight set. Streamed (C > 64):
-// one group of two warpgroups (one slab each) sharing every weight tile.
-template <int BN, bool RESIDENT>
+// other's MMAs; both read the one resident weight set. Streamed: one group
+// of two warpgroups (one slab each) sharing every weight tile.
+//
+// f32 (3xTF32): a chunk is 32 channels, so a row is still 128 bytes; a
+// weight stage holds two planes (w_big, w_small), 32 KB at BN = 128. The
+// bf16 layout would need 265 KB, so: 2 halo stages (a chunk is 9 taps x 12
+// wgmma, ~14k cycles, against one 24 KB halo load), 128 KB of weight stages
+// (4 at BN = 128: each tap's 12 wgmma cover ~1.5k cycles, so 3 loads stay
+// in flight ahead), and the 64 KB f32 epilogue staged in rounds of 64
+// channels through one 32 KB buffer.
+template <typename T, int BN, bool RESIDENT>
 struct Cfg {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int CHUNK = ROW_BYTES / static_cast<int>(sizeof(T));  // channels per stage
+  static constexpr int PLANES = F32 ? 2 : 1;               // weight planes: w_big, w_small
   static constexpr int GROUPS = RESIDENT ? 2 : 1;
   static constexpr int WGS = 2 / GROUPS;                   // warpgroups per group
   static constexpr int SLABS = TILE_M / 64 / WGS;          // m64 slabs per warpgroup
   static constexpr int HALO_BYTES = HALO_ROWS * ROW_BYTES;  // a multiple of 1024
-  static constexpr int H_STAGES = 3;                       // per group
-  static constexpr int W_TILE = BN * ROW_BYTES;            // one tap, one chunk
-  static constexpr int W_STAGES = RESIDENT ? 9 : 6;
-  static constexpr int OUT_BYTES = RESIDENT ? 0 : TILE_M * BN * 2;  // epilogue staging
+  static constexpr int H_STAGES = F32 ? 2 : 3;             // per group
+  static constexpr int PLANE_BYTES = BN * ROW_BYTES;       // one tap, one chunk, one plane
+  static constexpr int W_TILE = PLANES * PLANE_BYTES;
+  static constexpr int W_STAGES = RESIDENT ? 9 : F32 ? 131072 / W_TILE : 6;
+  static constexpr int OUT_CH = F32 ? 64 : BN;             // output channels staged per round
+  static constexpr int OUT_BYTES = RESIDENT ? 0 : TILE_M * OUT_CH * static_cast<int>(sizeof(T));
   static constexpr int BARS = 2 * GROUPS * H_STAGES + 2 * W_STAGES;
   static constexpr int SMEM =
       1024 + GROUPS * H_STAGES * HALO_BYTES + W_STAGES * W_TILE + OUT_BYTES + 8 * BARS;
-  static_assert(HALO_BYTES % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
+  static_assert(HALO_BYTES % 1024 == 0 && PLANE_BYTES % 1024 == 0,
+                "stages keep the swizzle's 1024-byte alignment");
   static_assert(SMEM <= 232448, "over the 227 KB a block can have");
+  static_assert(!(F32 && RESIDENT), "no resident f32 variant: two f32 planes at C = 64 are 288 KB");
 };
 
 struct Params {
@@ -214,6 +261,18 @@ __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
+__device__ __forceinline__ void st_shared_v2_f32(uint32_t addr, float v0, float v1) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(v0), "f"(v1) : "memory");
+}
+
+// f32 -> tf32, round to nearest with ties away from zero: the low 13 bits
+// come back zero, so wgmma's truncation of them changes nothing.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -302,12 +361,65 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&
   else wgmma_m64n128k16(d, a, desc);
 }
 
-template <int BN, bool RESIDENT, bool BIAS_RELU>
+// tf32 (k8): A from registers in the m64k8 fragment (per warp of 16 rows:
+// a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) for g = lane/4,
+// t = lane%4), B K-major through the descriptor. tf32 takes no transpose
+// operands: both are K-major.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile_tf32(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  if constexpr (BN == 64) wgmma_m64n64k8_tf32(d, a, desc);
+  else wgmma_m64n128k8_tf32(d, a, desc);
+}
+
+template <typename T, int BN, bool RESIDENT, bool BIAS_RELU>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap,
                          const __grid_constant__ CUtensorMap ymap, const Params p) {
-  using C = Cfg<BN, RESIDENT>;
+  using C = Cfg<T, BN, RESIDENT>;
   constexpr int SLABS = C::SLABS;
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align every stage to it.
@@ -361,15 +473,19 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int hs = hi % C::H_STAGES;
           mbar_wait(hempty + 8 * hs, ((hi / C::H_STAGES) & 1) ^ 1);
           mbar_expect_tx(hfull + 8 * hs, p.halo_tx);
-          tma_load_4d(halo_g + hs * C::HALO_BYTES, &xmap, hfull + 8 * hs, ch * CHUNK,
+          tma_load_4d(halo_g + hs * C::HALO_BYTES, &xmap, hfull + 8 * hs, ch * C::CHUNK,
                       tx * p.tw - 1, ty * p.th - 1, n);
           if (!RESIDENT) {
             for (int tap = 0; tap < 9; ++tap, ++wi) {
               const int ws = wi % C::W_STAGES;
               mbar_wait(wempty + 8 * ws, ((wi / C::W_STAGES) & 1) ^ 1);
               mbar_expect_tx(wfull + 8 * ws, C::W_TILE);
-              tma_load_2d(wgt0 + ws * C::W_TILE, &wmap, wfull + 8 * ws, 0,
-                          (tap * p.nchunks + ch) * p.co_pad + co_t * BN);
+              // f32: plane 1 (w_small) lies 9 * nchunks * co_pad rows after plane 0.
+#pragma unroll
+              for (int pl = 0; pl < C::PLANES; ++pl)
+                tma_load_2d(wgt0 + ws * C::W_TILE + pl * C::PLANE_BYTES, &wmap, wfull + 8 * ws, 0,
+                            pl * 9 * p.nchunks * p.co_pad + (tap * p.nchunks + ch) * p.co_pad +
+                                co_t * BN);
             }
           }
         }
@@ -414,7 +530,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int hs = hi % C::H_STAGES;
         mbar_wait(hfull + 8 * hs, (hi / C::H_STAGES) & 1);
         const uint32_t halo = halo_g + hs * C::HALO_BYTES;
-        uint32_t a[2][SLABS][4][4];  // [buffer][slab][k16 step][register]
+        // [buffer][slab][k step][register]: bf16 A, or f32 A's tf32 big part
+        uint32_t a[2][SLABS][4][4];
+        uint32_t a_small[2][C::F32 ? SLABS : 1][4][4];  // f32: A - big, rounded to tf32
         int prev_ws = 0;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
@@ -434,16 +552,41 @@ __global__ void __launch_bounds__(THREADS, 1)
             const uint32_t r = a_row[s] + shift;
             const uint32_t row_addr = halo + r * ROW_BYTES;
 #pragma unroll
-            for (int ks = 0; ks < 4; ++ks)
-              ldsm_x4(row_addr + ((((ks * 2 + khalf) ^ r) & 7) << 4), a[tap & 1][s][ks]);
+            for (int ks = 0; ks < 4; ++ks) {
+              const uint32_t addr = row_addr + ((((ks * 2 + khalf) ^ r) & 7) << 4);
+              if constexpr (C::F32) {
+                // An 8x8 b16 matrix is 8 rows x 4 f32: the four matrices are
+                // the tf32 m64k8 fragment's a0..a3, as the four k8 halves of
+                // bf16's k16. Split here, once per 3 x BN/8 MMA columns.
+                uint32_t raw[4];
+                ldsm_x4(addr, raw);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const uint32_t big = tf32_rna(__uint_as_float(raw[i]));
+                  a[tap & 1][s][ks][i] = big;
+                  a_small[tap & 1][s][ks][i] =
+                      tf32_rna(__uint_as_float(raw[i]) - __uint_as_float(big));
+                }
+              } else {
+                ldsm_x4(addr, a[tap & 1][s][ks]);
+              }
+            }
           }
           wgmma_fence();
           const uint64_t desc = smem_desc_sw128(wtile);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-            for (int s = 0; s < SLABS; ++s)
-              wgmma_tile<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);  // +32 bytes per k16
+            for (int s = 0; s < SLABS; ++s) {
+              if constexpr (C::F32) {  // small x big + big x small + big x big, +32 bytes per k8
+                const uint64_t desc_small = smem_desc_sw128(wtile + C::PLANE_BYTES);
+                wgmma_tile_tf32<BN>(acc[s], a_small[tap & 1][s][ks], desc + 2 * ks);
+                wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc_small + 2 * ks);
+                wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);
+              } else {
+                wgmma_tile<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);  // +32 bytes per k16
+              }
+            }
           wgmma_commit();
           wgmma_wait<1>();  // tap - 1 is done: its A registers and weight stage are free
           if (!RESIDENT && tap > 0) mbar_arrive(wempty + 8 * prev_ws);
@@ -466,6 +609,48 @@ __global__ void __launch_bounds__(THREADS, 1)
       // consumed (released after the store), streamed in its own buffer.
       const uint32_t stage = RESIDENT ? halo_g + last_hs * C::HALO_BYTES : out0;
       const int x0 = tx * p.tw, y0 = ty * p.th, co0 = co_t * BN + 2 * (lane % 4);
+      if constexpr (C::F32) {
+        // f32: rows of 32 channels (128 bytes), two boxes per round of 64
+        // output channels through the one 32 KB buffer. A thread's two
+        // channels are 8 bytes of the 16-byte unit 2 * (jj % 4) + t / 2,
+        // swizzled by the row as the bf16 path's units are.
+#pragma unroll
+        for (int rd = 0; rd < BN / C::OUT_CH; ++rd) {
+          named_bar_sync(1 + g, 128 * C::WGS);  // the previous store has read the buffer
+#pragma unroll
+          for (int s = 0; s < SLABS; ++s)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int m = (wg_in * SLABS + s) * 64 + warp * 16 + lane / 4 + 8 * hf;
+              if (m >= tile_px) continue;
+#pragma unroll
+              for (int jj = 0; jj < C::OUT_CH / 8; ++jj) {
+                const int j = rd * (C::OUT_CH / 8) + jj;
+                const int co = co0 + 8 * j;
+                float v0 = acc[s][4 * j + 2 * hf], v1 = acc[s][4 * j + 2 * hf + 1];
+                if constexpr (BIAS_RELU) {
+                  v0 = fmaxf(v0 + (co < p.c ? p.bias[co] : 0.0f), 0.0f);
+                  v1 = fmaxf(v1 + (co < p.c ? p.bias[co + 1] : 0.0f), 0.0f);
+                }
+                st_shared_v2_f32(stage + (jj / 4) * TILE_M * ROW_BYTES + m * ROW_BYTES +
+                                     ((((2 * (jj % 4) + (lane % 4) / 2) ^ m) & 7) << 4) +
+                                     8 * (lane % 2),
+                                 v0, v1);
+              }
+            }
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to TMA
+          named_bar_sync(1 + g, 128 * C::WGS);
+          if (wg_in == 0 && warp == 0 && lane == 0) {
+#pragma unroll
+            for (int b = 0; b < C::OUT_CH / C::CHUNK; ++b) {
+              const int cb = co_t * BN + rd * C::OUT_CH + b * C::CHUNK;
+              if (cb < p.c) tma_store_4d(&ymap, stage + b * TILE_M * ROW_BYTES, cb, x0, y0, n);
+            }
+            bulk_store_wait_read();
+          }
+        }
+        continue;
+      }
       named_bar_sync(1 + g, 128 * C::WGS);  // the previous store has read the buffer
 #pragma unroll
       for (int s = 0; s < SLABS; ++s)
@@ -541,11 +726,15 @@ Tile pick_tile(int m, int max_halo_rows, int h, int w) {
   return best;
 }
 
-template <int BN, bool RESIDENT, bool BIAS_RELU>
+template <typename T, int BN, bool RESIDENT, bool BIAS_RELU>
 int launch(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
            int c, cudaStream_t stream) {
-  using C = Cfg<BN, RESIDENT>;
-  auto kernel = conv3x3_wgmma_kernel<BN, RESIDENT, BIAS_RELU>;
+  using C = Cfg<T, BN, RESIDENT>;
+  constexpr int CHUNK = C::CHUNK;
+  constexpr cuuint64_t ES = sizeof(T);
+  constexpr CUtensorMapDataType DTYPE =
+      C::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  auto kernel = conv3x3_wgmma_kernel<T, BN, RESIDENT, BIAS_RELU>;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
 
@@ -583,24 +772,25 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   const cuuint64_t xdim[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
-  const cuuint64_t xstride[3] = {static_cast<cuuint64_t>(c) * 2,
-                                 static_cast<cuuint64_t>(w) * c * 2,
-                                 static_cast<cuuint64_t>(h) * w * c * 2};
+  const cuuint64_t xstride[3] = {static_cast<cuuint64_t>(c) * ES,
+                                 static_cast<cuuint64_t>(w) * c * ES,
+                                 static_cast<cuuint64_t>(h) * w * c * ES};
   const cuuint32_t xbox[4] = {CHUNK, static_cast<cuuint32_t>(t.tw + 2),
                               static_cast<cuuint32_t>(t.th + 2), 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim, xstride, xbox,
+  if (encode(&xmap, DTYPE, 4, const_cast<void*>(x), xdim, xstride, xbox,
              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cuuint32_t ybox[4] = {CHUNK, static_cast<cuuint32_t>(t.tw), static_cast<cuuint32_t>(t.th), 1};
-  if (encode(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, out, xdim, xstride, ybox, ones,
+  if (encode(&ymap, DTYPE, 4, out, xdim, xstride, ybox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cuuint64_t wdim[2] = {CHUNK, static_cast<cuuint64_t>(9) * p.nchunks * p.co_pad};
+  // f32: [plane][tap][chunk][co_pad][32] as rows of one 128-byte chunk.
+  const cuuint64_t wdim[2] = {CHUNK, static_cast<cuuint64_t>(C::PLANES) * 9 * p.nchunks * p.co_pad};
   const cuuint64_t wstride[1] = {ROW_BYTES};
   const cuuint32_t wbox[2] = {CHUNK, BN};
-  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wpk), wdim, wstride,
+  if (encode(&wmap, DTYPE, 2, const_cast<void*>(wpk), wdim, wstride,
              wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -613,7 +803,7 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
 
 }  // namespace tc
 
-// ---- CUDA-core path: f32, or bf16 with C % 16 != 0 ----------------------------
+// ---- CUDA-core path: f32 with C % 4 != 0, bf16 with C % 16 != 0 ----------------
 
 constexpr int TH = 8;          // tile rows
 constexpr int TW = 16;         // tile columns
@@ -724,12 +914,31 @@ extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* 
       reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= tc::CHUNK) {
-    if (bias_relu) return tc::launch<64, true, true>(x, wpk, bias, out, n, h, w, c, s);
-    return tc::launch<64, true, false>(x, wpk, bias, out, n, h, w, c, s);
+  using bf16 = __nv_bfloat16;
+  if (c <= 64) {
+    if (bias_relu) return tc::launch<bf16, 64, true, true>(x, wpk, bias, out, n, h, w, c, s);
+    return tc::launch<bf16, 64, true, false>(x, wpk, bias, out, n, h, w, c, s);
   }
-  if (bias_relu) return tc::launch<128, false, true>(x, wpk, bias, out, n, h, w, c, s);
-  return tc::launch<128, false, false>(x, wpk, bias, out, n, h, w, c, s);
+  if (bias_relu) return tc::launch<bf16, 128, false, true>(x, wpk, bias, out, n, h, w, c, s);
+  return tc::launch<bf16, 128, false, false>(x, wpk, bias, out, n, h, w, c, s);
+}
+
+// Tensor-core path in f32 (3xTF32). x, out and bias f32; wpk the two tf32
+// planes [plane][tap][chunk of 32][co_pad][32]. Needs C % 4 == 0 (TMA's
+// 16-byte strides) and 16-byte aligned x, wpk and out; tiles of 64 output
+// channels for C <= 64, 128 above, weights streamed at every C.
+extern "C" int conv3x3_tf32x3_launch(const void* x, const void* wpk, const void* bias, void* out,
+                                     int n, int h, int w, int c, int bias_relu, void* stream) {
+  if (c % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c <= 64) {
+    if (bias_relu) return tc::launch<float, 64, false, true>(x, wpk, bias, out, n, h, w, c, s);
+    return tc::launch<float, 64, false, false>(x, wpk, bias, out, n, h, w, c, s);
+  }
+  if (bias_relu) return tc::launch<float, 128, false, true>(x, wpk, bias, out, n, h, w, c, s);
+  return tc::launch<float, 128, false, false>(x, wpk, bias, out, n, h, w, c, s);
 }
 
 // CUDA-core path. dtype: 0 = float32, 1 = bfloat16 (x, wt and out); bias is

@@ -1,7 +1,11 @@
 """Shared building blocks (port of ``unet_embroidery_seg_tpu/models/blocks.py``).
 
 NCHW modules meant to run on ``torch.channels_last`` memory. Parameters stay
-float32; a bf16 forward runs under autocast (``engine/steps.py``).
+float32; a bf16 forward runs under autocast (``engine/steps.py``). Under it
+every parameter is read as its bf16 value, as the JAX package's AMP computes
+with bf16 copies of its parameters (``ops/flat_adam.py:TreeAdam.cast_params``):
+autocast casts the stock convs' weights and biases, the conv3x3 wrappers
+round theirs, and ``BatchNorm`` and ``ClassHead`` round theirs here.
 
 Initialisation mirrors the reference's ``weights_init`` 'normal' scheme, as
 the JAX package does: conv kernels N(0, 0.02), BN scale N(1, 0.02), biases 0,
@@ -47,18 +51,34 @@ class BatchNorm(nn.BatchNorm2d):
     back (a few ops on C values), so the forward itself stays cuDNN's. The
     corrected variance is a new tensor bound to the buffer: autograd saved
     the one torch updated and checks that it is not modified in place.
+
+    Under bf16 autocast the scale and bias are used rounded to bf16 values
+    (JAX's bf16 parameter copies), in f32 as the normalisation computes; the
+    statistics stay f32, and the gradient reaches the f32 parameters through
+    the rounding, as JAX's reaches its masters through the cast.
     """
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if (torch.is_autocast_enabled(x.device.type)
+                and torch.get_autocast_dtype(x.device.type) == torch.bfloat16):
+            weight = weight.to(torch.bfloat16).float()
+            bias = bias.to(torch.bfloat16).float()
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, self.running_mean, self.running_var, weight, bias,
+                            self.training, self.momentum, self.eps)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return self._batch_norm(x)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             before = self.running_var.clone()
-        y = super().forward(x)
+        y = self._batch_norm(x)
         with torch.no_grad():
             # torch: rv = (1 - m) * before + m * var * n / (n - 1); flax has m * var.
             self.running_var = torch.add(self.running_var * ((n - 1) / n), before,
@@ -112,6 +132,8 @@ class ClassHead(nn.Conv2d):
 
     The diff form is one matvec with (w1 - w0, b1 - b0), the binary training
     fast path of the JAX package; the parameters are the same either way.
+    Each parameter is cast to the activation type before the subtraction, as
+    JAX subtracts its bf16 parameter copies under AMP; in f32 nothing changes.
     """
 
     def __init__(self, cin: int, num_classes: int, diff: bool = False):
@@ -123,9 +145,8 @@ class ClassHead(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.diff:
             return super().forward(x)
-        wd = (self.weight[1, :, 0, 0] - self.weight[0, :, 0, 0]).to(x.dtype)
-        bd = (self.bias[1] - self.bias[0]).to(x.dtype)
-        return torch.einsum("nchw,c->nhw", x, wd) + bd
+        w, b = self.weight[:, :, 0, 0].to(x.dtype), self.bias.to(x.dtype)
+        return torch.einsum("nchw,c->nhw", x, w[1] - w[0]) + (b[1] - b[0])
 
 
 class UnetUpNoBN(nn.Module):

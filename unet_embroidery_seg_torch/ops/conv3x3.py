@@ -16,10 +16,17 @@ which the JAX package computes with a flax ``nn.Conv``
 
 - Kernel: ``csrc/conv3x3_same.cu``. 408 GFLOP per forward at 480^2, batch 8,
   bf16; its bound on the H100 is ~420 us, set by operations at C >= 128 and
-  by bytes and operations alike at C = 64. bf16 with C % 16 == 0 (every
-  site) is an implicit GEMM on the tensor cores (TMA halo ring, ``wgmma``):
-  ``c64_persistent`` for C <= 64, ``wgmma`` above; everything else runs on
-  the CUDA cores (``fma``). ``conv3x3_path`` names the path a call takes.
+  by bytes and operations alike at C = 64. ``conv3x3_path`` names the path
+  a call takes:
+
+  - bf16 with C % 16 == 0 (every bf16 site): an implicit GEMM on the tensor
+    cores (TMA halo ring, ``wgmma``): ``c64_persistent`` for C <= 64,
+    ``wgmma`` above;
+  - f32 with C % 4 == 0 (every f32 site; TMA needs 16-byte strides, 4 f32):
+    ``tf32x3``, the same kernel on the TF32 tensor cores with each operand
+    split into two tf32 parts (``tf32_split``) and three products summed in
+    f32, which keeps f32 accuracy (about 2^-21 of each product);
+  - everything else on the CUDA cores (``fma``).
 - dgrad: the same kernel, as the Pallas kernel's docstring has it: dx is
   the same conv of the output's gradient with the weights flipped in space
   and transposed in channels, the epilogue's bias and ReLU off
@@ -27,7 +34,8 @@ which the JAX package computes with a flax ``nn.Conv``
   the Pallas kernel never computed it, the JAX package left it to XLA.
 - Plain versions: ``conv3x3_bias_relu_plain``, ``conv3x3_same_plain`` and
   ``conv3x3_dgrad_plain``, nine shifted-slice products accumulated in
-  float32, the arithmetic of the Pallas kernel's per-row im2col GEMMs.
+  float32 (autocast off), the arithmetic of the Pallas kernel's per-row
+  im2col GEMMs.
 - Wrappers: ``conv3x3_bias_relu`` and ``conv3x3_same``, each a
   ``torch.autograd.Function`` whose backward runs ``conv3x3_dgrad``, and
   ``conv3x3_dgrad``. A CPU tensor takes the plain versions; a CUDA tensor
@@ -41,7 +49,9 @@ a weight once per parameter version and keep the packed copy, and the
 float32 bias where there is one, until the parameter is updated in place,
 given a new storage, or freed; with grad on (training) and in dgrad they
 pack on every call (``_packed_params``, which also states what the cache
-cannot see).
+cannot see). A bf16 call reads its weights and its bias rounded to bf16, as
+the JAX package's AMP computes with bf16 copies of every parameter
+(``TreeAdam.cast_params``); the kernel adds the bias in f32.
 """
 
 from __future__ import annotations
@@ -56,12 +66,16 @@ from torch.autograd.function import once_differentiable
 from unet_embroidery_seg_torch.ops import _build
 
 __all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
-           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight"]
+           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight", "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_WGMMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-CHUNK = 64  # input channels per halo stage of the tensor-core path
+# Input channels per halo stage of a tensor-core path: 128 bytes of the type.
+CHUNK = {torch.bfloat16: 64, torch.float32: 32}
+# C entry point of each tensor-core path.
+_TC_SYMBOLS = {"c64_persistent": "conv3x3_wgmma_launch", "wgmma": "conv3x3_wgmma_launch",
+               "tf32x3": "conv3x3_tf32x3_launch"}
 
 
 def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> None:
@@ -76,34 +90,75 @@ def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | No
 
 
 def conv3x3_path(c: int, dtype: torch.dtype) -> str:
-    """The kernel path a CUDA call with ``c`` channels of ``dtype`` takes."""
+    """The kernel path a CUDA call with ``c`` channels of ``dtype`` takes.
+
+    bf16 with C % 16 == 0: ``c64_persistent`` (C <= 64) or ``wgmma``; f32
+    with C % 4 == 0 (TMA's 16-byte strides): ``tf32x3``; the rest ``fma``.
+    """
     if dtype == torch.bfloat16 and c % 16 == 0:
-        return "c64_persistent" if c <= CHUNK else "wgmma"
+        return "c64_persistent" if c <= 64 else "wgmma"
+    if dtype == torch.float32 and c % 4 == 0:
+        return "tf32x3"
     return "fma"
 
 
-def _tc_layout(c: int, path: str) -> tuple[int, int]:
-    """(input-channel chunks, padded output channels) of the tensor-core layout."""
-    bn = 64 if path == "c64_persistent" else 128
-    return -(-c // CHUNK), -(-c // bn) * bn
+def _tc_layout(c: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(input-channel chunks, padded output channels) of a tensor-core layout.
+
+    Tiles of 64 output channels for C <= 64, 128 above, in both types.
+    """
+    bn = 64 if c <= 64 else 128
+    return -(-c // CHUNK[dtype]), -(-c // bn) * bn
 
 
-def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """An OIHW (C, C, 3, 3) weight in the layout the kernel reads, in ``dtype``.
+def _round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away, as ``cvt.rna``.
+
+    On the bits: add half of the dropped 13 bits' range, then clear them;
+    the carry rounds the magnitude up, whatever the sign.
+    """
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) tf32 parts of an f32 tensor: big = rna(t), small = rna(t - big).
+
+    ``big + small`` is within 2^-22 of ``t`` relatively (t - big is exact in
+    f32, and rounding it keeps 11 of its bits), the split the ``tf32x3``
+    kernel makes of its inputs in registers and of the weights here.
+    """
+    big = _round_tf32(t)
+    return big, _round_tf32(t - big)
+
+
+def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype,
+                        path: str | None = None) -> torch.Tensor:
+    """An OIHW (C, C, 3, 3) weight in the layout ``path`` reads, in ``dtype``.
+
+    ``path`` defaults to ``conv3x3_path``'s choice for C and ``dtype``; the
+    only other one that takes a call is ``fma``.
 
     - ``c64_persistent`` / ``wgmma``: [tap = ky*3 + kx][input-channel chunk of
       64][co_pad][64], zero where C_in or C_out is padded (co_pad is C rounded
       up to the kernel's 64 or 128 output channels per tile).
+    - ``tf32x3``: [plane][tap][input-channel chunk of 32][co_pad][32], plane
+      0 ``w_big`` and plane 1 ``w_small`` of ``tf32_split``.
     - ``fma``: [ky][kx][co][ci].
     """
     c = weight.shape[0]
     w = weight.detach().to(dtype).permute(2, 3, 0, 1)  # [ky][kx][co][ci]
-    path = conv3x3_path(c, dtype)
+    path = path or conv3x3_path(c, dtype)
+    if path not in ("fma", conv3x3_path(c, dtype)):
+        raise ValueError(f"pack_conv3x3_weight: path {path} does not take {c} channels of {dtype}")
     if path == "fma":
         return w.contiguous()
-    chunks, co_pad = _tc_layout(c, path)
-    w = F.pad(w, (0, chunks * CHUNK - c, 0, co_pad - c))  # [ky][kx][co_pad][chunks*64]
-    return w.reshape(9, co_pad, chunks, CHUNK).permute(0, 2, 1, 3).contiguous()
+    chunks, co_pad = _tc_layout(c, dtype)
+    chunk = CHUNK[dtype]
+    w = F.pad(w, (0, chunks * chunk - c, 0, co_pad - c))  # [ky][kx][co_pad][chunks*chunk]
+    w = w.reshape(9, co_pad, chunks, chunk).permute(0, 2, 1, 3)
+    if path == "tf32x3":
+        return torch.stack(tf32_split(w))
+    return w.contiguous()
 
 
 # (id weight, id bias or None, dtype) -> ((ptr, version) of the weight and
@@ -120,7 +175,8 @@ def _version(t: torch.Tensor) -> int | None:
 
 
 def _pack(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype):
-    b = None if bias is None else bias.detach().float().contiguous()
+    """The packed weight and the bias as f32 holding ``dtype``'s values (None without one)."""
+    b = None if bias is None else bias.detach().to(dtype).float().contiguous()
     return pack_conv3x3_weight(weight, dtype), b
 
 
@@ -152,16 +208,20 @@ def _packed_params(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch
 
 
 def _conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 conv as nine shifted-slice products, weights rounded to ``x.dtype``, in f32."""
+    """SAME 3x3 conv as nine shifted-slice products, weights rounded to ``x.dtype``, in f32.
+
+    Autocast is off inside: under it the products would run in bf16.
+    """
     n, c, h, w = x.shape
-    xp = F.pad(x.float(), (1, 1, 1, 1))
-    wf = weight.to(x.dtype).float()
-    acc = torch.zeros((n, c, h, w), dtype=torch.float32, device=x.device)
-    for ky in range(3):
-        for kx in range(3):
-            acc += torch.einsum(
-                "nihw,oi->nohw", xp[:, :, ky : ky + h, kx : kx + w], wf[:, :, ky, kx]
-            )
+    with torch.autocast(x.device.type, enabled=False):
+        xp = F.pad(x.float(), (1, 1, 1, 1))
+        wf = weight.to(x.dtype).float()
+        acc = torch.zeros((n, c, h, w), dtype=torch.float32, device=x.device)
+        for ky in range(3):
+            for kx in range(3):
+                acc += torch.einsum(
+                    "nihw,oi->nohw", xp[:, :, ky : ky + h, kx : kx + w], wf[:, :, ky, kx]
+                )
     return acc
 
 
@@ -170,11 +230,12 @@ def conv3x3_bias_relu_plain(
 ) -> torch.Tensor:
     """relu(conv3x3_same(x, weight) + bias) as nine shifted-slice products.
 
-    The weights are rounded to ``x.dtype`` (as the kernel reads them), then
-    everything is accumulated in float32 and the result cast to ``x.dtype``.
+    The weights and the bias are rounded to ``x.dtype`` (as the kernel reads
+    them), then everything is accumulated in float32 and the result cast to
+    ``x.dtype``.
     """
     _check_shapes(x, weight, bias)
-    y = torch.relu(_conv3x3_f32(x, weight) + bias.float()[None, :, None, None])
+    y = torch.relu(_conv3x3_f32(x, weight) + bias.to(x.dtype).float()[None, :, None, None])
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
@@ -207,8 +268,12 @@ def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
-            what: str) -> torch.Tensor:
-    """The kernel on ``x`` with packed weights; bias and ReLU fused when ``bias`` is given."""
+            what: str, path: str | None = None) -> torch.Tensor:
+    """The kernel on ``x`` with packed weights; bias and ReLU fused when ``bias`` is given.
+
+    ``path`` (``conv3x3_path``'s choice by default) must be the one the
+    weights were packed for; ``fma`` takes any call.
+    """
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -218,9 +283,11 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
     if packed.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError(f"{what}: x, weight and bias must be on one device")
     n, c, h, w = x.shape
-    path = conv3x3_path(c, x.dtype)
+    path = path or conv3x3_path(c, x.dtype)
+    if path != "fma" and path != conv3x3_path(c, x.dtype):
+        raise ValueError(f"{what}: path {path} does not take {c} channels of {x.dtype}")
     if path != "fma" and x.data_ptr() % 16 != 0:
-        raise ValueError(f"{what}: the tensor-core path needs a 16-byte aligned input (TMA)")
+        raise ValueError(f"{what}: the tensor-core paths need a 16-byte aligned input (TMA)")
     out = torch.empty_like(x, memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
@@ -233,7 +300,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
             code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c,
                       _DTYPE_CODES[x.dtype], fused, stream)
         else:
-            fn = _build.load("conv3x3_same", "conv3x3_wgmma_launch", _WGMMA_ARGTYPES)
+            fn = _build.load("conv3x3_same", _TC_SYMBOLS[path], _TC_ARGTYPES)
             code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c, fused,
                       stream)
     _build.check(code, what)

@@ -16,6 +16,16 @@ reference:
     centres;
   - ``align_corners=True`` (``nn.UpsamplingBilinear2d``): the unet_resnet50
     decoder's convention.
+
+The weights stay float32 under AMP too, where JAX's bf16 ``upsample2x`` and
+``resize_bilinear`` cast the matrices to bf16 (``ops/resize.py:62,102-103``
+there). That is JAX's choice of one MXU pass, a constant and not a
+parameter; the reference torch code interpolates with exact weights, as the
+port does. With ``align_corners=False`` the weights (0.25, 0.75) are exact
+in bf16, so unet_plain, attention_unet and dualdense_unet see no difference;
+with ``align_corners=True`` (unet_resnet50) rounding them moves a bf16
+output by at most one bf16 ulp at its largest value
+(``tests/test_torch_amp.py`` pins both).
 """
 
 from __future__ import annotations
@@ -61,28 +71,31 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 def upsample2x_plain(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
     """2x bilinear upsample of NCHW as the two interpolation-matrix contractions.
 
-    Maths in float32 whatever the input type (the CUDA kernel's convention);
-    the result is cast back to ``x.dtype`` in ``channels_last`` memory.
+    Maths in float32 whatever the input type (the CUDA kernel's convention),
+    autocast off; the result is cast back to ``x.dtype`` in ``channels_last``
+    memory.
     """
     h, w = x.shape[-2], x.shape[-1]
     mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=x.device)
     mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=x.device)
-    y = torch.einsum("oh,nchw->ncow", mh, x.float())
-    y = torch.einsum("pw,ncow->ncop", mw, y)
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.einsum("oh,nchw->ncow", mh, x.float())
+        y = torch.einsum("pw,ncow->ncop", mw, y)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def upsample2x_backward_plain(g: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
     """dx of ``upsample2x_plain`` from the output's gradient: the transposed contractions.
 
-    ``g`` is (N, C, 2H, 2W); maths in float32, the result cast back to
+    ``g`` is (N, C, 2H, 2W); maths in float32 (autocast off), the result cast back to
     ``g.dtype`` in ``channels_last`` memory (the backward kernel's convention).
     """
     h, w = g.shape[-2] // 2, g.shape[-1] // 2
     mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=g.device)
     mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=g.device)
-    dx = torch.einsum("oh,ncop->nchp", mh, g.float())
-    dx = torch.einsum("pw,nchp->nchw", mw, dx)
+    with torch.autocast(g.device.type, enabled=False):
+        dx = torch.einsum("oh,ncop->nchp", mh, g.float())
+        dx = torch.einsum("pw,nchp->nchw", mw, dx)
     return dx.to(g.dtype).contiguous(memory_format=torch.channels_last)
 
 
@@ -92,19 +105,20 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
 
     The JAX package's ``resize_bilinear``: one contraction per axis whose
     size changes (an axis of equal size is left alone), with the matrices
-    of ``_interp_matrix``. Maths in float32, the result cast back to
+    of ``_interp_matrix``. Maths in float32 (autocast off), the result cast back to
     ``x.dtype`` in ``channels_last`` memory. Its gradient is the transposed
     contractions, deterministic like the upsample kernel's (where
     ``F.interpolate``'s backward adds with atomics on the card).
     """
     h, w = x.shape[-2], x.shape[-1]
     y = x.float()
-    if out_hw[0] != h:
-        mh = torch.tensor(_interp_matrix(h, out_hw[0], align_corners), device=x.device)
-        y = torch.einsum("oh,nchw->ncow", mh, y)
-    if out_hw[1] != w:
-        mw = torch.tensor(_interp_matrix(w, out_hw[1], align_corners), device=x.device)
-        y = torch.einsum("pw,nchw->nchp", mw, y)
+    with torch.autocast(x.device.type, enabled=False):
+        if out_hw[0] != h:
+            mh = torch.tensor(_interp_matrix(h, out_hw[0], align_corners), device=x.device)
+            y = torch.einsum("oh,nchw->ncow", mh, y)
+        if out_hw[1] != w:
+            mw = torch.tensor(_interp_matrix(w, out_hw[1], align_corners), device=x.device)
+            y = torch.einsum("pw,nchw->nchp", mw, y)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 

@@ -25,7 +25,7 @@ import torch
 from unet_embroidery_seg_torch.data.augment import letterbox
 from unet_embroidery_seg_torch.engine import checkpoint, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
-from unet_embroidery_seg_torch.utils.device import resolve_device
+from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_val_exp_folder
 
 VOC_COLORS = [
@@ -154,6 +154,7 @@ def detect_batch(file_paths: list[str], batch: int, predict_fn, num_classes: int
 
 def predict(args) -> str:
     device = resolve_device(args.device)
+    set_float32_precision()
     exp_folder = create_val_exp_folder()
     num_classes = args.num_classes + 1
     if not os.path.exists(args.weights):

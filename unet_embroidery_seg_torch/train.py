@@ -40,7 +40,7 @@ from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.ops import schedules
 from unet_embroidery_seg_torch.predict import resolve_amp_default
-from unet_embroidery_seg_torch.utils.device import resolve_device
+from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_exp_folder
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 
@@ -163,6 +163,7 @@ def write_history(exp_folder: str, val_metrics_history: list[dict]) -> None:
 def train(args) -> str:
     check_supported(args)
     device = resolve_device(args.device)
+    set_float32_precision()
     if args.amp is None:
         args.amp = resolve_amp_default(args.model, args.loss, args.task)
     generator = seed_everything(args.seed)

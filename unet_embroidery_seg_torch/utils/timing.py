@@ -61,13 +61,15 @@ def graph_ms(fn, probe_ms: float, budget_ms: float = 300.0) -> float:
 KERNEL_GROUPS = [
     ("port upsample2x backward", ("upsample2x_bwd_kernel",)),
     ("port upsample2x", ("upsample2x_kernel",)),
+    # The tensor-core kernel's f32 (tf32x3) instances, then every other conv3x3 launch.
+    ("port conv3x3 f32 tf32x3 (forward and dgrad)", ("conv3x3_wgmma_kernel<float",)),
     ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("memcpy", ("Memcpy", "memcpy")),
     ("Adam (foreach)", ("multi_tensor", "foreach", "Adam", "adam")),
     ("sort (Lovasz)", ("sort", "Sort", "radix", "Radix")),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "sm90", "cutlass", "implicit",
                                     "dgrad", "wgrad")),
-    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "bn_")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_")),  # cuDNN f32: batchnorm_*
     ("cat", ("CatArrayBatchedCopy", "cat")),
     ("softmax", ("softmax",)),
     ("reductions and scans", ("reduce", "scan", "Scan")),

@@ -23,7 +23,7 @@ from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.predict import resolve_amp_default
 from unet_embroidery_seg_torch.train import NOT_PORTED, LogColor
-from unet_embroidery_seg_torch.utils.device import resolve_device
+from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 
 
@@ -33,6 +33,7 @@ def val(args) -> dict:
     if args.device_resident:
         raise NotImplementedError(f"--device-resident is not ported yet: {NOT_PORTED['device_augment']}")
     device = resolve_device(args.device)
+    set_float32_precision()
     os.makedirs(args.cache_dir, exist_ok=True)
     input_shape = [args.input_size, args.input_size]
     print(f"Loading HF Dataset from: {args.data_path}, config: {args.data_config}, split: test")
