@@ -80,13 +80,38 @@ epilogue off, at the conv2 of every DoubleConv):
    TF32 as PyTorch sets it by default and the CLIs state it): timed,
    finite, launch counts held.
 
-The model phases (5, 6, 8, 9) record each model's ``square_conv_paths`` in
+Phase 10 takes multitask_unet (unet_resnet50's decoder: the same 5
+align_corners=True upsamples and 6 fused convs) and the multiclass task
+(K = 5 output classes) to the card:
+
+- f32 site rows at the train shapes (512^2, batch 8, TF32 off for the
+  library calls): the align_corners=True upsample forward and backward at
+  its 5 sites, the fused conv (``tf32x3``, ``fma`` beside it) at its 6 and
+  their dgrad, each against its plain version;
+- 10a. multitask_unet in bf16: 20 train steps through the port's multitask
+  step (seg BCE unweighted, class CE, dropout on), 5 + 5 + 6 + 6 launches
+  per step, the gradient, loss, eval (seg counts within their bounds, the
+  class confusion sums to 8) and eval-after-step checks of phase 5;
+- 10b. the paper pipeline's ``--no-amp``: 3 f32 steps each of
+  multitask_unet and of multiclass unet_resnet50 with CE + Dice and with
+  Focal + Dice, timed, finite, launch counts held, every fused site on
+  ``tf32x3``;
+- 10c. multiclass unet_plain in bf16, CE + Dice, 20 steps (4 + 4 + 9 + 9
+  launches), with the checks of 10a (the eval step's four metrics in
+  [0, 1]);
+- 10d. multitask_unet in f32 at 128^2, batch 2, dropout off: seg and class
+  logits, the loss triple and every gradient, card against the CPU, to
+  phase 6's rule.
+
+The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
 kernel: in f32 every site is ``tf32x3``.
 
 Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
 families' under names of their own, then the f32 conv's, ``[f32]``, with
-phase 9's launches), the card line, and the result line.
+phase 9's launches, then the f32 entries at unet_resnet50's sites,
+``[...,f32]``, with phase 10b's multitask launches), the card line, and the
+result line.
 
 Imports nothing of JAX, PIL or cv2. Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -182,6 +207,23 @@ FAMILY_FORWARD_LAUNCHES = {
 ZERO_GRADIENT_PARAMS = ("attn.psi.0.bias",)  # phase 8: finite, 0 by construction
 FAMILY_TRAIN_STEPS = 20  # BCE falls within a few steps: mean of the last ten below the first ten
 FAMILY_F32_STEPS = 3  # phase 9: unet_plain in f32 at full width, timed only
+# Phases 10a-10d: multitask_unet and the multiclass task. multitask_unet's
+# decoder is unet_resnet50's, so its kernel sites are too; multiclass runs
+# K = --num-classes 4 + 1 = 5 output classes (the train CLI's default).
+TASK_TRAIN_STEPS = 20  # 10a, 10c: the loss falls (mean of the last ten below the first ten)
+TASK_F32_STEPS = 3  # 10b: the paper pipeline's --no-amp, timed only
+MC_CLASSES = 5
+RESNET_PER_STEP = {"upsample2x": 5, "upsample2x_backward": 5, "conv3x3_bias_relu": 6,
+                   "conv3x3_same": 0, "conv3x3_dgrad": 6}
+# f32 site rows of the align_corners=True upsample and the fused conv, at the
+# train shapes (512^2, batch 8): (site, C, H_in of the upsample / H of the
+# conv, count per step); the upsample backward reads its cat slice as in phase 3.
+F32_UPSAMPLE_SITES = [("up_concat4.up", 2048, 16, 1), ("up_concat3.up", 512, 32, 1),
+                      ("up_concat2.up", 256, 64, 1), ("up_concat1.up", 128, 128, 1),
+                      ("up_conv.0", 64, 256, 1)]
+F32_FUSED_SITES = [("up_concat4.conv2", 512, 32, 1), ("up_concat3.conv2", 256, 64, 1),
+                   ("up_concat2.conv2", 128, 128, 1), ("up_concat1.conv2", 64, 256, 1),
+                   ("up_conv.1, up_conv.3", 64, 512, 2)]
 # How kernel and library ``ms`` are timed: calls captured into a CUDA graph
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
@@ -951,6 +993,259 @@ def packing_cost() -> dict:
     return result
 
 
+def check_f32_resnet_sites(gen: torch.Generator) -> list[dict]:
+    """Phase 10: unet_resnet50's (and multitask_unet's) kernel sites in f32 at the train shapes.
+
+    512^2, batch 8, TF32 off for the library calls: the align_corners=True
+    upsample forward at its 5 sites and its backward at the same 5 (cat
+    slices), the fused conv (bias + ReLU, ``tf32x3``, ``fma`` beside it) at
+    its 6 sites and their dgrad, each against its plain version.
+    """
+    rows = []
+    for kernel, sites in (("upsample2x", F32_UPSAMPLE_SITES), ("conv3x3_same", F32_FUSED_SITES)):
+        for site, c, h, count in sites:
+            run, plain, library, nbytes, flops, path, x, fma = _forward_case(
+                kernel, c, h, torch.float32, gen)
+            rows.append(measure_site("f32_site", kernel, f"{site}.f32", path, torch.float32, run,
+                                     plain, library, nbytes, flops,
+                                     {"shape": list(x.shape), "count": count,
+                                      "sites_of": "unet_resnet50, multitask_unet"}, fma))
+            del run, plain, library, x, fma
+    skips = {n: skip for n, _, _, skip in UPSAMPLE_BWD_SITES}
+    cases = [("upsample2x_backward", site, c, h, skips[site], count)
+             for site, c, h, count in F32_UPSAMPLE_SITES]
+    cases += [("conv3x3_dgrad", site, c, h, 0, count) for site, c, h, count in F32_FUSED_SITES]
+    for kernel, site, c, h, skip, count in cases:
+        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
+            kernel, c, h, skip, torch.float32, gen)
+        rows.append(measure_site("f32_backward_site", kernel, f"{site}.f32", path, torch.float32,
+                                 run, plain, library, nbytes, flops,
+                                 {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
+                                  "count": count, "sites_of": "unet_resnet50, multitask_unet"},
+                                 fma))
+        del run, plain, library, g, fma
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _task_model(task: str, name: str, device: str = "cuda"):
+    """A full-width seeded model for ``task``: multitask_unet, or ``name`` with MC_CLASSES outputs."""
+    from unet_embroidery_seg_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    if task == "multitask":
+        return build_model("multitask_unet", 1, generator=gen, device=device)
+    return build_model(name, MC_CLASSES, generator=gen, device=device)
+
+
+def _task_step(task: str, model, loss: str, amp: bool):
+    """The port's train step of ``task``: multitask (seg BCE unweighted, cls weight 1) or
+    multiclass (CE or focal, plus Dice)."""
+    from unet_embroidery_seg_torch.engine import steps
+    from unet_embroidery_seg_torch.ops import schedules
+
+    opt = schedules.make_train_optimizer(model.parameters(), TRAIN_LR)
+    if task == "multitask":
+        return steps.make_multitask_train_step(model, opt, loss, 1.0, None, amp=amp)
+    return steps.make_multiclass_train_step(model, opt, MC_CLASSES, focal=loss == "focal",
+                                            use_dice=True, amp=amp)
+
+
+def task_train_path(counters, task: str, name: str, loss: str, steps: int, per_step: dict,
+                    amp: bool = True, checks: bool = True) -> dict:
+    """``steps`` train steps of a full-width ``task`` model at 512^2, batch 8, on one seeded batch.
+
+    multitask: multitask_unet (``name``), a seeded batch with class labels,
+    seg BCE unweighted (the task's default) + class CE, dropout on.
+    multiclass: ``name`` with K = 5, discs of classes 1-4, ``loss`` (ce or
+    focal) + Dice. Adam over float32 masters at the CLI's lr; bf16 autocast
+    unless ``amp`` is off. Counters are zeroed just before the timed steps
+    and read just after: each must be ``per_step`` times the steps. Then,
+    with ``checks``: every parameter has a finite gradient that is nonzero
+    somewhere, the total loss falls (mean of the last ten below the first
+    ten), one eval step holds (multitask: inter <= pred sum, target sum <=
+    union <= 8 * 512^2, the confusion sums to 8; multiclass: its four
+    metrics in [0, 1]), and an eval forward after one more step equals a
+    fresh model's. Without ``checks`` only finite losses and the counts are
+    held.
+    """
+    from unet_embroidery_seg_torch.data.synthetic import seeded_task_batch
+
+    model = _task_model(task, name)
+    step = _task_step(task, model, loss, amp)
+    batch = seeded_task_batch(BATCH, TRAIN_SIZE, seed=0, task=task, num_classes=MC_CLASSES)
+    torch.manual_seed(0)  # multitask's dropout draws
+
+    def run() -> float:  # float() waits for the card
+        out = step(*batch)
+        return float(out[0][0] if task == "multitask" else out)
+
+    losses = [run()]  # warm-up: cuDNN plans, kernel loads, tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(run())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    label = f"{task} {name} {loss} {'bf16' if amp else 'f32'}"
+    want = {k: v * steps for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: train launches {launches} != expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    dtype = torch.bfloat16 if amp else torch.float32
+    paths = square_conv_paths(model, dtype)
+    if not amp and paths != {"tf32x3": 6}:  # the f32 runs: the six fused sites
+        raise AssertionError(f"{label}: fused conv sites not all on tf32x3: {paths}")
+    result = {
+        "task": task, "model": name, "steps": steps, "size": TRAIN_SIZE, "batch": BATCH,
+        "loss": loss, "lr": TRAIN_LR, "amp": amp,
+        "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms": step_ms, "losses": losses,
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "params_with_grad": sum(1 for _ in model.parameters()), "peak_mem_gb": peak_gb,
+        "square_conv_paths": paths,
+    }
+    if checks:
+        result.update(_task_checks(task, name, model, step, batch, loss, losses, label))
+    print("task_train_path " + json.dumps(result), flush=True)
+    return result
+
+
+def _task_checks(task, name, model, step, batch, loss, losses, label) -> dict:
+    from unet_embroidery_seg_torch.engine import steps
+
+    no_grad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+    if no_grad:
+        raise AssertionError(f"{label}: {len(no_grad)} parameters without a finite nonzero "
+                             f"gradient: {no_grad[:5]}")
+    if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+        raise AssertionError(f"{label}: the loss did not fall on a fixed batch: {losses}")
+
+    pixels = BATCH * TRAIN_SIZE ** 2
+    if task == "multitask":
+        images, pngs, cls, sm = batch
+        triple, counts, confusion = steps.make_multitask_eval_step(model, loss)(
+            images, pngs, cls, sm)
+        inter, union, psum, tsum = counts.tolist()
+        ok = (inter <= min(psum, tsum) and max(psum, tsum) <= union <= pixels
+              and int(confusion.sum()) == BATCH
+              and all(np.isfinite(v.item()) for v in triple))
+        evaluated = {"eval_loss": [v.item() for v in triple], "eval_seg_counts": counts.tolist(),
+                     "eval_confusion": confusion.tolist()}
+    else:
+        eval_loss, m = steps.make_multiclass_eval_step(
+            model, MC_CLASSES, focal=loss == "focal", use_dice=True)(*batch)
+        values = {k: v.item() for k, v in m.items()}
+        ok = np.isfinite(eval_loss.item()) and all(0.0 <= v <= 1.0 for v in values.values())
+        evaluated = {"eval_loss": eval_loss.item(), "eval_metrics": values}
+    if not ok:
+        raise AssertionError(f"{label}: eval step out of range: {evaluated}")
+
+    # An eval forward (grad off: packed weights from the cache) after one
+    # more step must see the step: equal to a fresh model with the weights.
+    x = torch.from_numpy(batch[0]).cuda().permute(0, 3, 1, 2)
+
+    def forward(m):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = m.eval()(x)
+        return torch.cat([o.float().flatten() for o in (out if task == "multitask" else (out,))])
+
+    before = forward(model)
+    step(*batch)
+    after = forward(model)
+    fresh = _task_model(task, name)
+    fresh.load_state_dict(model.state_dict(), strict=True)
+    changed = (after - before).abs().max().item()
+    stale = (after - forward(fresh)).abs().max().item()
+    if not (changed > 0 and stale <= 0.1 * changed):
+        raise AssertionError(f"{label}: eval after a step: changed by {changed}, off a fresh "
+                             f"model by {stale}")
+    return {**evaluated, "eval_after_step": {"changed": changed, "off_fresh": stale}}
+
+
+def f32_multitask_card_vs_cpu() -> dict:
+    """Phase 10d: multitask_unet in f32 at 128^2, batch 2, dropout p = 0: the card against the CPU.
+
+    Fan-in scaled conv weights (as phase 6's predict), so the logits are
+    O(1). Four runs from one state, as phase 6's train step: the CPU, the
+    CPU with the input moved by about one f32 ulp up and down, and the
+    card. Each run: an eval forward (seg and cls logits, held to 1e-3 of
+    their scale like phase 6's predict), then one train step (seg BCE, class
+    CE). The loss triple and every gradient are held, as a share of their
+    size, to 4x the larger of the two moves (the CPU's own noise floor) plus
+    1e-4; the fused conv sites' gradients also to 1e-2.
+    """
+    from unet_embroidery_seg_torch.data.synthetic import seeded_task_batch
+    from unet_embroidery_seg_torch.engine.steps import make_predict_fn
+
+    gen = torch.Generator().manual_seed(3)
+    cpu_model = _task_model("multitask", "multitask_unet", device="cpu")
+    with torch.no_grad():
+        for m in cpu_model.modules():
+            if isinstance(getattr(m, "weight", None), torch.Tensor) and m.weight.dim() == 4:
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=gen)
+    state = cpu_model.state_dict()
+    images, pngs, cls, sm = seeded_task_batch(2, 128, seed=3, task="multitask")
+    runs = {"cpu": ("cpu", images), "cpu_up": ("cpu", images * np.float32(1 + 2.0 ** -23)),
+            "cpu_down": ("cpu", images * np.float32(1 - 2.0 ** -23)), "card": ("cuda", images)}
+    logits, loss, grads = {}, {}, {}
+    for run, (dev, imgs) in runs.items():
+        model = _task_model("multitask", "multitask_unet", device=dev)
+        model.load_state_dict(state, strict=True)
+        model.cls_head[4].p = 0.0  # CUDA and CPU generators differ
+        logits[run] = [o.cpu() for o in make_predict_fn(model, amp=False)(imgs)]
+        triple, _ = _task_step("multitask", model, "bce", amp=False)(imgs, pngs, cls, sm)
+        loss[run] = [v.item() for v in triple]
+        grads[run] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        if dev == "cuda":
+            paths = square_conv_paths(model, torch.float32)
+
+    def rel(run: str) -> dict:
+        return {n: ((g - grads["cpu"][n]).norm() / grads["cpu"][n].norm().clamp_min(1e-30)).item()
+                for n, g in grads[run].items()}
+
+    def loss_rel(run: str) -> list:
+        return [abs(a - b) / abs(b) for a, b in zip(loss[run], loss["cpu"])]
+
+    card, up, down = rel("card"), rel("cpu_up"), rel("cpu_down")
+    noise = {n: max(up[n], down[n]) for n in card}
+    loss_noise = [max(a, b) for a, b in zip(loss_rel("cpu_up"), loss_rel("cpu_down"))]
+    worst = max(card, key=card.get)
+    sites = [n for n in card
+             if n.startswith("up_conv.") or (n.startswith("up_concat") and ".conv2." in n)]
+    logit_err = [((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(logits["card"], logits["cpu"])]
+    floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
+    result = {"model": "multitask_unet", "square_conv_paths": paths,
+              "logit_rel_err": {"seg": logit_err[0], "cls": logit_err[1]},
+              "logit_scale": {"seg": logits["cpu"][0].abs().max().item(),
+                              "cls": logits["cpu"][1].abs().max().item()},
+              "loss_card": loss["card"], "loss_cpu": loss["cpu"],
+              "loss_rel_diff": loss_rel("card"), "loss_rel_noise": loss_noise,
+              "median_grad_rel_diff": statistics.median(card.values()),
+              "median_grad_rel_noise": statistics.median(noise.values()),
+              "worst_grad_rel_diff": card[worst], "worst_grad_param": worst,
+              "worst_grad_rel_noise": max(noise.values()),
+              "kernel_site_grad_rel_diff": {n: card[n] for n in sites}}
+    print("f32_multitask_card_vs_cpu " + json.dumps(result), flush=True)
+    if not (np.isfinite(list(card.values())).all()
+            and max(logit_err) <= TOL_FORWARD_REL
+            and all(d <= floor(v) for d, v in zip(result["loss_rel_diff"], loss_noise))
+            and max(card[n] for n in sites) <= TOL_TRAIN_GRAD_SITES
+            and result["median_grad_rel_diff"] <= floor(result["median_grad_rel_noise"])
+            and card[worst] <= floor(result["worst_grad_rel_noise"])):
+        raise AssertionError(f"f32 multitask card vs CPU disagree: {result}")
+    return result
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -976,6 +1271,15 @@ FAMILY_KERNELS = {
 F32_KERNELS = {
     "conv3x3_same[f32]": ("conv3x3_same", "conv3x3_same", "torch.float32"),
     "conv3x3_dgrad[f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
+}
+# The f32 entries at unet_resnet50's (and multitask_unet's) sites, phase 10's
+# rows, launches from phase 10b's f32 steps of multitask_unet.
+F32_RESNET_KERNELS = {
+    "upsample2x[align_corners=True,f32]": ("upsample2x", "upsample2x", "torch.float32"),
+    "upsample2x_backward[align_corners=True,f32]": ("upsample2x_backward", "upsample2x_backward",
+                                                    "torch.float32"),
+    "conv3x3_same[fused,f32]": ("conv3x3_same", "conv3x3_bias_relu", "torch.float32"),
+    "conv3x3_dgrad[fused,f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
 }
 
 
@@ -1012,12 +1316,14 @@ def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, site
 
 
 def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
-                   family_launches: dict, f32_launches: dict) -> list[dict]:
+                   family_launches: dict, f32_launches: dict, f32_resnet_rows: list[dict],
+                   f32_resnet_launches: dict) -> list[dict]:
     """Every kernel entry: unet_resnet50's sites, the families' sites, then the f32 ones.
 
     ``launches`` are unet_resnet50's train path's counts; ``family_launches``
     the three families' train paths' counts summed; ``f32_launches`` phase
-    9's f32 train path's counts.
+    9's f32 train path's counts; ``f32_resnet_launches`` phase 10b's f32
+    steps of multitask_unet.
     """
     out = []
     for kernel, (_, _, counter) in KERNEL_META.items():
@@ -1032,6 +1338,11 @@ def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
         where = "480^2 forward" if kernel == "conv3x3_same" else "512^2 backward"
         out.append(_summary_entry(name, kernel, family_rows, f32_launches[counter],
                                   f"unet_plain, attention_unet in f32 (--no-amp), {where}", dtype))
+    for name, (kernel, counter, dtype) in F32_RESNET_KERNELS.items():
+        where = "forward" if kernel in ("upsample2x", "conv3x3_same") else "backward"
+        out.append(_summary_entry(name, kernel, f32_resnet_rows, f32_resnet_launches[counter],
+                                  "unet_resnet50, multitask_unet in f32 (--no-amp), "
+                                  f"512^2 {where}", dtype))
     return out
 
 
@@ -1092,11 +1403,32 @@ def main(argv=None) -> int:
                           {**FAMILY_FORWARD_LAUNCHES["unet_plain"], "upsample2x_backward": 4,
                            "conv3x3_dgrad": 9}, amp=False, checks=False)
     torch.backends.cudnn.allow_tf32 = False
+
+    # Phase 10: multitask_unet and the multiclass task.
+    f32_resnet_rows = check_f32_resnet_sites(torch.Generator().manual_seed(10))
+    tasks = {"multitask_bf16": task_train_path(train_counters, "multitask", "multitask_unet",
+                                               "bce", TASK_TRAIN_STEPS, RESNET_PER_STEP)}
+    torch.cuda.empty_cache()
+    set_float32_precision()  # 10b: --no-amp, cuDNN with PyTorch's default TF32
+    for key, task, name, loss in (("multitask_f32", "multitask", "multitask_unet", "bce"),
+                                  ("multiclass_f32_ce", "multiclass", "unet_resnet50", "ce"),
+                                  ("multiclass_f32_focal", "multiclass", "unet_resnet50", "focal")):
+        tasks[key] = task_train_path(train_counters, task, name, loss, TASK_F32_STEPS,
+                                     RESNET_PER_STEP, amp=False, checks=False)
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    tasks["multiclass_bf16"] = task_train_path(
+        train_counters, "multiclass", "unet_plain", "ce", TASK_TRAIN_STEPS,
+        {**FAMILY_FORWARD_LAUNCHES["unet_plain"], "upsample2x_backward": 4, "conv3x3_dgrad": 9})
+    torch.cuda.empty_cache()
+    tasks["f32_multitask_card_vs_cpu"] = f32_multitask_card_vs_cpu()
+
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
     kernels = kernel_summary(rows + bwd_rows, train["launches"], family_rows, family_launches,
-                             f32_full["launches"])
+                             f32_full["launches"], f32_resnet_rows,
+                             tasks["multitask_f32"]["launches"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "sites": rows,
@@ -1105,7 +1437,8 @@ def main(argv=None) -> int:
                        "f32_card_vs_cpu": f32, "f32_train_card_vs_cpu": f32_train,
                        "family_sites": family_rows, "family_function_check": family_functions,
                        "packing_cost": packing, "families": families,
-                       "f32_full_width_train": f32_full,
+                       "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
+                       "tasks": tasks,
                        "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

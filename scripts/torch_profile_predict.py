@@ -37,9 +37,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from unet_embroidery_seg_torch.data.synthetic import letterboxed_canvases  # noqa: E402
 from unet_embroidery_seg_torch.engine.steps import make_predict_fn  # noqa: E402
-from unet_embroidery_seg_torch.models import build_model  # noqa: E402
+from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model  # noqa: E402
 from unet_embroidery_seg_torch.predict import predict_probs  # noqa: E402
-from unet_embroidery_seg_torch.train import TRAINED_MODELS as PORTED  # noqa: E402
 from unet_embroidery_seg_torch.utils.timing import device_ms_by_group, graph_ms  # noqa: E402
 
 SIZE = 480  # the predict letterbox (predict.py --input-size default)
@@ -47,7 +46,8 @@ ITERS = 10  # calls per measurement
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", default="unet_resnet50", choices=PORTED)
+    parser.add_argument("--model", default="unet_resnet50",
+                        choices=[m for m in SUPPORTED_MODELS if m != "multitask_unet"])
     parser.add_argument("--batch", type=int, default=8)
     args = parser.parse_args(argv)
 

@@ -392,8 +392,7 @@ def test_train_cli_resume_continues_the_run(workdir):
     assert ha == hb
 
 
-@pytest.mark.parametrize("flag", [["--task", "multiclass"], ["--model", "multitask_unet"],
-                                  ["--device-augment"], ["--export-vis"], ["--profile"],
+@pytest.mark.parametrize("flag", [["--device-augment"], ["--export-vis"], ["--profile"],
                                   ["--mesh-data", "2"]])
 def test_train_cli_raises_on_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

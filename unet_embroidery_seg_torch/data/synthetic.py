@@ -39,3 +39,21 @@ def seeded_train_batch(batch: int, size: int, seed: int):
     cx, cy, r = rng.uniform(0.2, 0.8, (3, batch, 1, 1))
     pngs = (((xx - cx) ** 2 + (yy - cy) ** 2) < (0.5 * r) ** 2).astype(np.int32)
     return images, pngs, np.ones(batch, np.float32)
+
+
+def seeded_task_batch(batch: int, size: int, seed: int, task: str, num_classes: int = 5):
+    """The step arguments of one seeded train batch for ``task``, all from ``seed``.
+
+    binary: ``seeded_train_batch``'s (images, pngs, sample_mask).
+    multiclass: the same, each disc labelled with a class in 1 .. num_classes - 1
+    (0 is the background). multitask: (images, pngs, class labels in 0..2,
+    sample_mask).
+    """
+    images, pngs, sm = seeded_train_batch(batch, size, seed)
+    rng = np.random.default_rng((seed, 1))
+    if task == "multiclass":
+        labels = rng.integers(1, num_classes, (batch, 1, 1))
+        return images, (pngs * labels).astype(np.int32), sm
+    if task == "multitask":
+        return images, pngs, rng.integers(0, 3, batch).astype(np.int32), sm
+    return images, pngs, sm

@@ -1,4 +1,4 @@
-"""Step functions (port of ``engine/steps.py``: predict and the binary train/eval steps).
+"""Step functions (port of ``engine/steps.py``): predict, and train/eval for the three tasks.
 
 The JAX steps are jitted pure functions of (state, batch); the port's are
 eager closures over the model and optimizer, which they update in place.
@@ -9,6 +9,8 @@ casts what it reads. The hand-written kernels are not autocast ops; their
 wrappers take the activation dtype (bf16 here) and cast their weights to it.
 BN runs on the bf16 activations with float32 statistics. ``sample_mask``
 (N,) neutralises the padded samples of a tail batch in the loss and counts.
+A multitask model returns ``(seg, cls)``; its steps take the (N,) class
+labels too, and train mode keeps its dropout on.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from unet_embroidery_seg_torch.ops import losses, metrics
 
@@ -26,32 +29,45 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _inputs(device: torch.device, images, pngs=None, sample_mask=None):
+def _inputs(device: torch.device, images, pngs=None, sample_mask=None, cls_targets=None):
+    """(images NCHW, targets, sample_mask, class labels) on ``device``; absent ones stay None."""
     x = torch.as_tensor(images, dtype=torch.float32).to(device).permute(0, 3, 1, 2)
     t = None if pngs is None else torch.as_tensor(pngs).to(device)
     sm = None if sample_mask is None else torch.as_tensor(sample_mask, dtype=torch.float32).to(device)
-    return x, t, sm
+    cls = None if cls_targets is None else torch.as_tensor(cls_targets).to(device).long()
+    return x, t, sm, cls
 
 
-def _nhwc(outputs: torch.Tensor) -> torch.Tensor:
-    """The model's (N, H, W) diff or (N, K, H, W) logits in the JAX layout."""
-    return outputs if outputs.dim() == 3 else outputs.permute(0, 2, 3, 1)
+def _nhwc(outputs):
+    """The model's outputs in the JAX layout: (N, K, H, W) logits to NHWC, others as they are.
+
+    A (N, H, W) diff and multitask's (N, K) class logits stay; a tuple maps.
+    """
+    if isinstance(outputs, tuple):
+        return tuple(_nhwc(o) for o in outputs)
+    return outputs.permute(0, 2, 3, 1) if outputs.dim() == 4 else outputs
+
+
+def _backward_and_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
 
 
 def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
     """predict(images) -> logits: the inference forward with BN in eval mode.
 
-    The logits come back NHWC float32 on the model's device. Runs under
-    ``torch.inference_mode``.
+    The logits come back NHWC float32 on the model's device (multitask:
+    the ``(seg, cls)`` pair). Runs under ``torch.inference_mode``.
     """
     model.eval()
     device = _device(model)
 
-    def predict(images: np.ndarray | torch.Tensor) -> torch.Tensor:
-        x, _, _ = _inputs(device, images)
+    def predict(images: np.ndarray | torch.Tensor):
+        x, _, _, _ = _inputs(device, images)
         with torch.inference_mode(), torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             logits = model(x)
-        return logits.float().permute(0, 2, 3, 1)
+        return _nhwc(logits)
 
     return predict
 
@@ -73,16 +89,14 @@ def make_binary_train_step(
 
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
         model.train()
-        x, t, sm = _inputs(device, images, pngs, sample_mask)
+        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             outputs = model(x)
         loss = losses.binary_segmentation_loss(
             _nhwc(outputs), t, loss_name=loss_name, pos_weight=pos_weight,
             ignore_index=ignore_index, sample_mask=sm,
         )
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        _backward_and_step(optimizer, loss)
         return loss.detach()
 
     return train_step
@@ -104,7 +118,7 @@ def make_binary_eval_step(
 
     def eval_step(images, pngs, sample_mask):
         model.eval()
-        x, t, sm = _inputs(device, images, pngs, sample_mask)
+        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
                 outputs = _nhwc(model(x))
@@ -116,5 +130,143 @@ def make_binary_eval_step(
             counts = metrics.binary_confusion_counts(pred, t, ignore_index=ignore_index,
                                                      sample_mask=sm)
         return loss, counts
+
+    return eval_step
+
+
+def make_multiclass_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    num_classes: int,
+    focal: bool = False,
+    use_dice: bool = True,
+    amp: bool = True,
+) -> Callable:
+    """train_step(images, pngs, sample_mask) -> loss: CE or focal (+ Dice) on K-class logits."""
+    device = _device(model)
+
+    def train_step(images, pngs, sample_mask) -> torch.Tensor:
+        model.train()
+        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+            outputs = model(x)
+        loss = losses.multiclass_loss(_nhwc(outputs), t, num_classes, focal, use_dice, sm)
+        _backward_and_step(optimizer, loss)
+        return loss.detach()
+
+    return train_step
+
+
+def make_multiclass_eval_step(
+    model: nn.Module,
+    num_classes: int,
+    focal: bool = False,
+    use_dice: bool = True,
+    amp: bool = True,
+) -> Callable:
+    """eval_step(images, pngs, sample_mask) -> (loss, {Pixel Accuracy, Mean Accuracy, Mean IoU,
+    Frequency Weighted IoU}): the per-batch values the train CLI averages over batches."""
+    device = _device(model)
+
+    def eval_step(images, pngs, sample_mask):
+        model.eval()
+        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
+        with torch.inference_mode():
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                outputs = _nhwc(model(x))
+            loss = losses.multiclass_loss(outputs, t, num_classes, focal, use_dice, sm)
+            return loss, metrics.multiclass_batch_metrics(outputs, t, num_classes, sm)
+
+    return eval_step
+
+
+def make_multiclass_persample_eval_step(
+    model: nn.Module,
+    num_classes: int,
+    focal: bool = False,
+    use_dice: bool = True,
+    amp: bool = True,
+) -> Callable:
+    """eval_step(images, pngs, sample_mask) -> (loss_sum, metric_sums, n_valid), per SAMPLE.
+
+    The reference val CLI's statistic (batch size 1) at any batch size: the
+    caller divides the summed metrics and losses by the summed ``n_valid``.
+    """
+    device = _device(model)
+
+    def eval_step(images, pngs, sample_mask):
+        model.eval()
+        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
+        with torch.inference_mode():
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                outputs = _nhwc(model(x))
+            per_sample = torch.stack([
+                losses.multiclass_loss(lg[None], tg[None], num_classes, focal, use_dice)
+                for lg, tg in zip(outputs, t)])
+            sums, n_valid = metrics.multiclass_per_sample_sums(outputs, t, num_classes, sm)
+            return (per_sample * sm).sum(), sums, n_valid
+
+    return eval_step
+
+
+def make_multitask_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    seg_loss_name: str = "bce",
+    cls_loss_weight: float = 1.0,
+    pos_weight: float | None = None,
+    amp: bool = True,
+) -> Callable:
+    """train_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), n_cls_correct).
+
+    Train mode: BN batch statistics and the class head's dropout. ``pos_weight``
+    weights the seg BCE's positive term; None (the default) is the
+    reference's unweighted loss.
+    """
+    device = _device(model)
+
+    def train_step(images, pngs, cls_targets, sample_mask):
+        model.train()
+        x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+            seg, logits = _nhwc(model(x))
+        total, seg_l, cls_l = losses.multitask_loss(
+            seg, logits, t, cls, seg_loss_name=seg_loss_name, cls_loss_weight=cls_loss_weight,
+            sample_mask=sm, pos_weight=pos_weight)
+        _backward_and_step(optimizer, total)
+        correct = ((logits.detach().argmax(-1) == cls) & sm.bool()).sum()
+        return (total.detach(), seg_l.detach(), cls_l.detach()), correct
+
+    return train_step
+
+
+def make_multitask_eval_step(
+    model: nn.Module,
+    seg_loss_name: str = "bce",
+    cls_loss_weight: float = 1.0,
+    pos_weight: float | None = None,
+    amp: bool = True,
+) -> Callable:
+    """eval_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), seg_counts[4],
+    confusion[K, K]) for K classes: the confusion (rows: target, columns: prediction) counts
+    valid samples only."""
+    device = _device(model)
+
+    def eval_step(images, pngs, cls_targets, sample_mask):
+        model.eval()
+        x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
+        with torch.inference_mode():
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                seg, logits = _nhwc(model(x))
+            loss_triple = losses.multitask_loss(
+                seg, logits, t, cls, seg_loss_name=seg_loss_name,
+                cls_loss_weight=cls_loss_weight, sample_mask=sm, pos_weight=pos_weight)
+            seg_counts = metrics.multitask_seg_counts(seg, t, sample_mask=sm)
+            # one-hot products in f32 (exact for counts below 2^24), as JAX's einsum
+            k = logits.shape[-1]
+            onehot_tgt = F.one_hot(cls, k).float() * sm[:, None]
+            onehot_pred = F.one_hot(logits.argmax(-1), k).float()
+            confusion = (onehot_tgt.T @ onehot_pred).round().long()
+            return loss_triple, seg_counts, confusion
 
     return eval_step

@@ -28,7 +28,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_same
-from unet_embroidery_seg_torch.ops.resize import center_pad_to, resize_bilinear
+from unet_embroidery_seg_torch.ops.resize import (
+    adaptive_avg_pool_1x1,
+    center_pad_to,
+    resize_bilinear,
+)
 from unet_embroidery_seg_torch.ops.upsample import upsample2x
 
 
@@ -340,12 +344,23 @@ class UpDense(nn.Module):
         return self.conv(torch.cat([skip, x], dim=1))
 
 
+class GlobalAvgPool(nn.Module):
+    """NCHW -> NC mean over H and W (``ops/resize.adaptive_avg_pool_1x1``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return adaptive_avg_pool_1x1(x)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Reference 'normal' init over every module, in module order, from ``generator``.
 
-    ``generator`` is a CPU generator, so build and initialise on the CPU and
-    move the model afterwards: the weights then do not depend on the device.
+    ``nn.Linear`` (multitask_unet's class head, which the reference's
+    'normal' scheme leaves alone) gets flax ``nn.Dense``'s defaults, as the
+    JAX package: a LeCun-normal kernel (truncated at two standard
+    deviations) and a zero bias. ``generator`` is a CPU generator, so build
+    and initialise on the CPU and move the model afterwards: the weights
+    then do not depend on the device.
     """
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, SquareConv3x3, Conv3x3Same)):
@@ -356,4 +371,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.normal_(1.0, 0.02, generator=generator)
             m.bias.zero_()
             m.reset_running_stats()
+        elif isinstance(m, nn.Linear):
+            # flax lecun_normal: variance 1 / fan_in after truncation at +-2 std
+            std = (1.0 / m.in_features) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            m.bias.zero_()
     return model

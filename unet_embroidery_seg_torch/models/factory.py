@@ -1,10 +1,10 @@
 """Model registry and construction (port of ``unet_embroidery_seg_tpu/models/factory.py``).
 
-The registry keeps the reference's five names. ``unet_resnet50``,
-``unet_plain``, ``attention_unet`` and ``dualdense_unet`` are ported;
-``multitask_unet`` raises ``NotImplementedError`` naming the ROADMAP item
-that ports it. ``load_weights_flexible`` is the shape-matched partial load
-behind ``--weights``.
+The registry keeps the reference's five names, all ported. multitask_unet
+has the reference's fixed heads (1 seg channel, 3 classes), so it ignores
+``num_classes``, and it has no diff head.
+``load_weights_flexible`` is the shape-matched partial load behind
+``--weights``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch.nn as nn
 from unet_embroidery_seg_torch.models.blocks import init_weights
 from unet_embroidery_seg_torch.models.unet_attention import AttentionUNet
 from unet_embroidery_seg_torch.models.unet_dualdense import DualDenseUNet
+from unet_embroidery_seg_torch.models.unet_multitask import MultiTaskUNet
 from unet_embroidery_seg_torch.models.unet_plain import UNetPlain
 from unet_embroidery_seg_torch.models.unet_resnet import UNetResNet50
 from unet_embroidery_seg_torch.utils.device import resolve_device
@@ -31,10 +32,6 @@ _FAMILIES = {
     "unet_plain": UNetPlain,
     "attention_unet": AttentionUNet,
     "dualdense_unet": DualDenseUNet,
-}
-
-_NOT_PORTED = {
-    "multitask_unet": "ROADMAP.md Queue 1 item 8 (multitask model and task)",
 }
 
 
@@ -54,21 +51,23 @@ def build_model(
     device. The model lives in ``channels_last`` memory with float32
     parameters. ``diff_head=True`` (binary training) makes the model return
     the (N, H, W) logit difference instead of 2-channel logits, with the
-    same parameters (``blocks.ClassHead``).
+    same parameters (``blocks.ClassHead``). multitask_unet ignores
+    ``num_classes`` (its heads are the reference's: 1 seg channel, 3
+    classes) and has no diff head.
     """
     dev = resolve_device(device)
     if model_name not in SUPPORTED_MODELS:
         raise ValueError(
             f"Unsupported model: {model_name}. Supported: {sorted(SUPPORTED_MODELS)}"
         )
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported to PyTorch yet: {_NOT_PORTED[model_name]}"
-        )
     if decoder_width != 1.0 and model_name != "unet_resnet50":
         raise ValueError(f"decoder_width is a unet_resnet50 option; got {decoder_width} "
                          f"for {model_name}")
-    if model_name == "unet_resnet50":
+    if model_name == "multitask_unet":
+        if diff_head:
+            raise ValueError("diff_head applies to binary single-task models only")
+        model = MultiTaskUNet()
+    elif model_name == "unet_resnet50":
         model = UNetResNet50(num_classes=num_classes, decoder_width=decoder_width,
                              diff_head=diff_head)
     else:

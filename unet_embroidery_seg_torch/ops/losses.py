@@ -1,8 +1,10 @@
-"""Binary segmentation losses (port of the binary part of ``ops/losses.py``).
+"""Segmentation losses (port of ``ops/losses.py``): binary, multiclass and multitask.
 
 Layouts as in the JAX package: 2-class logits are NHWC (N, H, W, 2), a diff
-head's logit difference (N, H, W), targets (N, H, W) integers. Every
-reduction is in float32 whatever the logits' dtype (bf16 under autocast).
+head's logit difference (N, H, W), K-class logits (N, H, W, K), targets
+(N, H, W) integers, where the multiclass ignore class is ``num_classes``.
+Every reduction is in float32 whatever the logits' dtype (bf16 under
+autocast).
 
 The Lovasz hinge sorts each image's hinge errors in descending order with
 ``torch.sort(stable=True)``; its gradient is a custom
@@ -139,3 +141,139 @@ def binary_segmentation_loss(
             logits = torch.where(valid, logits, torch.where(pos, 1e3, -1e3))
         return lovasz_hinge(logits, labels, sample_mask=sample_mask)
     raise ValueError(f"Unsupported loss_name: {loss_name}")
+
+
+def _pixel_nll(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
+               sample_mask: torch.Tensor | None):
+    """(per-pixel NLL, 0 where the pixel is invalid; the valid mask), both flat over N*H*W."""
+    n, c = logits.shape[0], logits.shape[-1]
+    flat_target = target.reshape(-1).long()
+    valid = flat_target != num_classes
+    if sample_mask is not None:
+        per_pix = flat_target.numel() // n
+        valid = valid & sample_mask.bool().repeat_interleave(per_pix)
+    safe_target = torch.where(valid, flat_target, 0)
+    log_probs = torch.log_softmax(logits.reshape(-1, c).float(), dim=-1)
+    nll = -log_probs.gather(1, safe_target[:, None])[:, 0]
+    return nll * valid.float(), valid
+
+
+def ce_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int = 21,
+    sample_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pixel cross-entropy with ``ignore_index == num_classes`` (JAX ``ce_loss``, unweighted).
+
+    The mean over valid pixels; ``sample_mask`` (N,) drops the padded
+    samples' pixels.
+    """
+    nll, valid = _pixel_nll(logits, target, num_classes, sample_mask)
+    return nll.sum() / valid.float().sum().clamp_min(1e-12)
+
+
+# The reference's defaults, which every caller uses.
+FOCAL_ALPHA, FOCAL_GAMMA = 0.5, 2.0
+DICE_SMOOTH = 1e-5
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int = 21,
+    sample_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Focal loss on per-pixel CE (JAX ``focal_loss``, unweighted, alpha 0.5, gamma 2).
+
+    Per-pixel CE with reduction 'none' (ignored pixels give 0), then the
+    mean over ALL pixels, as the reference; with ``sample_mask`` the
+    denominator is the valid samples' pixel count (a padded sample's pixels
+    are invalid, so their CE is 0, pt 1 and their loss exactly 0).
+    """
+    nll, _ = _pixel_nll(logits, target, num_classes, sample_mask)
+    pt = torch.exp(-nll)
+    loss = ((1.0 - pt) ** FOCAL_GAMMA) * (nll * FOCAL_ALPHA)
+    if sample_mask is not None:
+        per_pix = target[0].numel()
+        return loss.sum() / (sample_mask.float().sum() * per_pix).clamp_min(1.0)
+    return loss.mean()
+
+
+def dice_loss(
+    logits: torch.Tensor,
+    target_onehot: torch.Tensor,
+    sample_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Soft Dice loss over softmax probabilities (JAX ``dice_loss`` at its beta 1, smooth 1e-5).
+
+    ``target_onehot`` is (N, H, W, K + 1): its last channel is the ignore
+    class, dropped from tp and fn as the reference's ``temp_target[..., :-1]``.
+    """
+    n, c = logits.shape[0], logits.shape[-1]
+    probs = torch.softmax(logits.reshape(n, -1, c).float(), dim=-1)
+    tgt = target_onehot.reshape(n, -1, target_onehot.shape[-1]).float()
+    if sample_mask is not None:
+        sm = sample_mask.float()[:, None, None]
+        probs, tgt = probs * sm, tgt * sm
+    tgt_fg = tgt[..., :-1]
+    tp = (tgt_fg * probs).sum(dim=(0, 1))
+    fp = probs.sum(dim=(0, 1)) - tp
+    fn = tgt_fg.sum(dim=(0, 1)) - tp
+    score = (2.0 * tp + DICE_SMOOTH) / (2.0 * tp + fn + fp + DICE_SMOOTH)
+    return 1.0 - score.mean()
+
+
+def multiclass_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int,
+    focal: bool = False,
+    use_dice: bool = True,
+    sample_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """CE or focal, plus Dice against the (K + 1)-channel one-hot (the multiclass steps' loss)."""
+    fn = focal_loss if focal else ce_loss
+    loss = fn(logits, target, num_classes=num_classes, sample_mask=sample_mask)
+    if use_dice:
+        onehot = F.one_hot(target.long(), num_classes + 1).float()
+        loss = loss + dice_loss(logits, onehot, sample_mask=sample_mask)
+    return loss
+
+
+def multitask_loss(
+    seg_logits: torch.Tensor,
+    cls_logits: torch.Tensor,
+    seg_targets: torch.Tensor,
+    cls_targets: torch.Tensor,
+    seg_loss_name: str = "bce",
+    cls_loss_weight: float = 1.0,
+    sample_mask: torch.Tensor | None = None,
+    pos_weight: float | torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(total, seg, cls) multitask loss (JAX ``multitask_loss``).
+
+    ``seg_logits`` (N, H, W, 1) from the 1-channel head, ``cls_logits`` (N,
+    K). Seg: Lovasz hinge for ``lovasz_hinge``, every other name BCE (as the
+    reference), with the opt-in ``pos_weight`` (off by default: the
+    reference never weights it) and the padded samples' pixels masked.
+    Cls: per-sample CE, averaged over the valid samples. total = seg +
+    ``cls_loss_weight`` * cls.
+    """
+    seg_flat = seg_logits[..., 0]
+    if seg_loss_name == "lovasz_hinge":
+        seg_l = lovasz_hinge(seg_flat, seg_targets.float(), sample_mask=sample_mask)
+    else:
+        pix_mask = None
+        if sample_mask is not None:
+            pix_mask = sample_mask.float()[:, None, None].expand_as(seg_flat)
+        seg_l = bce_with_logits(seg_flat, seg_targets.float(), pos_weight=pos_weight,
+                                mask=pix_mask)
+    log_probs = torch.log_softmax(cls_logits.float(), dim=-1)
+    per_sample_nll = -log_probs.gather(1, cls_targets.long()[:, None])[:, 0]
+    if sample_mask is not None:
+        m = sample_mask.float()
+        cls_l = (per_sample_nll * m).sum() / m.sum().clamp_min(1.0)
+    else:
+        cls_l = per_sample_nll.mean()
+    return seg_l + cls_loss_weight * cls_l, seg_l, cls_l

@@ -1,7 +1,8 @@
 """Resize and pooling primitives (port of ``unet_embroidery_seg_tpu/ops/resize.py``).
 
 The JAX ``max_pool`` has no counterpart here: the stock ``nn.MaxPool2d`` has
-the semantics it reproduces. ``center_pad_to`` and ``resize_bilinear`` run
+the semantics it reproduces. ``adaptive_avg_pool_1x1`` is multitask_unet's
+global average pool. ``center_pad_to`` and ``resize_bilinear`` run
 only where an odd map makes a decoder stage's sizes differ from its skip's
 (never at 480^2 or 512^2, whose maps halve evenly down to 30^2 and 32^2), so
 they are plain torch ops, not kernels.
@@ -133,3 +134,12 @@ def center_pad_to(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
         return x
     y = torch.nn.functional.pad(x, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
     return y.contiguous(memory_format=torch.channels_last)
+
+
+def adaptive_avg_pool_1x1(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool NCHW -> NC (``AdaptiveAvgPool2d(1)`` + Flatten).
+
+    The JAX package's ``jnp.mean`` over H and W: the sum in float32 whatever
+    the input type, the result in the input's type (bf16 under autocast).
+    """
+    return x.float().mean(dim=(2, 3)).to(x.dtype)

@@ -1,24 +1,38 @@
-"""Training CLI (port of the repo-root ``train.py``): the binary task.
+"""Training CLI (port of the repo-root ``train.py``): the binary, multiclass and multitask tasks.
 
 ``python -m unet_embroidery_seg_torch.train --data-path DIR --task binary --model unet_resnet50``
 
 The argparse surface of ``train.py`` plus ``--device`` (default ``cuda``;
-raises without a card, ``cpu`` runs the kernels' plain versions). This
-slice trains ``--task binary`` with ``--model`` unet_resnet50, unet_plain,
-attention_unet or dualdense_unet on the host input pipeline, with the diff
-head, bf16 autocast (``--amp``, the default)
-and Adam over float32 masters. It writes what ``scripts/make_tables.py``
-and ``run.sh`` read, under ``run/train/expN``: ``config.json`` (with
+raises without a card, ``cpu`` runs the kernels' plain versions). Tasks, as
+the JAX CLI:
+
+- ``binary`` with unet_resnet50, unet_plain, attention_unet or
+  dualdense_unet, through the diff head; BCE (``pos_weight`` auto by
+  default) or the Lovasz hinge;
+- ``multiclass`` with the same four models and ``--num-classes + 1``
+  output channels (the last is the ignore class of the targets); CE or
+  focal (``--loss focal``), plus Dice (``--use-dice``); ``bce`` and
+  ``lovasz_hinge`` are lowered to CE with a warning; the best epoch by
+  Mean IoU;
+- ``multitask`` with multitask_unet only (either pairing off raises):
+  binary seg masks and 3-way class labels, seg BCE (``pos_weight`` OFF
+  unless ``--pos-weight auto|<float>``, as the reference never weights it)
+  or Lovasz, plus ``--cls-loss-weight`` times the class CE; the best epoch
+  by seg IoU.
+
+All on the host input pipeline, bf16 autocast (``--amp``, the default) or
+f32 (``--no-amp``), Adam over float32 masters. It writes what
+``scripts/make_tables.py`` and ``run.sh`` read, under ``run/train/expN``,
+keyed as the JAX CLI keys them: ``config.json`` (with
 ``resolved_pos_weight``), ``summary.json``, ``test_metrics.json``,
 ``val_metrics_history.{json,csv}``, and ``weights/`` with ``best.pth`` and
 ``last.pth`` (model-only, the reference's format) and ``resume.pth`` (full
 state, every ``--ckpt-every`` epochs, for ``--resume``).
 
-Not in this slice, each raising ``NotImplementedError`` naming its ROADMAP
-item: the multiclass and multitask tasks, ``multitask_unet``,
-``--device-augment`` (the device-resident input path), ``--mesh-data`` /
-``--mesh-space`` above 1 (multi-GPU), ``--profile`` (tooling) and
-``--export-vis`` (curves and ``vis/``, off by default here).
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: ``--device-augment`` (the device-resident input path),
+``--mesh-data`` / ``--mesh-space`` above 1 (multi-GPU), ``--profile``
+(tooling) and ``--export-vis`` (curves and ``vis/``, off by default here).
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import time
 import traceback
 
 import numpy as np
+import torch
 
 from unet_embroidery_seg_torch.data.dataset import DataLoader, SegmentationDataset
 from unet_embroidery_seg_torch.data.sources import open_source
@@ -45,15 +60,11 @@ from unet_embroidery_seg_torch.utils.exp_folder import create_exp_folder
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 
 NOT_PORTED = {
-    "task": "ROADMAP.md Queue 1 item 8 (multiclass and multitask tasks)",
-    "model": "ROADMAP.md Queue 1 item 8 (multitask model and task)",
     "device_augment": "ROADMAP.md Queue 1 item 9 (device-resident input path)",
     "mesh": "ROADMAP.md Queue 1 item 10 (multi-GPU)",
     "profile": "ROADMAP.md Queue 1 item 11 (tooling)",
     "export_vis": "ROADMAP.md Queue 1 item 6 (curves and vis/, a later slice)",
 }
-
-TRAINED_MODELS = ("unet_resnet50", "unet_plain", "attention_unet", "dualdense_unet")
 
 
 class LogColor:
@@ -61,14 +72,19 @@ class LogColor:
     YELLOW = "\033[1;33m"
     RED = "\033[1;31m"
     RESET = "\033[0m"
+    BLUE = "\033[1;34m"
 
 
 def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not train."""
-    if args.task != "binary":
-        raise NotImplementedError(f"--task {args.task} is not ported yet: {NOT_PORTED['task']}")
-    if args.model not in TRAINED_MODELS:
-        raise NotImplementedError(f"--model {args.model} is not ported yet: {NOT_PORTED['model']}")
+    """Refuse a task/model mismatch; raise ``NotImplementedError`` for what is not ported yet."""
+    # The reference only surfaces a mismatch as an unpack error deep in its
+    # epoch loop; the JAX CLI refuses it up front, and so does this one.
+    if (args.task == "multitask") != (args.model == "multitask_unet"):
+        raise SystemExit(
+            f"--task {args.task} is incompatible with --model {args.model}: "
+            "multitask training requires the two-headed multitask_unet "
+            "(and multitask_unet only trains under --task multitask)"
+        )
     if args.device_augment:
         raise NotImplementedError(f"--device-augment is not ported yet: {NOT_PORTED['device_augment']}")
     if (args.mesh_data or 1) != 1 or args.mesh_space != 1:
@@ -95,11 +111,36 @@ def estimate_pos_weight(train_dataset, n_samples: int) -> float | None:
     return None
 
 
+def resolve_num_classes(args) -> int:
+    """Output classes of the seg task: 2 for binary and multitask, ``--num-classes + 1`` else."""
+    if args.task in ("binary", "multitask"):
+        return 2
+    return args.num_classes + 1
+
+
+def resolve_pos_weight(args, train_dataset) -> float | None:
+    """The seg BCE's ``pos_weight``: auto (neg/pos) by default for binary BCE, off for multitask.
+
+    ``--pos-weight auto|<float>`` turns it on for multitask too, where it
+    applies to every seg loss but the Lovasz hinge; multiclass has none.
+    """
+    pw_flag = args.pos_weight
+    if pw_flag is None:
+        pw_flag = "auto" if args.task == "binary" else ""
+    applies = ((args.task == "binary" and args.loss == "bce")
+               or (args.task == "multitask" and args.loss != "lovasz_hinge"))
+    if not (applies and pw_flag):
+        return None
+    if pw_flag == "auto":
+        return estimate_pos_weight(train_dataset, args.pos_weight_samples)
+    return float(pw_flag)
+
+
 def host_batches(loader: DataLoader, epoch: int):
-    """(images, pngs, sample_mask, n_valid) per batch of one epoch."""
+    """(images, pngs, cls_labels or None, sample_mask, n_valid) per batch of one epoch."""
     for batch, n_valid in loader.epoch(epoch):
         sm = (np.arange(loader.batch_size) < n_valid).astype(np.float32)
-        yield batch.images, batch.pngs, sm, n_valid
+        yield batch.images, batch.pngs, batch.cls_labels, sm, n_valid
 
 
 def print_train_header():
@@ -130,20 +171,66 @@ def print_train_row(epoch, train_epoch, it, n_batches, loss, lr, size, ips):
     )
 
 
-def run_eval(eval_step, loader: DataLoader, max_batches: int | None) -> dict:
-    """Binary metrics from summed confusion counts, and the mean batch loss."""
+def run_eval(eval_step, loader: DataLoader, max_batches: int | None, task: str) -> dict:
+    """One split's metrics, keyed as the JAX CLI keys them, and the mean batch loss.
+
+    binary: from summed confusion counts. multitask: seg IoU and Dice from
+    summed counts, Cls Acc (%) from the summed confusion. multiclass: the
+    mean over batches of each batch's metrics (the reference's statistic).
+    """
     total_loss, seen = 0.0, 0
     counts = np.zeros(4, np.int64)
-    for it, (images, pngs, sm, _) in enumerate(host_batches(loader, 0)):
+    confusion = np.zeros((3, 3), np.int64)
+    mc_sums: dict[str, float] = {}
+    for it, (images, pngs, cls, sm, _) in enumerate(host_batches(loader, 0)):
         if max_batches and it >= max_batches:
             break
-        loss, c = eval_step(images, pngs, sm)
+        if task == "multitask":
+            (loss, _, _), c, cf = eval_step(images, pngs, cls, sm)
+            confusion += cf.cpu().numpy()
+        elif task == "binary":
+            loss, c = eval_step(images, pngs, sm)
+        else:
+            loss, m = eval_step(images, pngs, sm)
+            for k, v in m.items():
+                mc_sums[k] = mc_sums.get(k, 0.0) + float(v)
+            c = None
+        if c is not None:
+            counts += c.cpu().numpy()
         total_loss += float(loss)
-        counts += c.cpu().numpy()
         seen += 1
-    out = M.binary_metrics_from_counts(*counts)
-    out["Loss"] = total_loss / max(seen, 1)
+    seen = max(seen, 1)
+    if task == "binary":
+        out = M.binary_metrics_from_counts(*counts)
+        out["Loss"] = total_loss / seen
+        return out
+    if task == "multitask":
+        seg = M.multitask_seg_metrics_from_counts(*counts)
+        return {"Loss": total_loss / seen, "IoU": seg["IoU"], "Dice": seg["Dice"],
+                "Cls Acc": 100.0 * int(np.trace(confusion)) / max(int(confusion.sum()), 1)}
+    out = {k: v / seen for k, v in mc_sums.items()}
+    out["Loss"] = total_loss / seen
     return out
+
+
+def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | None):
+    """(train_step, eval_step) for ``args.task``, as the JAX CLI picks them."""
+    if args.task == "binary":
+        return (steps.make_binary_train_step(model, optimizer, args.loss, pos_weight, amp=args.amp),
+                steps.make_binary_eval_step(model, args.loss, pos_weight, amp=args.amp))
+    if args.task == "multitask":
+        kw = {"seg_loss_name": args.loss, "cls_loss_weight": args.cls_loss_weight,
+              "pos_weight": pos_weight, "amp": args.amp}
+        return (steps.make_multitask_train_step(model, optimizer, **kw),
+                steps.make_multitask_eval_step(model, **kw))
+    if args.loss in ("bce", "lovasz_hinge"):
+        # The reference lowers these silently (its train.py keys only on
+        # 'focal'); say so, so that loss tables cannot mislabel two CE runs.
+        print(f"[WARN] --loss {args.loss} is binary-only; multiclass training "
+              f"uses ce (+dice) instead")
+    kw = {"focal": args.loss == "focal", "use_dice": args.use_dice, "amp": args.amp}
+    return (steps.make_multiclass_train_step(model, optimizer, num_classes, **kw),
+            steps.make_multiclass_eval_step(model, num_classes, **kw))
 
 
 def write_history(exp_folder: str, val_metrics_history: list[dict]) -> None:
@@ -167,7 +254,7 @@ def train(args) -> str:
     if args.amp is None:
         args.amp = resolve_amp_default(args.model, args.loss, args.task)
     generator = seed_everything(args.seed)
-    num_classes = 2
+    num_classes = resolve_num_classes(args)
     train_epoch = args.epochs
     batch_size = args.batch_size
 
@@ -179,11 +266,14 @@ def train(args) -> str:
         json.dump(vars(args), f, ensure_ascii=False, indent=2)
 
     print(f"Loading HF Dataset from: {args.data_path}, config: {args.data_config}")
+    # multitask: binary seg masks, with each sample's class label
+    ds_task = "binary" if args.task == "multitask" else args.task
 
     def make_ds(split, augmentation):
         source = open_source(args.data_path, args.data_config, split, args.cache_dir)
         return SegmentationDataset(source, input_shape, num_classes, augmentation=augmentation,
-                                   task="binary", seed=args.seed)
+                                   task=ds_task, return_cls_label=args.task == "multitask",
+                                   seed=args.seed)
 
     train_dataset = make_ds("train", True)
     val_dataset = make_ds("validation", False)
@@ -195,8 +285,9 @@ def train(args) -> str:
 
     # Binary training uses the diff head: the model emits the (N, H, W) logit
     # difference the binary loss and metrics consume; same parameters.
+    # multitask_unet: a 1-channel seg head and a 3-way class head.
     model = build_model(args.model, num_classes, decoder_width=args.decoder_width,
-                        diff_head=True, generator=generator, device=device)
+                        diff_head=args.task == "binary", generator=generator, device=device)
     if args.weights:
         if os.path.exists(args.weights):
             checkpoint.restore_flexible(args.weights, model)
@@ -209,11 +300,7 @@ def train(args) -> str:
                                                weight_decay=args.weight_decay)
     lr_scheduler_func = schedules.get_lr_scheduler("cos", init_lr_fit, min_lr_fit, train_epoch)
 
-    pw_flag = args.pos_weight if args.pos_weight is not None else "auto"
-    pos_weight = None
-    if args.loss == "bce" and pw_flag:
-        pos_weight = (estimate_pos_weight(train_dataset, args.pos_weight_samples)
-                      if pw_flag == "auto" else float(pw_flag))
+    pos_weight = resolve_pos_weight(args, train_dataset)
     if pos_weight is not None:
         # 'auto' is data-dependent: record the value val.py needs.
         with open(config_path, "w", encoding="utf-8") as f:
@@ -223,9 +310,7 @@ def train(args) -> str:
     max_train_batches = args.max_train_batches or None
     max_val_batches = args.max_val_batches or None
     max_test_batches = args.max_test_batches or None
-    train_step = steps.make_binary_train_step(model, optimizer, args.loss, pos_weight,
-                                              amp=args.amp)
-    eval_step = steps.make_binary_eval_step(model, args.loss, pos_weight, amp=args.amp)
+    train_step, eval_step = make_steps(args, model, optimizer, num_classes, pos_weight)
 
     start_time = time.time()
     best_score, best_epoch, best_val_metrics = -1.0, None, None
@@ -266,11 +351,24 @@ def train(args) -> str:
         schedules.set_learning_rate(optimizer, lr_now)
         print_train_header()
         epoch_loss, seen, images_done = 0.0, 0, 0
+        mt = {"seg": 0.0, "cls": 0.0, "correct": 0, "total": 0}
         t_epoch = time.time()
-        for it, (images, pngs, sm, n_valid) in enumerate(host_batches(train_loader, epoch)):
+        for it, (images, pngs, cls, sm, n_valid) in enumerate(host_batches(train_loader, epoch)):
             if max_train_batches and it >= max_train_batches:
                 break
-            loss_val = float(train_step(images, pngs, sm))
+            # The step's random draws (multitask's dropout) from (seed, epoch,
+            # step), as the JAX CLI folds them in: --resume continues exactly.
+            torch.manual_seed(int(np.random.SeedSequence((args.seed, epoch, it))
+                                  .generate_state(1)[0]))
+            if args.task == "multitask":
+                (total_l, seg_l, cls_l), correct = train_step(images, pngs, cls, sm)
+                loss_val = float(total_l)
+                mt["seg"] += float(seg_l)
+                mt["cls"] += float(cls_l)
+                mt["correct"] += int(correct)
+                mt["total"] += n_valid
+            else:
+                loss_val = float(train_step(images, pngs, sm))
             step += 1
             epoch_loss += loss_val
             seen += 1
@@ -279,10 +377,22 @@ def train(args) -> str:
             print_train_row(epoch, train_epoch, it, len(train_loader), loss_val, lr_now,
                             args.input_size, ips)
         print(LogColor.RESET)
-        train_losses.append(epoch_loss / max(seen, 1))
+        avg = epoch_loss / max(seen, 1)
+        train_losses.append(avg)
+        if args.task == "multitask":
+            acc = 100.0 * mt["correct"] / max(mt["total"], 1)
+            print(f"Epoch {epoch + 1}/{train_epoch} - Loss: {avg:.4f} "
+                  f"(Seg: {mt['seg'] / max(seen, 1):.4f}, "
+                  f"Cls: {mt['cls'] / max(seen, 1):.4f}), Cls Acc: {acc:.2f}%")
 
-        metrics = run_eval(eval_step, val_loader, max_val_batches)
-        current_score = float(metrics["IoU"])
+        metrics = run_eval(eval_step, val_loader, max_val_batches, args.task)
+        if args.task == "multiclass":
+            current_score = float(metrics["Mean IoU"])
+        else:
+            current_score = float(metrics["IoU"])
+        if args.task == "multitask":
+            print(f"Val - IoU: {metrics['IoU']:.4f}, Dice: {metrics['Dice']:.4f}, "
+                  f"Cls Acc: {metrics['Cls Acc']:.2f}%")
         val_losses.append(metrics["Loss"])
         val_metrics_history.append(metrics)
         if current_score > best_score:
@@ -315,13 +425,11 @@ def train(args) -> str:
 
     test_metrics = None
     try:  # keep artifact writing alive, like the reference
-        test_source = open_source(args.data_path, args.data_config, "test", args.cache_dir)
-        test_dataset = SegmentationDataset(test_source, input_shape, num_classes,
-                                           augmentation=False, task="binary", seed=args.seed)
+        test_dataset = make_ds("test", False)
         test_loader = DataLoader(test_dataset, batch_size, shuffle=False, seed=args.seed,
                                  prefetch=2)
         checkpoint.load_weights(best_model_path, model)
-        test_metrics = run_eval(eval_step, test_loader, max_test_batches)
+        test_metrics = run_eval(eval_step, test_loader, max_test_batches, args.task)
         with open(os.path.join(exp_folder, "test_metrics.json"), "w", encoding="utf-8") as f:
             json.dump(test_metrics, f, ensure_ascii=False, indent=2)
     except Exception as e:  # noqa: BLE001 - reported with its traceback, run goes on
@@ -356,9 +464,9 @@ def parse_args(argv=None):
     parser.add_argument("--data-config", default="no-ai", choices=["full", "no-ai", "sam3"],
                         help="Dataset config to use")
     parser.add_argument("--task", default="binary", choices=["binary", "multiclass", "multitask"],
-                        help="Segmentation task (this slice trains binary)")
+                        help="Segmentation task")
     parser.add_argument("--model", default="unet_resnet50", choices=sorted(SUPPORTED_MODELS),
-                        help="Model architecture (this slice trains all but multitask_unet)")
+                        help="Model architecture (use 'multitask_unet' for multitask)")
     parser.add_argument("--decoder-width", default=1.0, type=float,
                         help="unet_resnet50 only: decoder width multiplier (1.0 = reference "
                              "decoder; checkpoints are width-specific)")
@@ -367,7 +475,9 @@ def parse_args(argv=None):
     parser.add_argument("--loss", default="lovasz_hinge",
                         choices=["bce", "lovasz_hinge", "ce", "focal"], help="Loss function")
     parser.add_argument("--pos-weight", default=None,
-                        help="'auto' or a float: BCE positive-term weight. Default: auto")
+                        help="'auto', a float, or '' to disable: the seg BCE's positive-term "
+                             "weight. Default: auto for binary BCE, OFF for multitask (the "
+                             "reference never weights its multitask seg BCE)")
     parser.add_argument("--pos-weight-samples", default=80, type=int)
     parser.add_argument("--use-dice", action=boolopt, default=True,
                         help="For multiclass only: add Dice loss")

@@ -5,13 +5,14 @@ variables tree maps onto them by the same name translation the JAX package
 uses to export reference checkpoints, plus layout conversion:
 
   - conv kernels: flax HWIO -> torch OIHW;
+  - ``Dense`` kernels (multitask_unet's class head): flax (in, out) -> torch
+    (out, in);
   - BatchNorm: params ``.../bn.scale|bias`` + batch_stats ``.../bn.mean|var``
     -> ``weight``/``bias``/``running_mean``/``running_var``, with
     ``num_batches_tracked`` emitted as 0.
 
-The name maps of unet_resnet50, unet_plain, attention_unet and
-dualdense_unet are here; multitask_unet's comes with its model. Pure numpy
-in, torch tensors out: this module imports no JAX.
+The name maps of all five models are here. Pure numpy in, torch tensors
+out: this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +74,11 @@ _MODEL_RULES = {
     ],
     # Down: Sequential[maxpool, DenseConvBlock].
     "dualdense_unet": [(r"^down(\d)\.", r"down\1.1.")] + _DENSE_RULES,
+    # cls head: Sequential[gap, flatten, linear, relu, dropout, linear] -> 2/5.
+    "multitask_unet": _backbone_rules("encoder.") + _UP_CONV_RULES + [
+        (r"^cls_fc1$", "cls_head.2"),
+        (r"^cls_fc2$", "cls_head.5"),
+    ],
 }
 
 # (collection, JAX path suffix, torch suffix)
