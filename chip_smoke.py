@@ -103,6 +103,33 @@ align_corners=True upsamples and 6 fused convs) and the multiclass task
   logits, the loss triple and every gradient, card against the CPU, to
   phase 6's rule.
 
+Phase 11 takes the device-resident input path (the train and val CLIs'
+default on the card) to it: a seeded split of 64 uint8 canvases at 512^2
+(``data/synthetic.resident_canvases``, no PIL), uploaded once:
+
+- 11a. Eight canvases augmented on the card and on the CPU from the same
+  parameters (drawn on the card, copied to the CPU): images within 1e-5,
+  masks equal but where a source coordinate lies within 1e-4 of a ``.5``
+  rounding boundary (under 1e-4 of the pixels); the gather + augmentation
+  per batch of 8 timed by CUDA events, eagerly (the host's dispatch and
+  the draw included) and by graph replay on fixed parameters (the card's
+  own time);
+- 11b. unet_resnet50, binary, Lovasz, bf16, batch 8, through
+  ``engine/resident.make_train_chunk_fn``: a warm-up chunk, then two timed
+  chunks of 8 steps (counters zeroed just before, read just after: 5 + 5 +
+  6 + 6 launches per step; finite losses; every parameter has a gradient),
+  step ms by CUDA events from one step's start to the next's, the card's
+  busy ms per step in a third, profiled chunk (and its card time by kernel
+  group) over the step median, resident bytes and peak memory; beside
+  them, on the same line,
+  the host-fed step (one numpy batch copied per step, the loss read per
+  step) of the same model; and, augmentation off, the chunk's losses
+  against the host-fed loop's on the same batches (rtol 1e-3);
+- 11c. 8 multitask_unet bf16 steps on the resident path: launches as 11b,
+  finite losses;
+- 11d. the resident eval chunk's counts against the host-fed eval step's
+  on the same canvases, exactly.
+
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
 kernel: in f32 every site is ``tf32x3``.
@@ -224,6 +251,17 @@ F32_UPSAMPLE_SITES = [("up_concat4.up", 2048, 16, 1), ("up_concat3.up", 512, 32,
 F32_FUSED_SITES = [("up_concat4.conv2", 512, 32, 1), ("up_concat3.conv2", 256, 64, 1),
                    ("up_concat2.conv2", 128, 128, 1), ("up_concat1.conv2", 64, 256, 1),
                    ("up_conv.1, up_conv.3", 64, 512, 2)]
+# Phase 11, the device-resident path: a split of 64 canvases at 512^2, chunks
+# of 8 steps (the train CLI's --scan-chunk). 11a: images of the card's
+# augmentation against the CPU's within 1e-5 (f32 both sides; the sums
+# differ by an FMA's rounding, the HSV round trip magnifies it ~10x); a mask
+# pixel may differ only within 1e-4 of a .5 rounding boundary, and such
+# pixels stay under 1e-4 of the pixels. 11b: augmentation off, the chunk's
+# losses against the host-fed loop's within rtol 1e-3 (bf16 both; the same
+# inputs, cuDNN's wgrad need not sum alike twice).
+RESIDENT_CANVASES, RESIDENT_CHUNK = 64, 8
+TOL_AUG_IMAGE, AUG_BOUNDARY, AUG_MAX_BOUNDARY_SHARE = 1e-5, 1e-4, 1e-4
+TOL_RESIDENT_LOSS, RESIDENT_COMPARED_STEPS, HOST_FED_STEPS = 1e-3, 3, 8
 # How kernel and library ``ms`` are timed: calls captured into a CUDA graph
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
@@ -1246,6 +1284,235 @@ def f32_multitask_card_vs_cpu() -> dict:
     return result
 
 
+def resident_split():
+    """(host canvases, the same resident on the card): phase 11's seeded split."""
+    from unet_embroidery_seg_torch.data.synthetic import resident_canvases
+    from unet_embroidery_seg_torch.engine import resident
+
+    cache = resident_canvases(RESIDENT_CANVASES, TRAIN_SIZE, seed=11, cls_labels=True)
+    return cache, resident.upload(cache, "cuda")
+
+
+def resident_augment_check(cache, data) -> dict:
+    """11a: the card's augmentation against the CPU's on the same parameters, and its time."""
+    from unet_embroidery_seg_torch.engine import resident
+    from unet_embroidery_seg_torch.ops import device_augment as da
+    from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
+
+    hw = (TRAIN_SIZE, TRAIN_SIZE)
+    params = da.sample_params(torch.Generator("cuda").manual_seed(0), BATCH)
+    cpu_params = tuple(p.cpu() for p in params)
+    cpu_args = [torch.from_numpy(a[:BATCH]) for a in (cache.images, cache.masks, cache.valid_wh)]
+    card_img, card_mask = da.augment_batch(*(a.cuda() for a in cpu_args), params=params,
+                                           out_hw=hw)
+    cpu_img, cpu_mask = da.augment_batch(*cpu_args, params=cpu_params, out_hw=hw)
+    img_err = (card_img.cpu() - cpu_img).abs().max().item()
+    differ = card_mask.cpu() != cpu_mask
+    yc, _, xc, _ = da.paste_coords(cpu_args[2], cpu_params, hw, hw)
+
+    def near(c):  # within AUG_BOUNDARY of a .5 rounding boundary of the nearest resample
+        c = c.double() + 0.5
+        return (c - c.round()).abs() < AUG_BOUNDARY
+
+    boundary = near(yc)[:, :, None] | near(xc)[:, None, :]
+    gen = torch.Generator("cuda").manual_seed(1)
+    idx = torch.arange(BATCH, device="cuda")
+
+    def gather_augment(**draw):
+        imgs, masks, wh, _ = resident.gather_batch(data, idx)
+        return da.augment_batch(imgs, masks, wh, out_hw=hw, **draw)
+
+    eager_ms = event_ms(lambda: gather_augment(generator=gen))
+    result = {"batch": BATCH, "size": TRAIN_SIZE, "max_abs_err": img_err,
+              "mask_pixels_differ": int(differ.sum()),
+              "mask_pixels_differ_off_boundary": int((differ & ~boundary).sum()),
+              "flips": int(params[3].sum()),
+              # back to back from the host (the draw included), and the card's own
+              # time by graph replay on fixed parameters
+              "gather_augment_eager_ms": eager_ms,
+              "gather_augment_card_ms": graph_ms(lambda: gather_augment(params=params), eager_ms)}
+    print("resident_augment " + json.dumps(result), flush=True)
+    if not (img_err <= TOL_AUG_IMAGE and result["mask_pixels_differ_off_boundary"] == 0
+            and result["mask_pixels_differ"] <= AUG_MAX_BOUNDARY_SHARE * differ.numel()):
+        raise AssertionError(f"augmentation, card against CPU: {result}")
+    return result
+
+
+def _resident_binary_model():
+    """unet_resnet50 (diff head, seed 0) and its bf16 Lovasz train step, as phase 5 builds them."""
+    from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
+    from unet_embroidery_seg_torch.models import build_model
+    from unet_embroidery_seg_torch.ops import schedules
+
+    model = build_model("unet_resnet50", 2, diff_head=True,
+                        generator=torch.Generator().manual_seed(0))
+    opt = schedules.make_train_optimizer(model.parameters(), TRAIN_LR)
+    return model, make_binary_train_step(model, opt, "lovasz_hinge", None, amp=True)
+
+
+def _plan(data, epoch: int, steps: int, shuffle: bool = True):
+    """(host plan, the plan on the card) of ``steps`` steps of ``epoch``."""
+    from unet_embroidery_seg_torch.engine import resident
+
+    idx, mask = resident.epoch_index_plan(data.n, BATCH, epoch, shuffle, 11, steps)
+    return (idx, mask), resident.upload_plan(idx, mask, "cuda")
+
+
+def _host_batch(cache, idx):
+    """Canvases ``idx`` normalised on the host: what the host-fed loop copies to the card."""
+    from unet_embroidery_seg_torch.ops import device_augment as da
+
+    images, pngs = da.preprocess_eval_batch(torch.from_numpy(cache.images[idx]),
+                                            torch.from_numpy(cache.masks[idx]))
+    return images.numpy(), pngs.numpy()
+
+
+def resident_train_path(counters, cache, data) -> tuple[dict, object]:
+    """11b: unet_resnet50's resident bf16 train step, beside its host-fed step. Returns the model."""
+    from unet_embroidery_seg_torch.engine import resident
+    from unet_embroidery_seg_torch.utils.timing import device_ms_by_group
+
+    model, step = _resident_binary_model()
+    starts: list = []
+
+    def marked_step(*args):  # a CUDA event at each train step's start, on the card's stream
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append(ev)
+        return step(*args)
+
+    chunk = resident.make_train_chunk_fn(marked_step, (TRAIN_SIZE, TRAIN_SIZE), True, 2, seed=11)
+
+    def run_chunk(epoch: int) -> torch.Tensor:
+        _, (idx, mask) = _plan(data, epoch, RESIDENT_CHUNK)
+        return chunk(data, idx, mask, epoch, range(RESIDENT_CHUNK))
+
+    run_chunk(0).cpu()  # warm-up: cuDNN plans, kernel loads, tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    losses, step_ms, chunk_ms = [], [], []
+    for epoch in (1, 2):
+        starts.clear()
+        t0 = time.perf_counter()
+        out = run_chunk(epoch)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        losses += out.cpu().tolist()  # the chunk's one read from the card
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        marks = starts + [end]
+        step_ms += [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = 2 * RESIDENT_CHUNK
+    no_grad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run_chunk(3).cpu()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_group, _ = device_ms_by_group(prof, RESIDENT_CHUNK)
+    busy_ms = sum(by_group.values())
+
+    # Augmentation off: the chunk against the host-fed loop on the same batches,
+    # from the same initial weights; then the host-fed step's time.
+    off_model, off_step = _resident_binary_model()
+    host_model, host_step = _resident_binary_model()
+    (idx, mask), plan = _plan(data, 0, RESIDENT_COMPARED_STEPS)
+    off_chunk = resident.make_train_chunk_fn(off_step, (TRAIN_SIZE, TRAIN_SIZE), True, 2,
+                                             augment=False, seed=11)
+    off_losses = off_chunk(data, *plan, 0, range(RESIDENT_COMPARED_STEPS)).cpu().tolist()
+    host_losses = [float(host_step(*_host_batch(cache, idx[k]), mask[k]))
+                   for k in range(RESIDENT_COMPARED_STEPS)]
+    batch = (*_host_batch(cache, idx[0]), mask[0])
+    host_ms = []
+    for _ in range(HOST_FED_STEPS):
+        t0 = time.perf_counter()
+        float(host_step(*batch))  # float() waits for the card
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    rel = [abs(a - b) / abs(b) for a, b in zip(off_losses, host_losses)]
+    del off_model, host_model
+
+    result = {
+        "model": "unet_resnet50", "task": "binary", "loss": "lovasz_hinge", "amp": True,
+        "size": TRAIN_SIZE, "batch": BATCH, "chunk": RESIDENT_CHUNK, "steps": steps,
+        "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms": step_ms, "step_ms_method": "cuda_events",
+        "chunk_wall_ms_per_step": [c / RESIDENT_CHUNK for c in chunk_ms],
+        # busy share: card busy ms over the (unprofiled) step median; the
+        # profiler's own window runs slower on a host-bound step
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / statistics.median(step_ms),
+        "profiled_wall_ms_per_step": window_ms / RESIDENT_CHUNK,
+        "device_ms_by_group": by_group,
+        "resident_bytes": data.nbytes, "peak_mem_gb": peak_gb,
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "losses": losses, "params_without_grad": no_grad,
+        "host_fed_step_ms_median": statistics.median(host_ms), "host_fed_step_ms": host_ms,
+        "augment_off_losses": off_losses, "host_fed_losses": host_losses,
+        "augment_off_loss_rel_diff": rel,
+    }
+    print("resident_train " + json.dumps(result), flush=True)
+    want = {k: v * steps for k, v in RESNET_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"resident train launches {launches} != expected {want}")
+    if not np.isfinite(losses).all() or no_grad:
+        raise AssertionError(f"resident train: losses {losses}, without a gradient {no_grad[:5]}")
+    if max(rel) > TOL_RESIDENT_LOSS:
+        raise AssertionError(f"augmentation off: chunk {off_losses} != host-fed {host_losses}")
+    return result, model
+
+
+def resident_multitask_path(counters, data) -> dict:
+    """11c: multitask_unet, bf16, one chunk of 8 resident steps (seg BCE + class CE)."""
+    from unet_embroidery_seg_torch.engine import resident
+
+    model = _task_model("multitask", "multitask_unet")
+    chunk = resident.make_train_chunk_fn(_task_step("multitask", model, "bce", amp=True),
+                                         (TRAIN_SIZE, TRAIN_SIZE), True, 2, multitask=True,
+                                         seed=11)
+    _, plan = _plan(data, 0, RESIDENT_CHUNK)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    total, seg, cls, correct = torch.stack(chunk(data, *plan, 0, range(RESIDENT_CHUNK))).cpu()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    result = {"model": "multitask_unet", "steps": RESIDENT_CHUNK, "amp": True,
+              "wall_ms_per_step_with_warm_up": wall_ms / RESIDENT_CHUNK,
+              "losses": total.tolist(), "seg": seg.tolist(), "cls": cls.tolist(),
+              "n_correct": correct.tolist(), "launches": launches}
+    print("resident_multitask " + json.dumps(result), flush=True)
+    want = {k: v * RESIDENT_CHUNK for k, v in RESNET_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"resident multitask launches {launches} != expected {want}")
+    if not torch.isfinite(torch.stack([total, seg, cls])).all():
+        raise AssertionError(f"resident multitask: non-finite losses {result}")
+    return result
+
+
+def resident_eval_check(model, cache, data) -> dict:
+    """11d: the resident eval chunk's counts against the host-fed eval step's, exactly."""
+    from unet_embroidery_seg_torch.engine import resident
+    from unet_embroidery_seg_torch.engine.steps import make_binary_eval_step
+
+    eval_step = make_binary_eval_step(model, "lovasz_hinge", None)
+    chunk = resident.make_eval_chunk_fn(eval_step, True, 2)
+    (idx, mask), plan = _plan(data, 0, 2, shuffle=False)
+    _, counts = chunk(data, *plan)
+    got = counts.cpu().tolist()
+    want = [eval_step(*_host_batch(cache, idx[k]), mask[k])[1].cpu().tolist()
+            for k in range(len(idx))]
+    result = {"batches": len(idx), "resident_counts": got, "host_fed_counts": want}
+    print("resident_eval " + json.dumps(result), flush=True)
+    if got != want or sum(map(sum, got)) != len(idx) * BATCH * TRAIN_SIZE ** 2:
+        raise AssertionError(f"resident eval counts differ from host-fed ones: {result}")
+    return result
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -1422,6 +1689,18 @@ def main(argv=None) -> int:
         {**FAMILY_FORWARD_LAUNCHES["unet_plain"], "upsample2x_backward": 4, "conv3x3_dgrad": 9})
     torch.cuda.empty_cache()
     tasks["f32_multitask_card_vs_cpu"] = f32_multitask_card_vs_cpu()
+    torch.cuda.empty_cache()
+
+    # Phase 11: the device-resident input path.
+    t11 = time.perf_counter()
+    cache, data = resident_split()
+    res = {"augment": resident_augment_check(cache, data)}
+    res["train"], model = resident_train_path(train_counters, cache, data)
+    res["eval"] = resident_eval_check(model, cache, data)
+    del model
+    torch.cuda.empty_cache()
+    res["multitask"] = resident_multitask_path(train_counters, data)
+    res["seconds"] = time.perf_counter() - t11
 
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
@@ -1438,7 +1717,7 @@ def main(argv=None) -> int:
                        "family_sites": family_rows, "family_function_check": family_functions,
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
-                       "tasks": tasks,
+                       "tasks": tasks, "resident": res,
                        "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

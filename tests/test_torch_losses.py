@@ -1,9 +1,12 @@
 """The port's binary losses, metrics, schedules and Adam against the JAX package, on the CPU.
 
 The same numpy inputs go to both sides, in float32. Gradients are held
-against ``jax.grad``. The Lovasz hinge is compared on inputs without tied
-hinge errors: the loss does not depend on how ties sort, the per-pixel
-gradient can, and the JAX package's ``lax.sort`` promises no order for them.
+against ``jax.grad``. The Lovasz hinge is compared per pixel on inputs
+without tied hinge errors: the loss does not depend on how ties sort, the
+per-pixel gradient can, and the JAX package's ``lax.sort`` promises no order
+for them. On inputs built to tie, the loss and each tied group's summed
+gradient are compared: a group at sorted positions [a, b] sums to
+J(b) - J(a - 1), whatever its order.
 """
 
 import numpy as np
@@ -75,6 +78,69 @@ def test_lovasz_per_image_and_mean_match_jax():
     # a 2-D (H, W) input is one image
     one = losses.lovasz_hinge(torch.from_numpy(logits[0]), torch.from_numpy(targets[0]))
     np.testing.assert_allclose(one.item(), want[0], rtol=1e-6, atol=1e-6)
+
+
+def _tied_case(seed):
+    """(N, 32, 32) logits on a few levels, most of each image one flat mask-0 region.
+
+    Like a resident batch: gray fill outside the pasted rectangle, where the
+    model's logit is constant and the mask 0. Label-1 pixels take logits in
+    {-1, 0.5, 2} and label-0 pixels in {-0.75, 0.25, 1.5}: every tie of
+    hinge errors (1 - logit * sign) lies within one label.
+    """
+    rng = np.random.RandomState(seed)
+    targets = np.zeros((2, 32, 32), np.int32)
+    targets[:, 8:20, 6:22] = rng.rand(2, 12, 16) < 0.5
+    logits = np.where(targets == 1, rng.choice([-1.0, 0.5, 2.0], targets.shape),
+                      rng.choice([-0.75, 0.25, 1.5], targets.shape)).astype(np.float32)
+    logits[:, 20:, :] = 0.25  # the flat fill: one large tied group per image
+    return logits, targets
+
+
+def _assert_group_sums_equal(keys, got, want):
+    """Per image, the gradient summed over each group of equal ``keys`` (float64) agrees to 1e-6."""
+    for k, g, w in zip(keys, got, want):
+        for value in np.unique(k):
+            sel = k == value
+            assert abs(g[sel].astype(np.float64).sum() - w[sel].astype(np.float64).sum()) <= 1e-6
+
+
+@pytest.mark.parametrize("sample_mask", [None, [1.0, 0.0]])
+def test_lovasz_tied_errors_match_jax_by_group(sample_mask):
+    logits, targets = _tied_case(seed=4)
+    sm = None if sample_mask is None else np.asarray(sample_mask, np.float32)
+
+    def jax_loss(lg):
+        return jax_losses.lovasz_hinge(lg, jnp.asarray(targets),
+                                       None if sm is None else jnp.asarray(sm))
+
+    want, want_grad = jax.value_and_grad(jax_loss)(jnp.asarray(logits))
+    lt = torch.from_numpy(logits).requires_grad_()
+    got = losses.lovasz_hinge(lt, torch.from_numpy(targets),
+                              None if sm is None else torch.from_numpy(sm))
+    (got_grad,) = torch.autograd.grad(got, lt)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    errors = 1.0 - logits * (2.0 * targets - 1.0)
+    _, counts = np.unique(errors[0], return_counts=True)
+    assert counts.max() > 300  # the flat region is one group
+    _assert_group_sums_equal(errors.reshape(2, -1), got_grad.numpy().reshape(2, -1),
+                             np.asarray(want_grad).reshape(2, -1))
+
+
+def test_lovasz_errors_with_mixed_label_ties_match_jax_by_group():
+    # Ties across labels too: the per-pixel coefficient depends on the order
+    # within a group, the group's sum does not.
+    rng = np.random.RandomState(5)
+    errors = rng.choice([-0.5, 0.25, 1.0, 1.75], (3, 400)).astype(np.float32)
+    labels = (rng.rand(3, 400) < 0.4).astype(np.float32)
+    want, vjp = jax.vjp(lambda e: jax_losses._lovasz_errors_loss(e, jnp.asarray(labels)),
+                        jnp.asarray(errors))
+    (want_grad,) = vjp(jnp.ones(3, jnp.float32))
+    et = torch.from_numpy(errors).requires_grad_()
+    got = losses._LovaszErrorsLoss.apply(et, torch.from_numpy(labels))
+    (got_grad,) = torch.autograd.grad(got.sum(), et)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6)
+    _assert_group_sums_equal(errors, got_grad.numpy(), np.asarray(want_grad))
 
 
 @pytest.mark.parametrize("loss_name", ["bce", "lovasz_hinge"])

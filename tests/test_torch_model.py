@@ -219,11 +219,10 @@ def test_init_is_the_reference_normal_scheme_and_seeded():
 @pytest.mark.parametrize("name", [m for m in SUPPORTED_MODELS if m == "multitask_unet"])
 def test_unported_families_raise_naming_the_roadmap(name):
     # multitask_unet, the last family, is ported: it builds, and what its
-    # task still lacks (the device-resident input path) raises naming the
-    # ROADMAP item.
+    # task still lacks (--profile, the tooling) raises naming the ROADMAP item.
     model = build_model(name, 2, device="cpu")
     assert {k.split(".")[0] for k in model.state_dict()} >= {"encoder", "cls_head", "seg_head"}
     args = port_train.parse_args(["--task", "multitask", "--model", name, "--device", "cpu",
-                                  "--device-augment"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+                                  "--profile"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         port_train.train(args)

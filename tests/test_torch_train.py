@@ -11,9 +11,11 @@ the port's is its own ``make_binary_train_step`` with
 """
 
 import contextlib
+import importlib.util
 import json
 import os
 import shutil
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -351,13 +353,48 @@ CLI_ARGS = ["--data-path", "synthetic:4", "--input-size", "64", "--batch-size", 
             "--device", "cpu", "--no-amp", "--ckpt-every", "1"]
 
 
+def _jax_cli():
+    """The repo-root (JAX) train CLI, loaded under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_cli", Path(__file__).resolve().parent.parent / "train.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _files(exp: str) -> set[str]:
+    """exp's files, relative, with the JAX checkpoints' .msgpack named as the port's .pth."""
+    return {os.path.relpath(os.path.join(d, f), exp).replace(".msgpack", ".pth")
+            for d, _, fs in os.walk(exp) for f in fs}
+
+
 def test_train_cli_writes_the_artifacts_and_val_reads_them(workdir, capsys):
+    from PIL import Image
+
     exp = port_train.train(port_train.parse_args(CLI_ARGS + ["--epochs", "2", "--loss", "bce"]))
     assert os.path.relpath(exp, workdir) == os.path.join("run", "train", "exp")
     for name in ("config.json", "summary.json", "test_metrics.json",
                  "val_metrics_history.json", "val_metrics_history.csv",
-                 "weights/best.pth", "weights/last.pth", "weights/resume.pth"):
+                 "weights/best.pth", "weights/last.pth", "weights/resume.pth",
+                 "weights/loss_curve.png", "weights/metrics_curve.png", "vis/indices.json"):
         assert os.path.exists(os.path.join(exp, name)), name
+    # The JAX CLI's file set on the same data and flags (a quicker model: the
+    # files do not depend on it): curves, vis/indices.json (equal) and one
+    # grid per test sample whose image and ground-truth panels are equal.
+    jax_cli = _jax_cli()
+    jexp = jax_cli.train(jax_cli.parse_args(
+        CLI_ARGS + ["--epochs", "1", "--loss", "bce", "--model", "unet_plain", "--mesh-data", "1"]))
+    assert _files(exp) == _files(jexp)
+    indices = json.load(open(os.path.join(exp, "vis", "indices.json")))
+    assert indices == json.load(open(os.path.join(jexp, "vis", "indices.json")))
+    assert sorted(indices) == [0, 1, 2, 3]
+    grids = sorted(n for n in os.listdir(os.path.join(exp, "vis")) if n.endswith("_grid.png"))
+    assert len(grids) == 4
+    for name in grids:
+        ours = np.asarray(Image.open(os.path.join(exp, "vis", name)))
+        theirs = np.asarray(Image.open(os.path.join(jexp, "vis", name)))
+        assert ours.shape == theirs.shape == (2 * 64, 2 * 64, 3)
+        np.testing.assert_array_equal(ours[:64], theirs[:64])  # image | ground truth
     config = json.load(open(os.path.join(exp, "config.json")))
     assert config["resolved_pos_weight"] > 0 and config["device"] == "cpu"
     summary = json.load(open(os.path.join(exp, "summary.json")))
@@ -392,8 +429,7 @@ def test_train_cli_resume_continues_the_run(workdir):
     assert ha == hb
 
 
-@pytest.mark.parametrize("flag", [["--device-augment"], ["--export-vis"], ["--profile"],
-                                  ["--mesh-data", "2"]])
+@pytest.mark.parametrize("flag", [["--profile"], ["--mesh-data", "2"]])
 def test_train_cli_raises_on_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_train.train(port_train.parse_args(CLI_ARGS + flag))

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -57,3 +59,54 @@ def seeded_task_batch(batch: int, size: int, seed: int, task: str, num_classes: 
     if task == "multitask":
         return images, pngs, rng.integers(0, 3, batch).astype(np.int32), sm
     return images, pngs, sm
+
+
+@dataclass
+class Canvases:
+    """A split as ``data/cache.CanvasCache`` holds it: what ``engine/resident.upload`` reads."""
+
+    images: np.ndarray  # (n, size, size, 3) uint8, letterboxed on gray 128
+    masks: np.ndarray  # (n, size, size) uint8, 0 outside the content
+    valid_wh: np.ndarray  # (n, 2) float32: the letterboxed content's (nw, nh)
+    cls_labels: np.ndarray | None  # (n,) int32 in 0..2, or None
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+
+def resident_canvases(n: int, size: int, seed: int, mask_classes: int = 1,
+                      cls_labels: bool = False) -> Canvases:
+    """A seeded resident split of ``n`` canvases, built without PIL.
+
+    Each sample is a random-aspect image (``letterboxed_canvases``' draw:
+    noise) with one disc of a flat random colour, labelled 1 .. mask_classes
+    in its mask; both are letterboxed onto ``size``^2 canvases as
+    ``CanvasCache`` letterboxes (image bicubic on gray 128, mask nearest on
+    0), and the content's (nw, nh) computed as it computes them.
+    """
+    rng = np.random.default_rng(seed)
+    images = np.full((n, size, size, 3), 128, np.uint8)
+    masks = np.zeros((n, size, size), np.uint8)
+    valid_wh = np.zeros((n, 2), np.float32)
+    for i in range(n):
+        w, h = (int(v) for v in rng.integers(size // 2, 2 * size, 2))
+        img = rng.random((3, h, w), dtype=np.float32)
+        yy, xx = np.mgrid[:h, :w]
+        cx, cy = rng.uniform(0.2, 0.8, 2) * (w, h)
+        r = rng.uniform(0.1, 0.35) * min(w, h)
+        disc = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+        img[:, disc] = rng.random((3, 1), dtype=np.float32)
+        label = int(rng.integers(1, mask_classes + 1))
+        scale = min(size / w, size / h)
+        nw, nh = int(w * scale), int(h * scale)
+        top, left = (size - nh) // 2, (size - nw) // 2
+        img_t = F.interpolate(torch.from_numpy(img)[None], size=(nh, nw), mode="bicubic",
+                              align_corners=False)[0].clamp(0, 1)
+        images[i, top : top + nh, left : left + nw] = (
+            (img_t.permute(1, 2, 0) * 255.0).round().to(torch.uint8).numpy())
+        m = torch.from_numpy(disc.astype(np.float32))[None, None]
+        m = F.interpolate(m, size=(nh, nw), mode="nearest")[0, 0].numpy() > 0
+        masks[i, top : top + nh, left : left + nw] = m * label
+        valid_wh[i] = (nw, nh)
+    cls = rng.integers(0, 3, n).astype(np.int32) if cls_labels else None
+    return Canvases(images, masks, valid_wh, cls)

@@ -20,19 +20,30 @@ the JAX CLI:
   or Lovasz, plus ``--cls-loss-weight`` times the class CE; the best epoch
   by seg IoU.
 
-All on the host input pipeline, bf16 autocast (``--amp``, the default) or
-f32 (``--no-amp``), Adam over float32 masters. It writes what
-``scripts/make_tables.py`` and ``run.sh`` read, under ``run/train/expN``,
-keyed as the JAX CLI keys them: ``config.json`` (with
+bf16 autocast (``--amp``, the default) or f32 (``--no-amp``), Adam over
+float32 masters. Two input paths, as in the JAX CLI:
+
+- the device-resident path (``--device-augment``, the default on ``cuda``):
+  every split letterboxed once into uint8 canvases (``data/cache.py``),
+  uploaded to the card once, augmented there (``ops/device_augment.py``),
+  in chunks of ``--scan-chunk`` steps whose losses are read once per chunk
+  (``engine/resident.py``); on the CPU only when asked
+  (``--device-augment --device cpu``);
+- the host pipeline (``--no-device-augment``, the default on the CPU):
+  PIL/cv2 augmentation per sample, one batch copied per step.
+
+It writes what ``scripts/make_tables.py`` and ``run.sh`` read, under
+``run/train/expN``, keyed as the JAX CLI keys them: ``config.json`` (with
 ``resolved_pos_weight``), ``summary.json``, ``test_metrics.json``,
-``val_metrics_history.{json,csv}``, and ``weights/`` with ``best.pth`` and
-``last.pth`` (model-only, the reference's format) and ``resume.pth`` (full
-state, every ``--ckpt-every`` epochs, for ``--resume``).
+``val_metrics_history.{json,csv}``, ``weights/`` with ``best.pth`` and
+``last.pth`` (model-only, the reference's format), ``resume.pth`` (full
+state, every ``--ckpt-every`` epochs, for ``--resume``) and the
+``loss_curve.png`` / ``metrics_curve.png`` curves, and with
+``--export-vis`` (the default) ``vis/`` grids of the test split.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--device-augment`` (the device-resident input path),
-``--mesh-data`` / ``--mesh-space`` above 1 (multi-GPU), ``--profile``
-(tooling) and ``--export-vis`` (curves and ``vis/``, off by default here).
+item: ``--mesh-data`` / ``--mesh-space`` above 1 (multi-GPU) and
+``--profile`` (tooling).
 """
 
 from __future__ import annotations
@@ -48,22 +59,23 @@ import traceback
 import numpy as np
 import torch
 
+from unet_embroidery_seg_torch.data.cache import CanvasCache
 from unet_embroidery_seg_torch.data.dataset import DataLoader, SegmentationDataset
 from unet_embroidery_seg_torch.data.sources import open_source
-from unet_embroidery_seg_torch.engine import checkpoint, steps
+from unet_embroidery_seg_torch.engine import checkpoint, resident, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.ops import schedules
 from unet_embroidery_seg_torch.predict import resolve_amp_default
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_exp_folder
+from unet_embroidery_seg_torch.utils.plotting import plot_training_curves
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
+from unet_embroidery_seg_torch.utils.vis_export import export_binary_visuals
 
 NOT_PORTED = {
-    "device_augment": "ROADMAP.md Queue 1 item 9 (device-resident input path)",
     "mesh": "ROADMAP.md Queue 1 item 10 (multi-GPU)",
     "profile": "ROADMAP.md Queue 1 item 11 (tooling)",
-    "export_vis": "ROADMAP.md Queue 1 item 6 (curves and vis/, a later slice)",
 }
 
 
@@ -85,14 +97,10 @@ def check_supported(args) -> None:
             "multitask training requires the two-headed multitask_unet "
             "(and multitask_unet only trains under --task multitask)"
         )
-    if args.device_augment:
-        raise NotImplementedError(f"--device-augment is not ported yet: {NOT_PORTED['device_augment']}")
     if (args.mesh_data or 1) != 1 or args.mesh_space != 1:
         raise NotImplementedError(f"--mesh-data/--mesh-space > 1: {NOT_PORTED['mesh']}")
     if args.profile:
         raise NotImplementedError(f"--profile is not ported yet: {NOT_PORTED['profile']}")
-    if args.export_vis:
-        raise NotImplementedError(f"--export-vis is not ported yet: {NOT_PORTED['export_vis']}")
 
 
 def estimate_pos_weight(train_dataset, n_samples: int) -> float | None:
@@ -171,13 +179,40 @@ def print_train_row(epoch, train_epoch, it, n_batches, loss, lr, size, ips):
     )
 
 
-def run_eval(eval_step, loader: DataLoader, max_batches: int | None, task: str) -> dict:
+def read_once(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """The tensors on the host in one copy from the card (float64, exact for counts < 2^53)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i : i + t.numel()].reshape(tuple(t.shape)))
+        i += t.numel()
+    return out
+
+
+def split_metrics(task: str, total_loss: float, seen: int, counts: np.ndarray,
+                  confusion: np.ndarray, mc_sums: dict[str, float]) -> dict:
     """One split's metrics, keyed as the JAX CLI keys them, and the mean batch loss.
 
     binary: from summed confusion counts. multitask: seg IoU and Dice from
     summed counts, Cls Acc (%) from the summed confusion. multiclass: the
     mean over batches of each batch's metrics (the reference's statistic).
     """
+    seen = max(seen, 1)
+    if task == "binary":
+        out = M.binary_metrics_from_counts(*counts)
+        out["Loss"] = total_loss / seen
+        return out
+    if task == "multitask":
+        seg = M.multitask_seg_metrics_from_counts(*counts)
+        return {"Loss": total_loss / seen, "IoU": seg["IoU"], "Dice": seg["Dice"],
+                "Cls Acc": 100.0 * int(np.trace(confusion)) / max(int(confusion.sum()), 1)}
+    out = {k: v / seen for k, v in mc_sums.items()}
+    out["Loss"] = total_loss / seen
+    return out
+
+
+def run_eval(eval_step, loader: DataLoader, max_batches: int | None, task: str) -> dict:
+    """``split_metrics`` of the host-fed eval over ``loader``, one batch copied per step."""
     total_loss, seen = 0.0, 0
     counts = np.zeros(4, np.int64)
     confusion = np.zeros((3, 3), np.int64)
@@ -199,18 +234,41 @@ def run_eval(eval_step, loader: DataLoader, max_batches: int | None, task: str) 
             counts += c.cpu().numpy()
         total_loss += float(loss)
         seen += 1
-    seen = max(seen, 1)
-    if task == "binary":
-        out = M.binary_metrics_from_counts(*counts)
-        out["Loss"] = total_loss / seen
-        return out
+    return split_metrics(task, total_loss, seen, counts, confusion, mc_sums)
+
+
+def run_eval_resident(eval_chunk, data: resident.ResidentData, batch_size: int, seed: int,
+                      max_batches: int | None, task: str) -> dict:
+    """``split_metrics`` of the whole split resident on the card, read from it once.
+
+    Counts are summed on the card; the per-batch losses (and multiclass's
+    per-batch metrics) are summed on the host in batch order, as the host
+    path sums them, so both paths give the same numbers.
+    """
+    idx, mask = resident.epoch_index_plan(data.n, batch_size, 0, False, seed, max_batches)
+    outs = eval_chunk(data, *resident.upload_plan(idx, mask, data.images_u8.device))
+    counts = np.zeros(4, np.int64)
+    confusion = np.zeros((3, 3), np.int64)
+    mc_sums: dict[str, float] = {}
     if task == "multitask":
-        seg = M.multitask_seg_metrics_from_counts(*counts)
-        return {"Loss": total_loss / seen, "IoU": seg["IoU"], "Dice": seg["Dice"],
-                "Cls Acc": 100.0 * int(np.trace(confusion)) / max(int(confusion.sum()), 1)}
-    out = {k: v / seen for k, v in mc_sums.items()}
-    out["Loss"] = total_loss / seen
-    return out
+        (loss, _, _), c, cf = outs
+        loss, c, cf = read_once(loss, c.sum(0), cf.sum(0))
+        counts, confusion = c.astype(np.int64), cf.astype(np.int64)
+    elif task == "binary":
+        loss, c = outs
+        loss, c = read_once(loss, c.sum(0))
+        counts = c.astype(np.int64)
+    else:
+        loss, m = outs
+        loss, *values = read_once(loss, *m.values())
+        for k, v in zip(m, values):
+            mc_sums[k] = 0.0
+            for x in v.tolist():
+                mc_sums[k] += x
+    total_loss = 0.0
+    for x in loss.tolist():
+        total_loss += x
+    return split_metrics(task, total_loss, len(idx), counts, confusion, mc_sums)
 
 
 def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | None):
@@ -266,22 +324,39 @@ def train(args) -> str:
         json.dump(vars(args), f, ensure_ascii=False, indent=2)
 
     print(f"Loading HF Dataset from: {args.data_path}, config: {args.data_config}")
+    multitask = args.task == "multitask"
     # multitask: binary seg masks, with each sample's class label
-    ds_task = "binary" if args.task == "multitask" else args.task
+    ds_task = "binary" if multitask else args.task
+
+    def open_split(split):
+        return open_source(args.data_path, args.data_config, split, args.cache_dir)
 
     def make_ds(split, augmentation):
-        source = open_source(args.data_path, args.data_config, split, args.cache_dir)
-        return SegmentationDataset(source, input_shape, num_classes, augmentation=augmentation,
-                                   task=ds_task, return_cls_label=args.task == "multitask",
-                                   seed=args.seed)
+        return SegmentationDataset(open_split(split), input_shape, num_classes,
+                                   augmentation=augmentation, task=ds_task,
+                                   return_cls_label=multitask, seed=args.seed)
 
+    # The device-resident path is the default on the card, as the JAX CLI
+    # takes it on an accelerator; on the CPU only when asked.
+    use_device_aug = args.device_augment
+    if use_device_aug is None:
+        use_device_aug = device.type == "cuda"
+    # The host-augmented train set: the host path's input, and on either path
+    # the source of the auto pos_weight estimate (as the reference samples it).
     train_dataset = make_ds("train", True)
-    val_dataset = make_ds("validation", False)
-    print(f"Train samples: {len(train_dataset)}, Val samples: {len(val_dataset)}")
-    train_loader = DataLoader(train_dataset, batch_size, shuffle=True, seed=args.seed,
-                              prefetch=args.workers)
-    val_loader = DataLoader(val_dataset, batch_size, shuffle=False, seed=args.seed,
-                            prefetch=args.workers)
+    if use_device_aug:
+        print("[input] device-resident path: uint8 canvases uploaded to the card once, "
+              "augmentation on the card, chunked epochs")
+        train_cache = CanvasCache(open_split("train"), input_shape, return_cls_label=multitask)
+        val_cache = CanvasCache(open_split("validation"), input_shape, return_cls_label=multitask)
+        print(f"Train samples: {len(train_cache)}, Val samples: {len(val_cache)}")
+    else:
+        val_dataset = make_ds("validation", False)
+        print(f"Train samples: {len(train_dataset)}, Val samples: {len(val_dataset)}")
+        train_loader = DataLoader(train_dataset, batch_size, shuffle=True, seed=args.seed,
+                                  prefetch=args.workers)
+        val_loader = DataLoader(val_dataset, batch_size, shuffle=False, seed=args.seed,
+                                prefetch=args.workers)
 
     # Binary training uses the diff head: the model emits the (N, H, W) logit
     # difference the binary loss and metrics consume; same parameters.
@@ -311,6 +386,22 @@ def train(args) -> str:
     max_val_batches = args.max_val_batches or None
     max_test_batches = args.max_test_batches or None
     train_step, eval_step = make_steps(args, model, optimizer, num_classes, pos_weight)
+
+    if use_device_aug:
+        train_res = resident.upload(train_cache, device)
+        val_res = resident.upload(val_cache, device)
+        binary = ds_task == "binary"
+        train_chunk = resident.make_train_chunk_fn(train_step, tuple(input_shape), binary,
+                                                   num_classes, multitask=multitask,
+                                                   seed=args.seed)
+        eval_chunk = resident.make_eval_chunk_fn(eval_step, binary, num_classes,
+                                                 multitask=multitask)
+
+    def evaluate(split_data, max_batches):
+        if use_device_aug:
+            return run_eval_resident(eval_chunk, split_data, batch_size, args.seed, max_batches,
+                                     args.task)
+        return run_eval(eval_step, split_data, max_batches, args.task)
 
     start_time = time.time()
     best_score, best_epoch, best_val_metrics = -1.0, None, None
@@ -346,6 +437,39 @@ def train(args) -> str:
         print(f"[resume] restored {args.resume}: starting at epoch "
               f"{start_epoch + 1}/{train_epoch}, best={best_score:.4f}")
 
+    def host_epoch(epoch: int):
+        """(losses, multitask's (seg, cls, correct) or None, n_valid, rows) per step, host-fed."""
+        for it, (images, pngs, cls, sm, n_valid) in enumerate(host_batches(train_loader, epoch)):
+            if max_train_batches and it >= max_train_batches:
+                break
+            # The step's random draws (multitask's dropout) from (seed, epoch,
+            # step), as the JAX CLI folds them in: --resume continues exactly.
+            resident.seed_default_generator(device, resident.step_seeds(args.seed, epoch, it)[0])
+            if multitask:
+                (total_l, seg_l, cls_l), correct = train_step(images, pngs, cls, sm)
+                yield ([float(total_l)], [(float(seg_l), float(cls_l), int(correct))], [n_valid],
+                       len(train_loader))
+            else:
+                yield [float(train_step(images, pngs, sm))], None, [n_valid], len(train_loader)
+
+    def resident_epoch(epoch: int):
+        """The same per chunk of ``--scan-chunk`` steps, read from the card once per chunk."""
+        idx, maskp = resident.epoch_index_plan(train_res.n, batch_size, epoch, True, args.seed,
+                                               max_train_batches)
+        idx_t, mask_t = resident.upload_plan(idx, maskp, device)
+        n_batches, chunk = len(idx), max(args.scan_chunk, 1)
+        for c0 in range(0, n_batches, chunk):
+            c1 = min(c0 + chunk, n_batches)
+            out = train_chunk(train_res, idx_t[c0:c1], mask_t[c0:c1], epoch, range(c0, c1))
+            n_valid = [int(v) for v in maskp[c0:c1].sum(1)]
+            if multitask:
+                total_l, seg_l, cls_l, correct = read_once(torch.stack(out))[0]
+                yield (total_l.tolist(), list(zip(seg_l.tolist(), cls_l.tolist(),
+                                                  correct.astype(int).tolist())),
+                       n_valid, n_batches)
+            else:
+                yield read_once(out)[0].tolist(), None, n_valid, n_batches
+
     for epoch in range(start_epoch, train_epoch):
         lr_now = lr_scheduler_func(epoch)
         schedules.set_learning_rate(optimizer, lr_now)
@@ -353,44 +477,38 @@ def train(args) -> str:
         epoch_loss, seen, images_done = 0.0, 0, 0
         mt = {"seg": 0.0, "cls": 0.0, "correct": 0, "total": 0}
         t_epoch = time.time()
-        for it, (images, pngs, cls, sm, n_valid) in enumerate(host_batches(train_loader, epoch)):
-            if max_train_batches and it >= max_train_batches:
-                break
-            # The step's random draws (multitask's dropout) from (seed, epoch,
-            # step), as the JAX CLI folds them in: --resume continues exactly.
-            torch.manual_seed(int(np.random.SeedSequence((args.seed, epoch, it))
-                                  .generate_state(1)[0]))
-            if args.task == "multitask":
-                (total_l, seg_l, cls_l), correct = train_step(images, pngs, cls, sm)
-                loss_val = float(total_l)
-                mt["seg"] += float(seg_l)
-                mt["cls"] += float(cls_l)
-                mt["correct"] += int(correct)
-                mt["total"] += n_valid
-            else:
-                loss_val = float(train_step(images, pngs, sm))
-            step += 1
-            epoch_loss += loss_val
-            seen += 1
-            images_done += n_valid
-            ips = images_done / max(time.time() - t_epoch, 1e-6)
-            print_train_row(epoch, train_epoch, it, len(train_loader), loss_val, lr_now,
-                            args.input_size, ips)
+        for losses, mt_steps, n_valids, n_batches in (
+                resident_epoch(epoch) if use_device_aug else host_epoch(epoch)):
+            ips_images = images_done + sum(n_valids)
+            ips = ips_images / max(time.time() - t_epoch, 1e-6)
+            for j, loss_val in enumerate(losses):
+                if mt_steps is not None:
+                    seg_l, cls_l, correct = mt_steps[j]
+                    mt["seg"] += seg_l
+                    mt["cls"] += cls_l
+                    mt["correct"] += correct
+                    mt["total"] += n_valids[j]
+                print_train_row(epoch, train_epoch, seen, n_batches, loss_val, lr_now,
+                                args.input_size, ips)
+                step += 1
+                epoch_loss += loss_val
+                seen += 1
+            images_done = ips_images
         print(LogColor.RESET)
         avg = epoch_loss / max(seen, 1)
         train_losses.append(avg)
-        if args.task == "multitask":
+        if multitask:
             acc = 100.0 * mt["correct"] / max(mt["total"], 1)
             print(f"Epoch {epoch + 1}/{train_epoch} - Loss: {avg:.4f} "
                   f"(Seg: {mt['seg'] / max(seen, 1):.4f}, "
                   f"Cls: {mt['cls'] / max(seen, 1):.4f}), Cls Acc: {acc:.2f}%")
 
-        metrics = run_eval(eval_step, val_loader, max_val_batches, args.task)
+        metrics = evaluate(val_res if use_device_aug else val_loader, max_val_batches)
         if args.task == "multiclass":
             current_score = float(metrics["Mean IoU"])
         else:
             current_score = float(metrics["IoU"])
-        if args.task == "multitask":
+        if multitask:
             print(f"Val - IoU: {metrics['IoU']:.4f}, Dice: {metrics['Dice']:.4f}, "
                   f"Cls Acc: {metrics['Cls Acc']:.2f}%")
         val_losses.append(metrics["Loss"])
@@ -423,15 +541,28 @@ def train(args) -> str:
     total_time = time.time() - start_time
     print(f"Training completed in {datetime.timedelta(seconds=int(total_time))}")
 
+    plot_training_curves(train_losses, val_losses, val_metrics_history, weights_folder)
+
     test_metrics = None
     try:  # keep artifact writing alive, like the reference
-        test_dataset = make_ds("test", False)
-        test_loader = DataLoader(test_dataset, batch_size, shuffle=False, seed=args.seed,
-                                 prefetch=2)
+        test_source = open_split("test")
+        if use_device_aug:
+            test_data = resident.upload(
+                CanvasCache(test_source, input_shape, return_cls_label=multitask), device)
+        else:
+            test_data = DataLoader(make_ds("test", False), batch_size, shuffle=False,
+                                   seed=args.seed, prefetch=2)
         checkpoint.load_weights(best_model_path, model)
-        test_metrics = run_eval(eval_step, test_loader, max_test_batches, args.task)
+        test_metrics = evaluate(test_data, max_test_batches)
         with open(os.path.join(exp_folder, "test_metrics.json"), "w", encoding="utf-8") as f:
             json.dump(test_metrics, f, ensure_ascii=False, indent=2)
+
+        if args.task in ("binary", "multitask") and args.export_vis:
+            # binary: the diff head's sign, as the eval step predicts
+            export_binary_visuals(steps.make_predict_fn(model, amp=args.amp), test_source,
+                                  out_dir=os.path.join(exp_folder, "vis"),
+                                  input_shape=tuple(input_shape), num_samples=args.vis_num,
+                                  seed=args.vis_seed, multitask=multitask)
     except Exception as e:  # noqa: BLE001 - reported with its traceback, run goes on
         traceback.print_exc()
         print(f"[WARN] Skip test evaluation: {e}")
@@ -499,19 +630,21 @@ def parse_args(argv=None):
                         help="bf16 autocast with f32 master params (default: on)")
     parser.add_argument("--seed", default=11, type=int)
     parser.add_argument("--cache-dir", default=".hf-cache/datasets")
-    parser.add_argument("--export-vis", action=boolopt, default=False,
-                        help="Loss/metric curves and vis/ grids: not ported yet (a later "
-                             "slice), so off by default; turning it on raises")
+    parser.add_argument("--export-vis", action=boolopt, default=True,
+                        help="Write vis/ prediction grids of the test split (binary, "
+                             "multitask) after training")
     parser.add_argument("--vis-num", default=8, type=int)
     parser.add_argument("--vis-seed", default=0, type=int)
     parser.add_argument("--max-train-batches", default=0, type=int)
     parser.add_argument("--max-val-batches", default=0, type=int)
     parser.add_argument("--max-test-batches", default=0, type=int)
     parser.add_argument("--device-augment", action=boolopt, default=None,
-                        help="Device-resident dataset + on-device augmentation: not ported "
-                             "yet, so turning it on raises; the host pipeline runs")
+                        help="Canvases resident on the device + augmentation there, in "
+                             "chunked epochs (default: on for cuda, off for cpu)")
     parser.add_argument("--scan-chunk", default=8, type=int,
-                        help="Train steps per dispatch on the device-resident path (unused)")
+                        help="Train steps per host read on the device-resident path: a "
+                             "chunk is a loop of steps whose losses stay on the device "
+                             "until its end (there is no scan)")
     parser.add_argument("--defer-ckpt", action=boolopt, default=False,
                         help="Write best/last.pth once, after the training loop (best kept "
                              "as a copy on the device); default: every epoch")

@@ -10,8 +10,12 @@ per-class classification accuracy (``--pos-weight``: the value the
 checkpoint trained with, so the loss is on its scale); multiclass, the dict
 of per-sample means (``--num-classes``). ``--device cuda`` (the default)
 raises without a card; ``cpu`` runs the kernels' plain versions.
-``--device-resident`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+
+``--device-resident`` (the default on ``cuda``, as the JAX CLI's on an
+accelerator; on the CPU only when asked) letterboxes the split once into
+uint8 canvases, uploads them to the device and evaluates them there in
+batches of ``--batch-size``, read from the device once: the same counts
+(binary, multitask) and per-sample means (multiclass) as the host path.
 """
 
 from __future__ import annotations
@@ -20,20 +24,19 @@ import os
 
 import numpy as np
 
+from unet_embroidery_seg_torch.data.cache import CanvasCache
 from unet_embroidery_seg_torch.data.dataset import DataLoader, SegmentationDataset
 from unet_embroidery_seg_torch.data.sources import CLASS_NAMES, open_source
-from unet_embroidery_seg_torch.engine import checkpoint, steps
+from unet_embroidery_seg_torch.engine import checkpoint, resident, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.predict import resolve_amp_default
-from unet_embroidery_seg_torch.train import NOT_PORTED, LogColor
+from unet_embroidery_seg_torch.train import LogColor, read_once
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 
 
 def val(args) -> dict:
-    if args.device_resident:
-        raise NotImplementedError(f"--device-resident is not ported yet: {NOT_PORTED['device_augment']}")
     device = resolve_device(args.device)
     set_float32_precision()
     os.makedirs(args.cache_dir, exist_ok=True)
@@ -42,11 +45,18 @@ def val(args) -> dict:
     source = open_source(args.data_path, args.data_config, "test", args.cache_dir)
     num_classes = 2 if args.task in ("binary", "multitask") else args.num_classes + 1
     multitask = args.task == "multitask"
-    dataset = SegmentationDataset(source, input_shape, num_classes, augmentation=False,
-                                  task="binary" if multitask else args.task,
-                                  return_cls_label=multitask, seed=11)
-    print(f"Test samples: {len(dataset)}")
-    loader = DataLoader(dataset, batch_size=1, shuffle=False, prefetch=2)
+    use_resident = args.device_resident
+    if use_resident is None:
+        use_resident = device.type == "cuda"
+    if use_resident:
+        cache = CanvasCache(source, tuple(input_shape), return_cls_label=multitask)
+        print(f"Test samples: {len(cache)}")
+    else:
+        dataset = SegmentationDataset(source, input_shape, num_classes, augmentation=False,
+                                      task="binary" if multitask else args.task,
+                                      return_cls_label=multitask, seed=11)
+        print(f"Test samples: {len(dataset)}")
+        loader = DataLoader(dataset, batch_size=1, shuffle=False, prefetch=2)
 
     seed_everything(11)
     if args.amp is None:
@@ -61,6 +71,14 @@ def val(args) -> dict:
             mask = (np.arange(batch.images.shape[0]) < n_valid).astype(np.float32)
             yield batch, mask
 
+    def resident_outs(eval_step):
+        """The eval step's outputs over the whole split resident on the device, stacked per batch."""
+        data = resident.upload(cache, device)
+        chunk = resident.make_eval_chunk_fn(eval_step, binary=args.task != "multiclass",
+                                            num_classes=num_classes, multitask=multitask)
+        idx, maskp = resident.epoch_index_plan(data.n, args.batch_size, 0, False, 11)
+        return chunk(data, *resident.upload_plan(idx, maskp, device))
+
     if multitask:
         pos_weight = float(args.pos_weight) if args.pos_weight else None
         eval_step = steps.make_multitask_eval_step(model, seg_loss_name=args.loss,
@@ -68,12 +86,20 @@ def val(args) -> dict:
         seg_counts = np.zeros(4, np.int64)
         confusion = np.zeros((3, 3), np.int64)
         total_loss, seen = 0.0, 0
-        for batch, mask in batches():
-            (loss, _, _), sc, cf = eval_step(batch.images, batch.pngs, batch.cls_labels, mask)
-            seg_counts += sc.cpu().numpy()
-            confusion += cf.cpu().numpy()
-            total_loss += float(loss)
-            seen += 1
+        if use_resident:
+            (loss, _, _), sc, cf = resident_outs(eval_step)
+            loss, sc, cf = read_once(loss, sc.sum(0), cf.sum(0))
+            seg_counts += sc.astype(np.int64)
+            confusion += cf.astype(np.int64)
+            total_loss, seen = float(loss.sum()), len(loss)
+        else:
+            for batch, mask in batches():
+                (loss, _, _), sc, cf = eval_step(batch.images, batch.pngs, batch.cls_labels,
+                                                 mask)
+                seg_counts += sc.cpu().numpy()
+                confusion += cf.cpu().numpy()
+                total_loss += float(loss)
+                seen += 1
         seg_m = M.multitask_seg_metrics_from_counts(*seg_counts)
         cls_acc = 100.0 * int(np.trace(confusion)) / max(int(confusion.sum()), 1)
         print("=" * 50)
@@ -99,12 +125,18 @@ def val(args) -> dict:
                                                               amp=args.amp)
         sums: dict[str, float] = {}
         loss_sum, n_total = 0.0, 0.0
-        for batch, mask in batches():
-            ls, m, nv = eval_step(batch.images, batch.pngs, mask)
-            loss_sum += float(ls)
-            n_total += float(nv)
-            for k, v in m.items():
-                sums[k] = sums.get(k, 0.0) + float(v)
+        if use_resident:
+            ls, m, nv = resident_outs(eval_step)
+            ls, nv, *values = read_once(ls, nv, *m.values())
+            loss_sum, n_total = float(ls.sum()), float(nv.sum())
+            sums = {k: float(v.sum()) for k, v in zip(m, values)}
+        else:
+            for batch, mask in batches():
+                ls, m, nv = eval_step(batch.images, batch.pngs, mask)
+                loss_sum += float(ls)
+                n_total += float(nv)
+                for k, v in m.items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
         n_total = max(n_total, 1.0)
         metrics = {k: v / n_total for k, v in sums.items()}
         metrics["Loss"] = loss_sum / n_total
@@ -114,11 +146,17 @@ def val(args) -> dict:
     eval_step = steps.make_binary_eval_step(model, args.loss, amp=args.amp)
     counts = np.zeros(4, np.int64)
     total_loss, seen = 0.0, 0
-    for batch, mask in batches():
-        loss, c = eval_step(batch.images, batch.pngs, mask)
-        counts += c.cpu().numpy()
-        total_loss += float(loss)
-        seen += 1
+    if use_resident:
+        loss, c = resident_outs(eval_step)
+        loss, c = read_once(loss, c.sum(0))
+        counts += c.astype(np.int64)
+        total_loss, seen = float(loss.sum()), len(loss)
+    else:
+        for batch, mask in batches():
+            loss, c = eval_step(batch.images, batch.pngs, mask)
+            counts += c.cpu().numpy()
+            total_loss += float(loss)
+            seen += 1
     metrics = M.binary_metrics_from_counts(*counts)
     metrics["Loss"] = total_loss / max(seen, 1)
     print(
@@ -163,10 +201,11 @@ def parse_args(argv=None):
     parser.add_argument("--amp", action=argparse.BooleanOptionalAction, default=None,
                         help="bf16 compute (default: train's per-config rule)")
     parser.add_argument("--batch-size", default=8, type=int,
-                        help="Eval batch size of the device-resident path (not ported; the "
-                             "host path keeps the reference's batch size 1)")
+                        help="Eval batch size of the device-resident path (the host path "
+                             "keeps the reference's batch size 1)")
     parser.add_argument("--device-resident", action=argparse.BooleanOptionalAction, default=None,
-                        help="Evaluate from canvases resident on the card: not ported yet")
+                        help="Evaluate from canvases resident on the device (default: on for "
+                             "cuda, off for cpu)")
     return parser.parse_args(argv)
 
 
