@@ -130,6 +130,36 @@ default on the card) to it: a seeded split of 64 uint8 canvases at 512^2
 - 11d. the resident eval chunk's counts against the host-fed eval step's
   on the same canvases, exactly.
 
+Phase 12 takes data parallelism (the JAX mesh's ``data`` axis: DDP, the
+BatchNorm synchronised over the process group, global-batch losses) to the
+card; a 1-rank NCCL group stands in for the CLI's backend on one card:
+
+- 12a. The synchronised BN (1-rank NCCL group) against the port's cuDNN BN
+  at ResNet-50's layer1 ``bn3`` shape at 512^2, batch 8 (256 channels at
+  128^2), f32 and bf16: output, input, weight and bias gradients, running
+  mean and variance; forward + backward timed for both;
+- 12b. Two ranks on the one card (gloo with CUDA tensors: NCCL refuses two
+  ranks on one device; the kernels built before the ranks start):
+  unet_resnet50 at 512^2, global batch 8 (4 + 4), diff head, Lovasz. f32,
+  one SGD step against the 1-process step on the same batch: the loss to
+  1e-5, each parameter's update and each BN statistic, as a share of its
+  norm, to 4x the floor of this model (the 1-process step with its input
+  moved by one ulp, measured in the same run), and the two ranks'
+  parameters and statistics bit-equal after the step. bf16, Adam, a
+  resident chunk of 8 steps: losses against the 1-process chunk within
+  11b's rtol 1e-3; launches per rank (5 + 5 + 6 + 6 per step), ms/step
+  and peak memory per rank in a second chunk;
+- 12c. DDP over NCCL at world size 1 on ``cuda:0``: the resident bf16
+  chunk (DDP, synchronised BN) against the unwrapped step's from the same
+  weights (first loss within 1e-3), ms/step by CUDA events and card busy
+  ms per step (profiled) beside the unwrapped step's: the difference is
+  DDP's overhead and the synchronised BN's;
+- 12d. Where the machine has two cards or more: the train CLI with
+  ``--mesh-data 2`` over NCCL for a few steps (one ``expN``, its files),
+  and 12b's bf16 chunk on two cards (4 + 4) with its ms/step beside one
+  card's; with one card, a line saying that it did not run and why.
+  ``--multi-card-only`` runs the build and 12d alone.
+
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
 kernel: in f32 every site is ``tf32x3``.
@@ -148,9 +178,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -262,6 +296,23 @@ F32_FUSED_SITES = [("up_concat4.conv2", 512, 32, 1), ("up_concat3.conv2", 256, 6
 RESIDENT_CANVASES, RESIDENT_CHUNK = 64, 8
 TOL_AUG_IMAGE, AUG_BOUNDARY, AUG_MAX_BOUNDARY_SHARE = 1e-5, 1e-4, 1e-4
 TOL_RESIDENT_LOSS, RESIDENT_COMPARED_STEPS, HOST_FED_STEPS = 1e-3, 3, 8
+# Phase 12, data parallelism. 12a: the synchronised BN against cuDNN's at
+# ResNet-50's layer1 bn3 shape at 512^2, batch 8. f32: both sum in f32 in
+# other orders (sum and sum of squares, against cuDNN's Welford), 1e-4 of the
+# largest value; bf16: output and input gradient are bf16 in both, so one
+# bf16 ulp apart at most (as TOL_BF16), the rest f32. 12b: the first step's
+# loss to 1e-5 (f32, same weights), updates to phase 6's rule; the bf16
+# chunk's first loss to 11b's rtol 1e-3, and every loss to the larger of
+# that and twice the rounding floor of 12c (two 1-process chunks apart only
+# in BN's rounding: bf16 outputs one ulp apart, which Adam's sign-like
+# updates carry on; measured 7.5e-4, over 1e-3 in the 2-rank chunk's
+# sixth step). 12c: the first bf16 step's loss to 1e-3.
+BN_SHAPE = (8, 256, 128, 128)
+TOL_SYNC_BN = {"f32": 1e-4, "bf16": 2.0 ** -7}
+TOL_DDP_LOSS_F32, TOL_DDP_LOSS_BF16, DDP_LR_SGD = 1e-5, 1e-3, 1e-2
+DDP_BF16_FLOOR_FACTOR = 2.0
+CLI_TIMEOUT_S = 300  # 12d's CLI run: a few steps at 512^2 take ~1 min
+DDP_RANKS = 2
 # How kernel and library ``ms`` are timed: calls captured into a CUDA graph
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
@@ -1338,8 +1389,11 @@ def resident_augment_check(cache, data) -> dict:
     return result
 
 
-def _resident_binary_model():
-    """unet_resnet50 (diff head, seed 0) and its bf16 Lovasz train step, as phase 5 builds them."""
+def _resident_binary_model(group=None):
+    """unet_resnet50 (diff head, seed 0) and its bf16 Lovasz train step, as phase 5 builds them.
+
+    ``group``: the step's process group (phase 12), None for one process.
+    """
     from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
     from unet_embroidery_seg_torch.models import build_model
     from unet_embroidery_seg_torch.ops import schedules
@@ -1347,7 +1401,7 @@ def _resident_binary_model():
     model = build_model("unet_resnet50", 2, diff_head=True,
                         generator=torch.Generator().manual_seed(0))
     opt = schedules.make_train_optimizer(model.parameters(), TRAIN_LR)
-    return model, make_binary_train_step(model, opt, "lovasz_hinge", None, amp=True)
+    return model, make_binary_train_step(model, opt, "lovasz_hinge", None, amp=True, group=group)
 
 
 def _plan(data, epoch: int, steps: int, shuffle: bool = True):
@@ -1513,6 +1567,365 @@ def resident_eval_check(model, cache, data) -> dict:
     return result
 
 
+def _bn_state(c: int, seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"weight": torch.rand(c, generator=g) + 0.5, "bias": 0.1 * torch.randn(c, generator=g),
+            "running_mean": 0.1 * torch.randn(c, generator=g),
+            "running_var": torch.rand(c, generator=g) + 0.5, "num_batches_tracked": torch.tensor(0)}
+
+
+def sync_bn_check(group) -> dict:
+    """12a: the synchronised BN on a 1-rank NCCL group against the port's cuDNN BN."""
+    from unet_embroidery_seg_torch.models.blocks import BatchNorm, set_batchnorm_group
+    from unet_embroidery_seg_torch.utils.timing import event_ms
+
+    c = BN_SHAPE[1]
+    gen = torch.Generator("cuda").manual_seed(12)
+    cl = torch.channels_last
+    x0 = (2.0 * torch.randn(BN_SHAPE, generator=gen, device="cuda") + 0.5).contiguous(
+        memory_format=cl)
+    gy = torch.randn(BN_SHAPE, generator=gen, device="cuda").contiguous(memory_format=cl)
+    result = {"shape": list(BN_SHAPE), "site": "unet_resnet50 resnet.layer1.*.bn3 at 512^2"}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        runs = {}
+        for name, grp in (("cudnn", None), ("sync", group)):
+            bn = BatchNorm(c).cuda()
+            bn.load_state_dict(_bn_state(c, 12))
+            set_batchnorm_group(bn.train(), grp)
+            x = x0.to(dtype).clone().requires_grad_(True)
+
+            def fwd_bwd(bn=bn, x=x):
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=label == "bf16"):
+                    y = bn(x)
+                (y.float() * gy).sum().backward()
+                return y
+
+            y = fwd_bwd()
+            runs[name] = {"y": y.detach().float(), "dx": x.grad.float(),
+                          "dw": bn.weight.grad.clone(), "db": bn.bias.grad.clone(),
+                          "running_mean": bn.running_mean.clone(),
+                          "running_var": bn.running_var.clone()}
+            runs[name]["forward_backward_ms"] = event_ms(fwd_bwd)
+        errs = {k: ((runs["sync"][k] - v).abs().max() / v.abs().max()).item()
+                for k, v in runs["cudnn"].items() if k != "forward_backward_ms"}
+        result[label] = {"rel_err": errs,
+                         "sync_forward_backward_ms": runs["sync"]["forward_backward_ms"],
+                         "cudnn_forward_backward_ms": runs["cudnn"]["forward_backward_ms"],
+                         "ms_method": "cuda_events_eager"}
+    print("sync_batchnorm " + json.dumps(result), flush=True)
+    for label in ("f32", "bf16"):
+        bad = {k: v for k, v in result[label]["rel_err"].items()
+               if not v <= (TOL_SYNC_BN[label] if k in ("y", "dx", "dw", "db")
+                            else TOL_SYNC_BN["f32"])}
+        if bad:
+            raise AssertionError(f"synchronised BN against cuDNN's, {label}: {bad}")
+    return result
+
+
+def _resident_chunks(mesh, counters, data, profile: bool = False) -> dict:
+    """11b's bf16 Lovasz resident chunk of unet_resnet50 on ``mesh`` (None: one process).
+
+    Epoch 0's 8 losses from seed-0 weights (the comparisons' run), then a
+    chunk of epoch 1 with the counters zeroed just before and read just
+    after: launches, ms/step by CUDA events, peak memory; with ``profile``
+    a third, profiled chunk gives the card's busy ms per step.
+    """
+    from unet_embroidery_seg_torch.engine import resident
+    from unet_embroidery_seg_torch.utils.timing import device_ms_by_group
+
+    model, step = _resident_binary_model(None if mesh is None else mesh.group)
+    starts: list = []
+
+    def marked_step(*args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append(ev)
+        return step(*args)
+
+    chunk = resident.make_train_chunk_fn(marked_step, (TRAIN_SIZE, TRAIN_SIZE), True, 2, seed=11,
+                                         mesh=mesh)
+
+    def run(epoch: int) -> torch.Tensor:
+        idx, mask = resident.epoch_index_plan(data.n, BATCH, epoch, True, 11, RESIDENT_CHUNK)
+        plan = resident.upload_plan(idx, mask, data.images_u8.device)
+        return chunk(data, *plan, epoch, range(RESIDENT_CHUNK))
+
+    losses = run(0).cpu().tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    starts.clear()
+    t0 = time.perf_counter()
+    out = run(1)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    out.cpu()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    marks = starts + [end]
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    result = {"losses": losses, "launches": launches, "step_ms_median": statistics.median(step_ms),
+              "step_ms": step_ms, "step_ms_method": "cuda_events",
+              "chunk_wall_ms_per_step": wall_ms / RESIDENT_CHUNK,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile:
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            run(2).cpu()
+        by_group, _ = device_ms_by_group(prof, RESIDENT_CHUNK)
+        result["device_busy_ms_per_step"] = sum(by_group.values())
+        result["device_ms_by_group"] = by_group
+    want = {c.__name__: RESNET_PER_STEP[c.__name__] * RESIDENT_CHUNK for c in counters}
+    if launches != want or not np.isfinite(losses).all():
+        raise AssertionError(f"resident chunk: launches {launches} != {want}, or losses {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def _sgd_model_and_batch(device):
+    """12b's f32 SGD case: unet_resnet50 (diff head, seed 12) on ``device`` and a seeded batch."""
+    from unet_embroidery_seg_torch.data.synthetic import seeded_train_batch
+    from unet_embroidery_seg_torch.models import build_model
+
+    model = build_model("unet_resnet50", 2, diff_head=True,
+                        generator=torch.Generator().manual_seed(12), device=device)
+    return model, seeded_train_batch(BATCH, TRAIN_SIZE, seed=12)
+
+
+def _sgd_step(model, batch, group=None) -> float:
+    from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=DDP_LR_SGD)
+    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=False, group=group)
+    return float(step(*batch))
+
+
+def _ddp_rank(rank: int, devices: list, out_dir: str, sgd: bool) -> None:
+    """One rank of 12b (gloo, two ranks on one card) or 12d (NCCL, a card each).
+
+    f32 SGD step (``sgd``; its state dict saved for the parent), then the
+    bf16 resident chunks; the results go to ``out_dir/rank<r>.json``.
+    """
+    import torch.distributed as dist
+
+    from unet_embroidery_seg_torch.data.synthetic import resident_canvases
+    from unet_embroidery_seg_torch.engine import resident
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad
+    from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(devices=devices)
+    result = {"rank": rank, "world_size": mesh.world_size, "device": str(mesh.device),
+              "backend": dist.get_backend()}
+    if sgd:
+        model, batch = _sgd_model_and_batch(mesh.device)
+        result["sgd_loss"] = _sgd_step(model, mesh_lib.shard_batch_arrays(mesh, *batch),
+                                       mesh.group)
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   os.path.join(out_dir, f"rank{rank}_sgd.pt"))
+        del model
+        torch.cuda.empty_cache()
+    data = resident.upload(resident_canvases(RESIDENT_CANVASES, TRAIN_SIZE, seed=11,
+                                             cls_labels=True), mesh.device)
+    counters = [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad]
+    result["chunk"] = _resident_chunks(mesh, counters, data)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _run_ranks(devices: list, backend: str, sgd: bool) -> tuple[list[dict], str, float]:
+    """``_ddp_rank`` on ``len(devices)`` new processes; (their results, their folder, seconds)."""
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    out_dir = tempfile.mkdtemp(prefix="ddp-ranks-")
+    t0 = time.perf_counter()
+    mesh_lib.launch_local(_ddp_rank, len(devices), (devices, out_dir, sgd), backend=backend,
+                          timeout_s=900)
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(len(devices)):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, out_dir, seconds
+
+
+def _update_rel(state: dict, ref: dict, init: dict, stats: bool) -> dict:
+    """Per tensor, ||change - reference change|| / ||reference change|| (parameters or BN statistics)."""
+    out = {}
+    for k, p0 in init.items():
+        if not torch.is_floating_point(p0) or k.endswith(("running_mean", "running_var")) != stats:
+            continue
+        du = ref[k] - p0
+        out[k] = ((state[k] - p0 - du).norm() / du.norm().clamp_min(1e-30)).item()
+    return out
+
+
+def two_ranks_one_card(one_process: dict, bf16_floor: float) -> dict:
+    """12b: two gloo ranks on the one card against the 1-process step and chunk.
+
+    ``bf16_floor``: the largest relative loss difference between two
+    1-process bf16 chunks that differ only in rounding (12c: the
+    synchronised BN on a 1-rank group against cuDNN's), which Adam's
+    updates carry from step to step.
+    """
+    init, batch = _sgd_model_and_batch("cpu")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    one = {}
+    for run, scale in (("one", 1.0), ("one_up", 1 + 2.0 ** -23), ("one_down", 1 - 2.0 ** -23)):
+        model, _ = _sgd_model_and_batch("cuda")
+        images, pngs, sm = batch
+        loss = _sgd_step(model, (images * np.float32(scale), pngs, sm))
+        one[run] = (loss, {k: v.cpu() for k, v in model.state_dict().items()})
+        del model
+    torch.cuda.empty_cache()
+    ranks, out_dir, seconds = _run_ranks([torch.device("cuda", 0)] * DDP_RANKS, "gloo", sgd=True)
+    states = [torch.load(os.path.join(out_dir, f"rank{r}_sgd.pt"), weights_only=True)
+              for r in range(DDP_RANKS)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bit_equal = all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    ref = one["one"][1]
+    result = {"ranks": DDP_RANKS, "backend": "gloo", "devices": "cuda:0 x2", "seconds": seconds,
+              "sgd": {"lr": DDP_LR_SGD, "loss_two_ranks": ranks[0]["sgd_loss"],
+                      "loss_one_process": one["one"][0],
+                      "loss_rel_diff": abs(ranks[0]["sgd_loss"] - one["one"][0])
+                      / abs(one["one"][0]),
+                      "ranks_bit_equal": bit_equal}}
+    ok = bit_equal and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
+    for stats in (False, True):
+        two = _update_rel(states[0], ref, init, stats)
+        noise = {k: max(a, b) for (k, a), b in zip(
+            _update_rel(one["one_up"][1], ref, init, stats).items(),
+            _update_rel(one["one_down"][1], ref, init, stats).values())}
+        worst = max(two, key=two.get)
+        entry = {"median_rel_diff": statistics.median(two.values()),
+                 "median_rel_noise": statistics.median(noise.values()),
+                 "worst_rel_diff": two[worst], "worst": worst,
+                 "worst_rel_noise": max(noise.values())}
+        result["sgd"]["bn_statistics" if stats else "parameter_updates"] = entry
+        floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
+        ok = ok and (entry["median_rel_diff"] <= floor(entry["median_rel_noise"])
+                     and entry["worst_rel_diff"] <= floor(entry["worst_rel_noise"]))
+    want = one_process["losses"]
+    got = [r["chunk"]["losses"] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[0], want)]
+    result["bf16_chunk"] = {
+        "losses_two_ranks": got[0], "losses_one_process": want, "loss_rel_diff": rel,
+        "rounding_floor": bf16_floor,
+        "launches_per_rank": [r["chunk"]["launches"] for r in ranks],
+        "step_ms_median_per_rank": [r["chunk"]["step_ms_median"] for r in ranks],
+        "step_ms_per_rank": [r["chunk"]["step_ms"] for r in ranks],
+        "peak_mem_gb_per_rank": [r["chunk"]["peak_mem_gb"] for r in ranks],
+        "one_process_step_ms_median": one_process["step_ms_median"],
+        "one_process_peak_mem_gb": one_process["peak_mem_gb"]}
+    print("ddp_two_ranks_one_card " + json.dumps(result), flush=True)
+    ok = (ok and got[0] == got[1] and rel[0] <= TOL_RESIDENT_LOSS
+          and max(rel) <= max(TOL_RESIDENT_LOSS, DDP_BF16_FLOOR_FACTOR * bf16_floor))
+    if not ok:
+        raise AssertionError(f"two ranks on one card against one process: {result}")
+    return result
+
+
+def ddp_one_card(one_process: dict, counters, data, group) -> dict:
+    """12c: DDP with the synchronised BN over a 1-rank NCCL group against the unwrapped step."""
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.Mesh(0, 1, torch.device("cuda", 0), group)
+    ddp = _resident_chunks(mesh, counters, data, profile=True)
+    rels = [abs(a - b) / abs(b) for a, b in zip(ddp["losses"], one_process["losses"])]
+    rel = rels[0]
+    result = {"backend": "nccl", "world_size": 1, "ddp": ddp, "unwrapped": one_process,
+              "first_loss_rel_diff": rel, "loss_rel_diff": rels,
+              "step_ms_median_ddp_minus_unwrapped": ddp["step_ms_median"]
+              - one_process["step_ms_median"],
+              "busy_ms_ddp_minus_unwrapped": ddp["device_busy_ms_per_step"]
+              - one_process["device_busy_ms_per_step"]}
+    print("ddp_one_card " + json.dumps(result), flush=True)
+    if rel > TOL_DDP_LOSS_BF16:
+        raise AssertionError(f"DDP at world size 1 against the unwrapped step: {result}")
+    return result
+
+
+def two_cards(one_process: dict, bf16_floor: float = 0.0) -> dict:
+    """12d: the train CLI with --mesh-data 2 over NCCL, and 12b's chunk on two cards.
+
+    The chunk's losses are held as 12b's (``bf16_floor``: 12c's rounding floor).
+    """
+    n = torch.cuda.device_count()
+    if n < 2:
+        reason = (f"phase 12d not run: this machine has {n} CUDA card, and a data axis of 2 "
+                  "over NCCL needs two")
+        print(reason, flush=True)
+        return {"ran": False, "reason": reason}
+    ranks, out_dir, seconds = _run_ranks([torch.device("cuda", i) for i in range(2)], "nccl",
+                                         sgd=False)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="ddp-cli-")
+    cmd = [sys.executable, "-m", "unet_embroidery_seg_torch.train", "--data-path",
+           "synthetic:16", "--input-size", str(TRAIN_SIZE), "--batch-size", str(BATCH),
+           "--epochs", "1", "--max-train-batches", "4", "--max-val-batches", "1",
+           "--max-test-batches", "1", "--mesh-data", "2", "--no-export-vis",
+           "--ckpt-every", "0"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    # its own session: on a timeout the CLI and the ranks it started all go
+    proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, stderr = proc.communicate()
+    cli_s = time.perf_counter() - t0
+    runs = sorted(os.listdir(os.path.join(workdir, "run", "train"))) if proc.returncode == 0 \
+        else []
+    files = sorted(os.listdir(os.path.join(workdir, "run", "train", "exp"))) if runs else []
+    shutil.rmtree(workdir, ignore_errors=True)
+    result = {"ran": True, "cards": n, "backend": "nccl", "seconds": seconds,
+              "losses_two_cards": ranks[0]["chunk"]["losses"],
+              "losses_one_card": one_process["losses"],
+              "step_ms_median_per_rank": [r["chunk"]["step_ms_median"] for r in ranks],
+              "launches_per_rank": [r["chunk"]["launches"] for r in ranks],
+              "peak_mem_gb_per_rank": [r["chunk"]["peak_mem_gb"] for r in ranks],
+              "one_card_step_ms_median": one_process["step_ms_median"],
+              "cli": {"returncode": proc.returncode, "seconds": cli_s, "runs": runs,
+                      "files": files, "stderr_tail": stderr[-4000:]}}
+    print("ddp_two_cards " + json.dumps(result), flush=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["chunk"]["losses"],
+                                               one_process["losses"])]
+    if (proc.returncode != 0 or runs != ["exp"] or "summary.json" not in files
+            or rel[0] > TOL_RESIDENT_LOSS
+            or max(rel) > max(TOL_RESIDENT_LOSS, DDP_BF16_FLOOR_FACTOR * bf16_floor)):
+        raise AssertionError(f"two cards: {result}")
+    return result
+
+
+def data_parallel_phase(counters, data) -> dict:
+    """Phase 12: 12a and 12c on a 1-rank NCCL group, 12b's two ranks, 12d's two cards."""
+    import torch.distributed as dist
+
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="nccl-1-rank-")
+    mesh_lib.init_multihost(f"file://{os.path.join(store, 'store')}", 1, 0, backend="nccl")
+    try:
+        out = {"sync_batchnorm": sync_bn_check(dist.group.WORLD)}
+        one_process = _resident_chunks(None, counters, data, profile=True)
+        out["ddp_one_card"] = ddp_one_card(one_process, counters, data, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["two_ranks_one_card"] = two_ranks_one_card(
+        one_process, max(out["ddp_one_card"]["loss_rel_diff"]))
+    out["two_cards"] = two_cards(one_process, max(out["ddp_one_card"]["loss_rel_diff"]))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -1616,6 +2029,8 @@ def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the full report as JSON here")
+    parser.add_argument("--multi-card-only", action="store_true",
+                        help="build the kernels and run phase 12d (two cards) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1634,6 +2049,13 @@ def main(argv=None) -> int:
     _build.build(["upsample2x", "upsample2x_bwd", "conv3x3_same"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
+    if args.multi_card_only:
+        _, data = resident_split()
+        counters = [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad]
+        result = two_cards(_resident_chunks(None, counters, data))
+        print(json.dumps({"two_cards": result, "seconds": time.perf_counter() - t_start}))
+        print(card)
+        return 0 if result["ran"] else 1
 
     rows = check_sites(torch.Generator().manual_seed(0))
     update = weight_update_check(torch.Generator().manual_seed(2))
@@ -1702,6 +2124,10 @@ def main(argv=None) -> int:
     res["multitask"] = resident_multitask_path(train_counters, data)
     res["seconds"] = time.perf_counter() - t11
 
+    # Phase 12: data parallelism.
+    ddp = data_parallel_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu,
+                               conv3x3_dgrad], data)
+
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
@@ -1717,7 +2143,7 @@ def main(argv=None) -> int:
                        "family_sites": family_rows, "family_function_check": family_functions,
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
-                       "tasks": tasks, "resident": res,
+                       "tasks": tasks, "resident": res, "data_parallel": ddp,
                        "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

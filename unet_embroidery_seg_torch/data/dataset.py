@@ -111,6 +111,11 @@ class DataLoader:
     padded up to ``batch_size`` by *repeating* samples, with ``valid`` counts
     carried so losses/metrics can mask the padding — TPU programs want static
     shapes, so variable-size tail batches would force a recompile.
+
+    Under data parallelism (``world_size`` ranks) ``batch_size`` is the
+    global batch: every rank walks the same seeded order and decodes only
+    its contiguous ``rows`` of each padded global batch; ``n_valid`` stays
+    the global batch's count.
     """
 
     def __init__(
@@ -121,13 +126,19 @@ class DataLoader:
         seed: int = 11,
         prefetch: int = 2,
         pad_final_batch: bool = True,
+        rank: int = 0,
+        world_size: int = 1,
     ):
+        if batch_size % world_size:
+            raise ValueError(f"batch size {batch_size} must divide the data axis ({world_size})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
         self.pad_final_batch = pad_final_batch
+        b = batch_size // world_size
+        self.rows = slice(rank * b, (rank + 1) * b)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -148,7 +159,7 @@ class DataLoader:
                     if self.pad_final_batch and n_valid < self.batch_size:
                         reps = -(-self.batch_size // n_valid)
                         idxs = np.tile(idxs, reps)[: self.batch_size]
-                    items = [self.dataset.get(int(i), epoch) for i in idxs]
+                    items = [self.dataset.get(int(i), epoch) for i in idxs[self.rows]]
                     q.put((collate(items), n_valid))
                 q.put(None)
             except BaseException as e:  # surface worker errors to the consumer

@@ -17,6 +17,14 @@ chunk and the host can queue a whole chunk ahead of the card. The random
 draws of step ``it`` of ``epoch`` (augmentation, multitask's dropout) come
 from ``(seed, epoch, it)`` (``step_seeds``), so a resumed run draws what the
 uninterrupted one drew.
+
+Data parallelism (a ``Mesh`` of several ranks): every rank uploads the
+whole split, as JAX replicates it, and plans the same global batches; step
+``it`` draws the augmentation parameters of the whole global batch from its
+seed, then gathers and augments only this rank's rows with their slice of
+them, so the images do not depend on how the batch is split. Multitask's
+dropout draws from ``(dropout seed, rank)`` on each rank (``rank_seed``):
+no two ranks share a mask, and no split equals JAX's one global mask.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from unet_embroidery_seg_torch.ops import device_augment
+from unet_embroidery_seg_torch.parallel.mesh import Mesh
 
 
 @dataclass
@@ -116,6 +125,17 @@ def seed_default_generator(device: torch.device, seed: int) -> None:
         torch.default_generator.manual_seed(seed)
 
 
+def rank_seed(seed: int, mesh: Mesh | None) -> int:
+    """``seed`` for one process; else a seed of its own per rank, from ``(seed, rank)``."""
+    if mesh is None or mesh.world_size == 1:
+        return seed
+    return int(np.random.SeedSequence((seed, mesh.rank)).generate_state(1)[0])
+
+
+def _rows(mesh: Mesh | None, batch: int) -> slice:
+    return slice(None) if mesh is None else mesh.rows(batch)
+
+
 def gather_batch(data: ResidentData, idxs: torch.Tensor):
     """(images u8, masks u8, valid_wh, class labels or None) of the rows ``idxs``, on the card."""
     take = lambda t: t.index_select(0, idxs)  # noqa: E731
@@ -141,6 +161,7 @@ def make_train_chunk_fn(
     multitask: bool = False,
     augment: bool = True,
     seed: int = 11,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """Build ``chunk(data, idx (K, B), mask (K, B), epoch, its)``, tensors on the card.
 
@@ -148,7 +169,8 @@ def make_train_chunk_fn(
     ``step_seeds(seed, epoch, its[k])`` generator on the card (or, with
     ``augment`` off, only normalises them) and calls ``train_step``, after
     seeding the device's default generator (multitask's dropout) by the
-    same rule.
+    same rule. Under a ``mesh`` the plan is the global batch's: the step
+    takes this rank's rows of it and of the parameters drawn for all of it.
     Returns the per-step losses stacked, (K,), on the card; for multitask a
     tuple ((K,) total, (K,) seg, (K,) cls, (K,) n_correct).
     """
@@ -156,22 +178,24 @@ def make_train_chunk_fn(
 
     def chunk(data: ResidentData, idx: torch.Tensor, mask: torch.Tensor, epoch: int, its):
         outs = []
+        rows = _rows(mesh, idx.shape[1])
         for k, it in enumerate(its):
             dropout_seed, aug_seed = step_seeds(seed, epoch, it)
-            imgs, masks, wh, cls = gather_batch(data, idx[k])
+            imgs, masks, wh, cls = gather_batch(data, idx[k, rows])
             if augment:
                 gen = torch.Generator(device=imgs.device).manual_seed(aug_seed)
+                params = device_augment.sample_params(gen, idx.shape[1])
                 images, pngs = device_augment.augment_batch(
-                    imgs, masks, wh, gen, out_hw=tuple(input_shape), binary=binary,
-                    num_classes=nc)
+                    imgs, masks, wh, params=tuple(p[rows] for p in params),
+                    out_hw=tuple(input_shape), binary=binary, num_classes=nc)
             else:
                 images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc)
-            seed_default_generator(imgs.device, dropout_seed)
+            seed_default_generator(imgs.device, rank_seed(dropout_seed, mesh))
             if multitask:
-                losses, correct = train_step(images, pngs, cls, mask[k])
+                losses, correct = train_step(images, pngs, cls, mask[k, rows])
                 outs.append((*losses, correct.to(torch.float32)))
             else:
-                outs.append(train_step(images, pngs, mask[k]))
+                outs.append(train_step(images, pngs, mask[k, rows]))
         return _stack(outs)
 
     return chunk
@@ -182,25 +206,27 @@ def make_eval_chunk_fn(
     binary: bool,
     num_classes: int,
     multitask: bool = False,
+    mesh: Mesh | None = None,
 ) -> Callable:
     """``chunk(data, idx, mask)`` -> the eval step's outputs, stacked per step, on the card.
 
-    Each step gathers its rows, normalises them (the eval input is the
-    cached canvas itself) and calls ``eval_step`` (with the class labels for
-    multitask).
+    Each step gathers its rows (under a ``mesh``, this rank's rows of the
+    global batch), normalises them (the eval input is the cached canvas
+    itself) and calls ``eval_step`` (with the class labels for multitask).
     """
     nc = None if binary else num_classes
 
     def chunk(data: ResidentData, idx: torch.Tensor, mask: torch.Tensor):
         outs = []
+        rows = _rows(mesh, idx.shape[1])
         with torch.inference_mode():
             for k in range(idx.shape[0]):
-                imgs, masks, _, cls = gather_batch(data, idx[k])
+                imgs, masks, _, cls = gather_batch(data, idx[k, rows])
                 images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc)
                 if multitask:
-                    outs.append(eval_step(images, pngs, cls, mask[k]))
+                    outs.append(eval_step(images, pngs, cls, mask[k, rows]))
                 else:
-                    outs.append(eval_step(images, pngs, mask[k]))
+                    outs.append(eval_step(images, pngs, mask[k, rows]))
             return _stack(outs)
 
     return chunk

@@ -11,10 +11,20 @@ BN runs on the bf16 activations with float32 statistics. ``sample_mask``
 (N,) neutralises the padded samples of a tail batch in the loss and counts.
 A multitask model returns ``(seg, cls)``; its steps take the (N,) class
 labels too, and train mode keeps its dropout on.
+
+Data parallelism: each train and eval step takes an optional process
+``group``; None (one process) is the single-device step. With a group a
+train step runs the model through ``DistributedDataParallel`` (gradients
+averaged over the ranks) with its BatchNorms' statistics summed over the
+group, and the losses and counts are the global batch's (``ops/losses.py``,
+``ops/metrics.py``): every rank returns the same numbers. Build one train
+step per model, as DDP hooks the parameters. Eval steps run the model
+itself (running statistics, no wrapper) and return global counts.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import numpy as np
@@ -22,7 +32,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_embroidery_seg_torch.models.blocks import set_batchnorm_group
 from unet_embroidery_seg_torch.ops import losses, metrics
+from unet_embroidery_seg_torch.parallel.mesh import Group, global_count
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -46,6 +58,26 @@ def _nhwc(outputs):
     if isinstance(outputs, tuple):
         return tuple(_nhwc(o) for o in outputs)
     return outputs.permute(0, 2, 3, 1) if outputs.dim() == 4 else outputs
+
+
+def _replica(model: nn.Module, group: Group) -> nn.Module:
+    """What a train step calls: ``model``, or under a group DDP over it with synchronised BN.
+
+    No buffer sync at each forward (``broadcast_buffers=False``): the
+    single-device BN rebinds its running variance each train forward, which
+    DDP's buffer broadcast would not follow; the synchronised BN keeps the
+    ranks' statistics equal anyway.
+    """
+    if group is None:
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+
+    set_batchnorm_group(model, group)
+    # newer torch names the per-forward buffer sync ``forward_sync_buffers``
+    off = ("forward_sync_buffers" if "forward_sync_buffers"
+           in inspect.signature(DistributedDataParallel.__init__).parameters
+           else "broadcast_buffers")
+    return DistributedDataParallel(model, process_group=group, **{off: False})
 
 
 def _backward_and_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
@@ -79,6 +111,7 @@ def make_binary_train_step(
     pos_weight: float | None = None,
     ignore_index: int | None = None,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """train_step(images, pngs, sample_mask) -> loss (0-d float32 tensor on the device).
 
@@ -86,15 +119,16 @@ def make_binary_train_step(
     the binary loss, backward, and one optimizer step.
     """
     device = _device(model)
+    net = _replica(model, group)
 
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
         model.train()
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            outputs = model(x)
+            outputs = net(x)
         loss = losses.binary_segmentation_loss(
             _nhwc(outputs), t, loss_name=loss_name, pos_weight=pos_weight,
-            ignore_index=ignore_index, sample_mask=sm,
+            ignore_index=ignore_index, sample_mask=sm, group=group,
         )
         _backward_and_step(optimizer, loss)
         return loss.detach()
@@ -108,6 +142,7 @@ def make_binary_eval_step(
     pos_weight: float | None = None,
     ignore_index: int | None = None,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss, counts[4]) on the device.
 
@@ -124,11 +159,11 @@ def make_binary_eval_step(
                 outputs = _nhwc(model(x))
             loss = losses.binary_segmentation_loss(
                 outputs, t, loss_name=loss_name, pos_weight=pos_weight,
-                ignore_index=ignore_index, sample_mask=sm,
+                ignore_index=ignore_index, sample_mask=sm, group=group,
             )
             pred = (outputs > 0).long() if outputs.dim() == 3 else outputs.argmax(-1)
             counts = metrics.binary_confusion_counts(pred, t, ignore_index=ignore_index,
-                                                     sample_mask=sm)
+                                                     sample_mask=sm, group=group)
         return loss, counts
 
     return eval_step
@@ -141,16 +176,19 @@ def make_multiclass_train_step(
     focal: bool = False,
     use_dice: bool = True,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """train_step(images, pngs, sample_mask) -> loss: CE or focal (+ Dice) on K-class logits."""
     device = _device(model)
+    net = _replica(model, group)
 
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
         model.train()
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            outputs = model(x)
-        loss = losses.multiclass_loss(_nhwc(outputs), t, num_classes, focal, use_dice, sm)
+            outputs = net(x)
+        loss = losses.multiclass_loss(_nhwc(outputs), t, num_classes, focal, use_dice, sm,
+                                      group=group)
         _backward_and_step(optimizer, loss)
         return loss.detach()
 
@@ -163,6 +201,7 @@ def make_multiclass_eval_step(
     focal: bool = False,
     use_dice: bool = True,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss, {Pixel Accuracy, Mean Accuracy, Mean IoU,
     Frequency Weighted IoU}): the per-batch values the train CLI averages over batches."""
@@ -174,8 +213,10 @@ def make_multiclass_eval_step(
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
                 outputs = _nhwc(model(x))
-            loss = losses.multiclass_loss(outputs, t, num_classes, focal, use_dice, sm)
-            return loss, metrics.multiclass_batch_metrics(outputs, t, num_classes, sm)
+            loss = losses.multiclass_loss(outputs, t, num_classes, focal, use_dice, sm,
+                                          group=group)
+            return loss, metrics.multiclass_batch_metrics(outputs, t, num_classes, sm,
+                                                          group=group)
 
     return eval_step
 
@@ -186,6 +227,7 @@ def make_multiclass_persample_eval_step(
     focal: bool = False,
     use_dice: bool = True,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss_sum, metric_sums, n_valid), per SAMPLE.
 
@@ -203,8 +245,9 @@ def make_multiclass_persample_eval_step(
             per_sample = torch.stack([
                 losses.multiclass_loss(lg[None], tg[None], num_classes, focal, use_dice)
                 for lg, tg in zip(outputs, t)])
-            sums, n_valid = metrics.multiclass_per_sample_sums(outputs, t, num_classes, sm)
-            return (per_sample * sm).sum(), sums, n_valid
+            sums, n_valid = metrics.multiclass_per_sample_sums(outputs, t, num_classes, sm,
+                                                               group=group)
+            return global_count((per_sample * sm).sum(), group), sums, n_valid
 
     return eval_step
 
@@ -216,6 +259,7 @@ def make_multitask_train_step(
     cls_loss_weight: float = 1.0,
     pos_weight: float | None = None,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """train_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), n_cls_correct).
 
@@ -224,17 +268,18 @@ def make_multitask_train_step(
     reference's unweighted loss.
     """
     device = _device(model)
+    net = _replica(model, group)
 
     def train_step(images, pngs, cls_targets, sample_mask):
         model.train()
         x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            seg, logits = _nhwc(model(x))
+            seg, logits = _nhwc(net(x))
         total, seg_l, cls_l = losses.multitask_loss(
             seg, logits, t, cls, seg_loss_name=seg_loss_name, cls_loss_weight=cls_loss_weight,
-            sample_mask=sm, pos_weight=pos_weight)
+            sample_mask=sm, pos_weight=pos_weight, group=group)
         _backward_and_step(optimizer, total)
-        correct = ((logits.detach().argmax(-1) == cls) & sm.bool()).sum()
+        correct = global_count(((logits.detach().argmax(-1) == cls) & sm.bool()).sum(), group)
         return (total.detach(), seg_l.detach(), cls_l.detach()), correct
 
     return train_step
@@ -246,6 +291,7 @@ def make_multitask_eval_step(
     cls_loss_weight: float = 1.0,
     pos_weight: float | None = None,
     amp: bool = True,
+    group: Group = None,
 ) -> Callable:
     """eval_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), seg_counts[4],
     confusion[K, K]) for K classes: the confusion (rows: target, columns: prediction) counts
@@ -260,13 +306,14 @@ def make_multitask_eval_step(
                 seg, logits = _nhwc(model(x))
             loss_triple = losses.multitask_loss(
                 seg, logits, t, cls, seg_loss_name=seg_loss_name,
-                cls_loss_weight=cls_loss_weight, sample_mask=sm, pos_weight=pos_weight)
-            seg_counts = metrics.multitask_seg_counts(seg, t, sample_mask=sm)
+                cls_loss_weight=cls_loss_weight, sample_mask=sm, pos_weight=pos_weight,
+                group=group)
+            seg_counts = metrics.multitask_seg_counts(seg, t, sample_mask=sm, group=group)
             # one-hot products in f32 (exact for counts below 2^24), as JAX's einsum
             k = logits.shape[-1]
             onehot_tgt = F.one_hot(cls, k).float() * sm[:, None]
             onehot_pred = F.one_hot(logits.argmax(-1), k).float()
-            confusion = (onehot_tgt.T @ onehot_pred).round().long()
+            confusion = global_count((onehot_tgt.T @ onehot_pred).round().long(), group)
             return loss_triple, seg_counts, confusion
 
     return eval_step

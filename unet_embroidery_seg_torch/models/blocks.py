@@ -24,8 +24,10 @@ the port's copy).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_same
 from unet_embroidery_seg_torch.ops.resize import (
@@ -34,6 +36,7 @@ from unet_embroidery_seg_torch.ops.resize import (
     resize_bilinear,
 )
 from unet_embroidery_seg_torch.ops.upsample import upsample2x
+from unet_embroidery_seg_torch.parallel.mesh import Group
 
 
 def conv3x3(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -60,25 +63,52 @@ class BatchNorm(nn.BatchNorm2d):
     (JAX's bf16 parameter copies), in f32 as the normalisation computes; the
     statistics stay f32, and the gradient reaches the f32 parameters through
     the rounding, as JAX's reaches its masters through the cast.
+
+    With a ``process_group`` (``set_batchnorm_group``; data parallelism),
+    train mode computes the statistics of the group's global batch as flax
+    does (``linen/normalization.py:_compute_stats``, ``use_fast_variance``):
+    per-channel sums of x and x^2 in f32, one all-reduce per layer, mean =
+    sum / n, var = max(0, sum(x^2) / n - mean^2); normalises in f32 with
+    flax's affine (``_normalize``) and its gradient over the whole group
+    (``_SyncBatchNorm``), and updates the running statistics in place with
+    the biased variance. Eval mode, and no group, stay as above (cuDNN's
+    BN, no collective).
     """
+
+    process_group = None
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
-    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _affine(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         weight, bias = self.weight, self.bias
         if (torch.is_autocast_enabled(x.device.type)
                 and torch.get_autocast_dtype(x.device.type) == torch.bfloat16):
             weight = weight.to(torch.bfloat16).float()
             bias = bias.to(torch.bfloat16).float()
+        return weight, bias
+
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self._affine(x)
         if self.training:
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, self.running_mean, self.running_var, weight, bias,
                             self.training, self.momentum, self.eps)
 
+    def _sync_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self._affine(x)
+        y, mean, var = _SyncBatchNorm.apply(x, weight, bias, self.process_group, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        return y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return self._batch_norm(x)
+        if self.process_group is not None:
+            return self._sync_batch_norm(x)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             before = self.running_var.clone()
@@ -88,6 +118,82 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var = torch.add(self.running_var * ((n - 1) / n), before,
                                          alpha=(1.0 - self.momentum) / n)
         return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN of NCHW ``x`` over a process group: (y, mean, var); f32 maths.
+
+    Forward: each rank's per-channel sums of x and of x^2 in f32 (f32 x:
+    from its Welford mean and variance, one pass, as accurate as the
+    single-device BN's statistics; bf16 x: reductions that read it in place
+    and accumulate in f32, the second a 2-norm, squared), one all-reduce,
+    then flax's mean and fast variance and ``y = x * a + (bias - mean * a)``
+    with ``a = weight * rsqrt(var + eps)``, computed in f32 and stored in
+    x's dtype and layout in one pass. The per-channel arithmetic is kept to
+    few ops: the step is host-bound, and each op is a launch.
+    Backward: the gradient of that function over the group's global batch,
+    as ``nn.SyncBatchNorm`` computes it: the local sums of dy and of
+    dy * (x - mean), one all-reduce, then dx in two passes; the weight's
+    and bias's gradients are this rank's share. No pass mixes memory
+    layouts (the model runs ``channels_last``).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps: float):
+        c, dims = x.shape[1], (0, 2, 3)
+        m = x.numel() // c
+        if x.dtype == torch.float32:
+            var, mean = torch.var_mean(x, dims, correction=0)
+            sums = torch.cat([mean, torch.addcmul(var, mean, mean)]).mul_(m)
+        else:
+            sums = torch.cat([x.sum(dims, dtype=torch.float32), torch.linalg.vector_norm(
+                x, 2, dims, dtype=torch.float32).square_()])
+        dist.all_reduce(sums, group=group)
+        n = m * dist.get_world_size(group)
+        mean, mean_sq = sums.div_(n).view(2, c).unbind()  # E[x], E[x^2]
+        var = torch.addcmul(mean_sq, mean, mean, value=-1.0).clamp_min_(0.0)
+        invstd = torch.rsqrt(var + eps)
+        a = invstd * weight
+        y = torch.empty_like(x)
+        torch.addcmul(torch.addcmul(bias, mean, a, value=-1.0)[:, None, None], x,
+                      a[:, None, None], out=y)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, _mean_grad, _var_grad):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c, dims, n = x.shape[1], (0, 2, 3), ctx.n
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        dy = dy.contiguous(memory_format=fmt)
+        sum_dy = dy.sum(dims, dtype=torch.float32)
+        zero = mean.new_zeros(c, 1, 1)  # an f32 operand: the products are taken in f32
+        sum_dy_x = torch.addcmul(zero, dy, x).sum(dims)
+        # the sums of dy and of dy * (x - mean)
+        local = torch.cat([sum_dy, torch.addcmul(sum_dy_x, mean, sum_dy, value=-1.0)])
+        grad_bias, grad_weight = local[:c].clone(), local[c:] * invstd
+        dist.all_reduce(local, group=ctx.group)
+        mean_dy, mean_dy_xmu = local.div_(n).view(2, c).unbind()
+        k1 = invstd * weight
+        k2 = (k1 * invstd).mul_(invstd).mul_(mean_dy_xmu).neg_()
+        k3 = torch.addcmul(k1 * mean_dy, mean, k2).neg_()
+        t = torch.empty_like(x, dtype=torch.float32)
+        torch.addcmul(k3[:, None, None], x, k2[:, None, None], out=t)
+        dx = torch.empty_like(x)
+        torch.addcmul(t, dy, k1[:, None, None], out=dx)
+        return dx, grad_weight, grad_bias, None, None
+
+
+def set_batchnorm_group(model: nn.Module, group: Group) -> nn.Module:
+    """Set the ``process_group`` that every ``BatchNorm``'s train-mode statistics span."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
+    return model
 
 
 class Upsample2x(nn.Module):

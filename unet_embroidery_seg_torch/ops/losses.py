@@ -14,6 +14,15 @@ scattered back through the forward's permutation. The loss value does not
 depend on how ties are ordered; the gradient per pixel can (the JAX
 package's ``lax.sort`` makes no promise about ties), so the tests compare
 the two on inputs without ties.
+
+Data parallelism: each loss takes an optional process ``group``, and None
+keeps the single-device code. With a group, each normaliser is the global
+batch's, as the JAX losses take theirs on the sharded global arrays: the
+local numerator and denominator (Dice: tp, the probabilities' and the
+targets' sums) go through one autograd-aware all-reduce
+(``parallel/mesh.global_sum``) before the division, so every rank gets
+the global loss, and its backward carries the gradient scale DDP's
+averaging expects (nothing is multiplied by the world size).
 """
 
 from __future__ import annotations
@@ -21,6 +30,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from unet_embroidery_seg_torch.parallel.mesh import Group, global_sum
+
+
+def _global_ratio(num: torch.Tensor, den: torch.Tensor | int, group: Group,
+                  floor: float) -> torch.Tensor:
+    """sum(num) / max(sum(den), floor), each summed over ``group``'s ranks.
+
+    An integer ``den`` (an element count) is filled on ``num``'s device: a
+    tensor made from a host value would be a copy that waits for the card.
+    """
+    den = num.new_full((), den) if isinstance(den, int) else den.to(num.dtype)
+    num, den = global_sum(torch.stack([num, den]), group).unbind()
+    return num / den.clamp_min(floor)
 
 
 def binary_logits_from_two_class(outputs: torch.Tensor) -> torch.Tensor:
@@ -42,6 +65,7 @@ def bce_with_logits(
     targets: torch.Tensor,
     pos_weight: float | torch.Tensor | None = None,
     mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Stable BCE with logits, mean over all (or, with ``mask``, over valid) elements.
 
@@ -57,7 +81,11 @@ def bce_with_logits(
     per_elem = -(pos + (1.0 - z) * log_not_p)
     if mask is not None:
         m = mask.float().expand_as(per_elem)
+        if group is not None:
+            return _global_ratio((per_elem * m).sum(), m.sum(), group, 1.0)
         return (per_elem * m).sum() / m.sum().clamp_min(1.0)
+    if group is not None:
+        return _global_ratio(per_elem.sum(), per_elem.numel(), group, 1.0)
     return per_elem.mean()
 
 
@@ -96,7 +124,8 @@ def lovasz_hinge_per_image(logits: torch.Tensor, labels: torch.Tensor) -> torch.
 
 
 def lovasz_hinge(
-    logits: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor | None = None
+    logits: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Lovasz-hinge loss: the mean of the per-image losses (over valid images with ``sample_mask``)."""
     if logits.dim() == 2:
@@ -104,7 +133,11 @@ def lovasz_hinge(
     per_image = lovasz_hinge_per_image(logits, labels)
     if sample_mask is not None:
         m = sample_mask.float()
+        if group is not None:
+            return _global_ratio((per_image * m).sum(), m.sum(), group, 1.0)
         return (per_image * m).sum() / m.sum().clamp_min(1.0)
+    if group is not None:
+        return _global_ratio(per_image.sum(), per_image.numel(), group, 1.0)
     return per_image.mean()
 
 
@@ -115,6 +148,7 @@ def binary_segmentation_loss(
     pos_weight: float | torch.Tensor | None = None,
     ignore_index: int | None = None,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """BCE or Lovasz hinge on 2-class logits (N, H, W, 2) or a logit difference (N, H, W).
 
@@ -132,14 +166,14 @@ def binary_segmentation_loss(
         if sample_mask is not None:
             sm = sample_mask.float()[:, None, None]
             mask = sm if mask is None else mask * sm
-        return bce_with_logits(logits, labels, pos_weight=pos_weight, mask=mask)
+        return bce_with_logits(logits, labels, pos_weight=pos_weight, mask=mask, group=group)
     if loss_name == "lovasz_hinge":
         if ignore_index is not None:
             valid = targets != ignore_index
             pos = logits >= 0
             labels = torch.where(valid, labels, pos.float())
             logits = torch.where(valid, logits, torch.where(pos, 1e3, -1e3))
-        return lovasz_hinge(logits, labels, sample_mask=sample_mask)
+        return lovasz_hinge(logits, labels, sample_mask=sample_mask, group=group)
     raise ValueError(f"Unsupported loss_name: {loss_name}")
 
 
@@ -163,6 +197,7 @@ def ce_loss(
     target: torch.Tensor,
     num_classes: int = 21,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Pixel cross-entropy with ``ignore_index == num_classes`` (JAX ``ce_loss``, unweighted).
 
@@ -170,6 +205,8 @@ def ce_loss(
     samples' pixels.
     """
     nll, valid = _pixel_nll(logits, target, num_classes, sample_mask)
+    if group is not None:
+        return _global_ratio(nll.sum(), valid.float().sum(), group, 1e-12)
     return nll.sum() / valid.float().sum().clamp_min(1e-12)
 
 
@@ -183,6 +220,7 @@ def focal_loss(
     target: torch.Tensor,
     num_classes: int = 21,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Focal loss on per-pixel CE (JAX ``focal_loss``, unweighted, alpha 0.5, gamma 2).
 
@@ -196,7 +234,11 @@ def focal_loss(
     loss = ((1.0 - pt) ** FOCAL_GAMMA) * (nll * FOCAL_ALPHA)
     if sample_mask is not None:
         per_pix = target[0].numel()
+        if group is not None:
+            return _global_ratio(loss.sum(), sample_mask.float().sum() * per_pix, group, 1.0)
         return loss.sum() / (sample_mask.float().sum() * per_pix).clamp_min(1.0)
+    if group is not None:
+        return _global_ratio(loss.sum(), loss.numel(), group, 1.0)
     return loss.mean()
 
 
@@ -204,6 +246,7 @@ def dice_loss(
     logits: torch.Tensor,
     target_onehot: torch.Tensor,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Soft Dice loss over softmax probabilities (JAX ``dice_loss`` at its beta 1, smooth 1e-5).
 
@@ -218,8 +261,11 @@ def dice_loss(
         probs, tgt = probs * sm, tgt * sm
     tgt_fg = tgt[..., :-1]
     tp = (tgt_fg * probs).sum(dim=(0, 1))
-    fp = probs.sum(dim=(0, 1)) - tp
-    fn = tgt_fg.sum(dim=(0, 1)) - tp
+    p_sum, t_sum = probs.sum(dim=(0, 1)), tgt_fg.sum(dim=(0, 1))
+    if group is not None:  # Dice is not linear in the sums: the global ones first
+        tp, p_sum, t_sum = global_sum(torch.stack([tp, p_sum, t_sum]), group).unbind()
+    fp = p_sum - tp
+    fn = t_sum - tp
     score = (2.0 * tp + DICE_SMOOTH) / (2.0 * tp + fn + fp + DICE_SMOOTH)
     return 1.0 - score.mean()
 
@@ -231,13 +277,14 @@ def multiclass_loss(
     focal: bool = False,
     use_dice: bool = True,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """CE or focal, plus Dice against the (K + 1)-channel one-hot (the multiclass steps' loss)."""
     fn = focal_loss if focal else ce_loss
-    loss = fn(logits, target, num_classes=num_classes, sample_mask=sample_mask)
+    loss = fn(logits, target, num_classes=num_classes, sample_mask=sample_mask, group=group)
     if use_dice:
         onehot = F.one_hot(target.long(), num_classes + 1).float()
-        loss = loss + dice_loss(logits, onehot, sample_mask=sample_mask)
+        loss = loss + dice_loss(logits, onehot, sample_mask=sample_mask, group=group)
     return loss
 
 
@@ -250,6 +297,7 @@ def multitask_loss(
     cls_loss_weight: float = 1.0,
     sample_mask: torch.Tensor | None = None,
     pos_weight: float | torch.Tensor | None = None,
+    group: Group = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, seg, cls) multitask loss (JAX ``multitask_loss``).
 
@@ -262,18 +310,23 @@ def multitask_loss(
     """
     seg_flat = seg_logits[..., 0]
     if seg_loss_name == "lovasz_hinge":
-        seg_l = lovasz_hinge(seg_flat, seg_targets.float(), sample_mask=sample_mask)
+        seg_l = lovasz_hinge(seg_flat, seg_targets.float(), sample_mask=sample_mask, group=group)
     else:
         pix_mask = None
         if sample_mask is not None:
             pix_mask = sample_mask.float()[:, None, None].expand_as(seg_flat)
         seg_l = bce_with_logits(seg_flat, seg_targets.float(), pos_weight=pos_weight,
-                                mask=pix_mask)
+                                mask=pix_mask, group=group)
     log_probs = torch.log_softmax(cls_logits.float(), dim=-1)
     per_sample_nll = -log_probs.gather(1, cls_targets.long()[:, None])[:, 0]
     if sample_mask is not None:
         m = sample_mask.float()
-        cls_l = (per_sample_nll * m).sum() / m.sum().clamp_min(1.0)
+        if group is not None:
+            cls_l = _global_ratio((per_sample_nll * m).sum(), m.sum(), group, 1.0)
+        else:
+            cls_l = (per_sample_nll * m).sum() / m.sum().clamp_min(1.0)
+    elif group is not None:
+        cls_l = _global_ratio(per_sample_nll.sum(), per_sample_nll.numel(), group, 1.0)
     else:
         cls_l = per_sample_nll.mean()
     return seg_l + cls_loss_weight * cls_l, seg_l, cls_l

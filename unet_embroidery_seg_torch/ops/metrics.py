@@ -4,11 +4,19 @@ Counts stay on the device (int64 tensors per batch); the epoch loop sums
 them and finalises on the host, as the JAX package does. The multiclass
 metrics follow the reference's per-batch statistic (classes present in the
 batch), and ``multiclass_per_sample_sums`` the val CLI's per-sample one.
+
+Data parallelism: each counting function takes an optional process
+``group`` (None: the single-device code) and sums its counts, tables and
+sums over the group before any finalisation, so every rank returns the
+global batch's numbers (``multiclass_batch_metrics`` is a per-global-batch
+metric, as in JAX).
 """
 
 from __future__ import annotations
 
 import torch
+
+from unet_embroidery_seg_torch.parallel.mesh import Group, global_count
 
 
 def binary_confusion_counts(
@@ -16,6 +24,7 @@ def binary_confusion_counts(
     target: torch.Tensor,
     ignore_index: int | None = None,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """Pixel-summed [tp, fp, fn, tn] (int64) of {0, 1} predictions against targets.
 
@@ -26,12 +35,12 @@ def binary_confusion_counts(
     valid = target != ignore_index if ignore_index is not None else torch.ones_like(target_fg)
     if sample_mask is not None:
         valid = valid & sample_mask.bool().reshape((-1,) + (1,) * (target.dim() - 1))
-    return torch.stack([
+    return global_count(torch.stack([
         (pred_fg & target_fg & valid).sum(),
         (pred_fg & ~target_fg & valid).sum(),
         (~pred_fg & target_fg & valid).sum(),
         (~pred_fg & ~target_fg & valid).sum(),
-    ]).to(torch.int64)
+    ]).to(torch.int64), group)
 
 
 def binary_metrics_from_counts(
@@ -61,6 +70,7 @@ def multiclass_batch_metrics(
     target: torch.Tensor,
     num_classes: int,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> dict[str, torch.Tensor]:
     """One batch's Pixel / Mean Accuracy, Mean IoU and FW IoU (float32 scalars), JAX's semantics.
 
@@ -74,13 +84,21 @@ def multiclass_batch_metrics(
         sm = sample_mask.bool().reshape((-1,) + (1,) * (target.dim() - 1))
         pred = torch.where(sm, pred, -1)
         target = torch.where(sm, target, -2)
-    inter, union, t_cnt, _ = (v.float() for v in _per_class_tables(pred, target, num_classes))
-    correct = (pred == target).float()
-    if sample_mask is not None:
+    inter, union, t_cnt, _ = _per_class_tables(pred, target, num_classes)
+    correct = pred == target
+    if group is not None:  # the integer tables and pixel counts summed over the ranks
+        n_pix = (sample_mask.bool().sum() * target[0].numel() if sample_mask is not None
+                 else torch.full_like(inter[0], target.numel()))
+        tables = global_count(torch.cat([inter, union, t_cnt, correct.sum()[None], n_pix[None]]),
+                              group)
+        inter, union, t_cnt = tables[:-2].reshape(3, -1).unbind()
+        pixel_acc = tables[-2].float() / tables[-1].float().clamp_min(1.0)
+    elif sample_mask is not None:
         n_valid_pix = (sample_mask.float().sum() * float(target[0].numel())).clamp_min(1.0)
-        pixel_acc = correct.sum() / n_valid_pix
+        pixel_acc = correct.float().sum() / n_valid_pix
     else:
-        pixel_acc = correct.mean()
+        pixel_acc = correct.float().mean()
+    inter, union, t_cnt = inter.float(), union.float(), t_cnt.float()
     present = t_cnt > 0
     n_present = present.float().sum().clamp_min(1.0)
     acc_per_class = torch.where(present, inter / t_cnt.clamp_min(1.0), 0.0)
@@ -98,6 +116,7 @@ def multiclass_per_sample_sums(
     target: torch.Tensor,
     num_classes: int,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """Per-SAMPLE multiclass metrics summed over the valid samples, and their count.
 
@@ -110,13 +129,17 @@ def multiclass_per_sample_sums(
     sm = (torch.ones(target.shape[0], device=target.device) if sample_mask is None
           else sample_mask.float())
     sums = {k: (torch.stack([m[k] for m in per_sample]) * sm).sum() for k in per_sample[0]}
-    return sums, sm.sum()
+    if group is None:
+        return sums, sm.sum()
+    total = global_count(torch.stack([*sums.values(), sm.sum()]), group)
+    return dict(zip(sums, total[:-1].unbind())), total[-1]
 
 
 def multitask_seg_counts(
     seg_logits: torch.Tensor,
     seg_targets: torch.Tensor,
     sample_mask: torch.Tensor | None = None,
+    group: Group = None,
 ) -> torch.Tensor:
     """[intersection, union, pred sum, target sum] (int64) of ``sigmoid(seg) > 0.5`` against the masks.
 
@@ -128,8 +151,8 @@ def multitask_seg_counts(
     if sample_mask is not None:
         sm = sample_mask.bool().reshape((-1,) + (1,) * (tgt.dim() - 1))
         pred, tgt = pred & sm, tgt & sm
-    return torch.stack([(pred & tgt).sum(), (pred | tgt).sum(), pred.sum(), tgt.sum()]).to(
-        torch.int64)
+    return global_count(torch.stack([(pred & tgt).sum(), (pred | tgt).sum(), pred.sum(),
+                                     tgt.sum()]).to(torch.int64), group)
 
 
 def multitask_seg_metrics_from_counts(

@@ -41,13 +41,27 @@ state, every ``--ckpt-every`` epochs, for ``--resume``) and the
 ``loss_curve.png`` / ``metrics_curve.png`` curves, and with
 ``--export-vis`` (the default) ``vis/`` grids of the test split.
 
+Data parallelism (the JAX mesh's ``data`` axis, ``parallel/mesh.py``):
+``--mesh-data N`` trains on N ranks, each on its own card (NCCL) or, with
+``--device cpu``, its own process (gloo). The plain command starts N local
+worker processes; under ``torchrun --nproc-per-node N -m
+unet_embroidery_seg_torch.train ...`` each process joins the job. The
+default follows the JAX CLI: every visible card on ``cuda`` (one process
+per card), one process on the CPU. ``--batch-size`` is the global batch and
+must divide the data axis; each rank takes its rows of every global batch,
+and the losses, metrics and BatchNorm statistics are the global batch's.
+Rank 0 makes ``expN`` and writes every file and print; the checkpoints
+hold the model's own keys (no DDP ``module.`` prefix).
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--mesh-data`` / ``--mesh-space`` above 1 (multi-GPU) and
-``--profile`` (tooling).
+item: ``--mesh-space`` above 1 (the spatial axis) and ``--profile``
+(tooling).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import csv
 import datetime
 import json
@@ -66,6 +80,7 @@ from unet_embroidery_seg_torch.engine import checkpoint, resident, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.ops import schedules
+from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
 from unet_embroidery_seg_torch.predict import resolve_amp_default
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_exp_folder
@@ -74,7 +89,7 @@ from unet_embroidery_seg_torch.utils.seeding import seed_everything
 from unet_embroidery_seg_torch.utils.vis_export import export_binary_visuals
 
 NOT_PORTED = {
-    "mesh": "ROADMAP.md Queue 1 item 10 (multi-GPU)",
+    "mesh_space": mesh_lib.SPACE_NOT_PORTED,
     "profile": "ROADMAP.md Queue 1 item 11 (tooling)",
 }
 
@@ -97,10 +112,33 @@ def check_supported(args) -> None:
             "multitask training requires the two-headed multitask_unet "
             "(and multitask_unet only trains under --task multitask)"
         )
-    if (args.mesh_data or 1) != 1 or args.mesh_space != 1:
-        raise NotImplementedError(f"--mesh-data/--mesh-space > 1: {NOT_PORTED['mesh']}")
+    if args.mesh_space != 1:
+        raise NotImplementedError(f"--mesh-space > 1: {NOT_PORTED['mesh_space']}")
     if args.profile:
         raise NotImplementedError(f"--profile is not ported yet: {NOT_PORTED['profile']}")
+
+
+def resolve_mesh_data(args, device: torch.device) -> int:
+    """The data axis's size: ``--mesh-data``, else as the JAX CLI (all devices).
+
+    Under ``torchrun``, the job's processes; on ``cuda`` (no card index
+    given), every visible card; on the CPU, 1. Raises, as the JAX CLI, for
+    more cards than there are and for a batch that does not divide the axis.
+    """
+    if args.mesh_data is not None:
+        n = args.mesh_data
+    elif mesh_lib.in_job():
+        n = int(os.environ.get("WORLD_SIZE", "1"))
+    elif device.type == "cuda" and device.index is None:
+        n = torch.cuda.device_count()
+    else:
+        n = 1
+    if device.type == "cuda" and not mesh_lib.in_job():
+        mesh_lib.check_mesh_size(n, args.mesh_space, torch.cuda.device_count())
+    if args.batch_size % n:
+        raise ValueError(f"batch size {args.batch_size} must divide the data axis ({n}); "
+                         "adjust --batch-size or --mesh-data")
+    return n
 
 
 def estimate_pos_weight(train_dataset, n_samples: int) -> float | None:
@@ -145,9 +183,12 @@ def resolve_pos_weight(args, train_dataset) -> float | None:
 
 
 def host_batches(loader: DataLoader, epoch: int):
-    """(images, pngs, cls_labels or None, sample_mask, n_valid) per batch of one epoch."""
+    """(images, pngs, cls_labels or None, sample_mask, n_valid) per batch of one epoch.
+
+    This rank's rows and their sample mask; ``n_valid`` is the global batch's.
+    """
     for batch, n_valid in loader.epoch(epoch):
-        sm = (np.arange(loader.batch_size) < n_valid).astype(np.float32)
+        sm = (np.arange(loader.batch_size) < n_valid).astype(np.float32)[loader.rows]
         yield batch.images, batch.pngs, batch.cls_labels, sm, n_valid
 
 
@@ -271,14 +312,17 @@ def run_eval_resident(eval_chunk, data: resident.ResidentData, batch_size: int, 
     return split_metrics(task, total_loss, len(idx), counts, confusion, mc_sums)
 
 
-def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | None):
+def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | None,
+               group: mesh_lib.Group = None):
     """(train_step, eval_step) for ``args.task``, as the JAX CLI picks them."""
     if args.task == "binary":
-        return (steps.make_binary_train_step(model, optimizer, args.loss, pos_weight, amp=args.amp),
-                steps.make_binary_eval_step(model, args.loss, pos_weight, amp=args.amp))
+        return (steps.make_binary_train_step(model, optimizer, args.loss, pos_weight,
+                                             amp=args.amp, group=group),
+                steps.make_binary_eval_step(model, args.loss, pos_weight, amp=args.amp,
+                                            group=group))
     if args.task == "multitask":
         kw = {"seg_loss_name": args.loss, "cls_loss_weight": args.cls_loss_weight,
-              "pos_weight": pos_weight, "amp": args.amp}
+              "pos_weight": pos_weight, "amp": args.amp, "group": group}
         return (steps.make_multitask_train_step(model, optimizer, **kw),
                 steps.make_multitask_eval_step(model, **kw))
     if args.loss in ("bce", "lovasz_hinge"):
@@ -286,7 +330,8 @@ def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | Non
         # 'focal'); say so, so that loss tables cannot mislabel two CE runs.
         print(f"[WARN] --loss {args.loss} is binary-only; multiclass training "
               f"uses ce (+dice) instead")
-    kw = {"focal": args.loss == "focal", "use_dice": args.use_dice, "amp": args.amp}
+    kw = {"focal": args.loss == "focal", "use_dice": args.use_dice, "amp": args.amp,
+          "group": group}
     return (steps.make_multiclass_train_step(model, optimizer, num_classes, **kw),
             steps.make_multiclass_eval_step(model, num_classes, **kw))
 
@@ -306,9 +351,56 @@ def write_history(exp_folder: str, val_metrics_history: list[dict]) -> None:
 
 
 def train(args) -> str:
+    """Train as ``args`` say; returns the ``expN`` folder.
+
+    A data axis above 1 outside a job starts its ranks here, one worker
+    process each, and returns once they end.
+    """
     check_supported(args)
     device = resolve_device(args.device)
     set_float32_precision()
+    n_data = resolve_mesh_data(args, device)
+    if n_data > 1 and not mesh_lib.in_job():
+        return train_local_ranks(args, n_data, device)
+    return train_rank(args, device, n_data)
+
+
+def _rank_main(rank: int, args, results) -> None:
+    set_float32_precision()  # a new process: the flags are its own
+    exp_folder = train_rank(args, resolve_device(args.device), args.mesh_data)
+    if rank == 0:
+        results.put(exp_folder)
+
+
+def train_local_ranks(args, n_data: int, device: torch.device) -> str:
+    """``train`` on ``n_data`` local worker processes, one per rank; returns rank 0's ``expN``."""
+    import torch.multiprocessing as mp
+
+    args = copy.copy(args)
+    args.mesh_data = n_data
+    results = mp.get_context("spawn").SimpleQueue()
+    mesh_lib.launch_local(_rank_main, n_data, (args, results),
+                          backend=mesh_lib.backend_for(device))
+    return results.get()
+
+
+def train_rank(args, device: torch.device, n_data: int) -> str:
+    """This process's rank of the run (the whole run for one process); returns ``expN``.
+
+    Joins ``torchrun``'s job if there is one. Ranks other than 0 print nothing.
+    """
+    mesh_lib.init_multihost(backend=mesh_lib.backend_for(device))
+    devices = None if device.type == "cuda" and device.index is None else [device] * n_data
+    mesh = mesh_lib.make_mesh(n_data, args.mesh_space, devices)
+    with contextlib.ExitStack() as stack:
+        if not mesh.is_main:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        return _train(args, mesh.device if mesh.group is not None else device, mesh)
+
+
+def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
+    main = mesh.is_main
     if args.amp is None:
         args.amp = resolve_amp_default(args.model, args.loss, args.task)
     generator = seed_everything(args.seed)
@@ -316,12 +408,14 @@ def train(args) -> str:
     train_epoch = args.epochs
     batch_size = args.batch_size
 
-    exp_folder, weights_folder = create_exp_folder()
+    exp_folder = mesh_lib.broadcast_object(mesh, create_exp_folder()[0] if main else None)
+    weights_folder = os.path.join(exp_folder, "weights")
     os.makedirs(args.cache_dir, exist_ok=True)
     input_shape = [args.input_size, args.input_size]
     config_path = os.path.join(exp_folder, "config.json")
-    with open(config_path, "w", encoding="utf-8") as f:
-        json.dump(vars(args), f, ensure_ascii=False, indent=2)
+    if main:
+        with open(config_path, "w", encoding="utf-8") as f:
+            json.dump(vars(args), f, ensure_ascii=False, indent=2)
 
     print(f"Loading HF Dataset from: {args.data_path}, config: {args.data_config}")
     multitask = args.task == "multitask"
@@ -353,10 +447,11 @@ def train(args) -> str:
     else:
         val_dataset = make_ds("validation", False)
         print(f"Train samples: {len(train_dataset)}, Val samples: {len(val_dataset)}")
+        shard = {"rank": mesh.rank, "world_size": mesh.world_size}
         train_loader = DataLoader(train_dataset, batch_size, shuffle=True, seed=args.seed,
-                                  prefetch=args.workers)
+                                  prefetch=args.workers, **shard)
         val_loader = DataLoader(val_dataset, batch_size, shuffle=False, seed=args.seed,
-                                prefetch=args.workers)
+                                prefetch=args.workers, **shard)
 
     # Binary training uses the diff head: the model emits the (N, H, W) logit
     # difference the binary loss and metrics consume; same parameters.
@@ -368,6 +463,7 @@ def train(args) -> str:
             checkpoint.restore_flexible(args.weights, model)
         else:
             print(f"[WARN] weights not found: {args.weights}; training from scratch")
+    mesh_lib.replicate(mesh, model)
 
     init_lr_fit, min_lr_fit = schedules.resolve_init_lrs(batch_size, init_lr=args.lr)
     optimizer = schedules.make_train_optimizer(model.parameters(), init_lr_fit,
@@ -375,8 +471,9 @@ def train(args) -> str:
                                                weight_decay=args.weight_decay)
     lr_scheduler_func = schedules.get_lr_scheduler("cos", init_lr_fit, min_lr_fit, train_epoch)
 
-    pos_weight = resolve_pos_weight(args, train_dataset)
-    if pos_weight is not None:
+    pos_weight = mesh_lib.broadcast_object(
+        mesh, resolve_pos_weight(args, train_dataset) if main else None)
+    if pos_weight is not None and main:
         # 'auto' is data-dependent: record the value val.py needs.
         with open(config_path, "w", encoding="utf-8") as f:
             json.dump({**vars(args), "resolved_pos_weight": pos_weight}, f,
@@ -385,7 +482,8 @@ def train(args) -> str:
     max_train_batches = args.max_train_batches or None
     max_val_batches = args.max_val_batches or None
     max_test_batches = args.max_test_batches or None
-    train_step, eval_step = make_steps(args, model, optimizer, num_classes, pos_weight)
+    train_step, eval_step = make_steps(args, model, optimizer, num_classes, pos_weight,
+                                       group=mesh.group)
 
     if use_device_aug:
         train_res = resident.upload(train_cache, device)
@@ -393,9 +491,9 @@ def train(args) -> str:
         binary = ds_task == "binary"
         train_chunk = resident.make_train_chunk_fn(train_step, tuple(input_shape), binary,
                                                    num_classes, multitask=multitask,
-                                                   seed=args.seed)
+                                                   seed=args.seed, mesh=mesh)
         eval_chunk = resident.make_eval_chunk_fn(eval_step, binary, num_classes,
-                                                 multitask=multitask)
+                                                 multitask=multitask, mesh=mesh)
 
     def evaluate(split_data, max_batches):
         if use_device_aug:
@@ -432,7 +530,7 @@ def train(args) -> str:
         # the test evaluation works even if no new best is found.
         for name, dst in (("best.pth", best_model_path), ("last.pth", last_model_path)):
             src = os.path.join(os.path.dirname(args.resume), name)
-            if os.path.exists(src):
+            if os.path.exists(src) and main:
                 shutil.copyfile(src, dst)
         print(f"[resume] restored {args.resume}: starting at epoch "
               f"{start_epoch + 1}/{train_epoch}, best={best_score:.4f}")
@@ -444,7 +542,8 @@ def train(args) -> str:
                 break
             # The step's random draws (multitask's dropout) from (seed, epoch,
             # step), as the JAX CLI folds them in: --resume continues exactly.
-            resident.seed_default_generator(device, resident.step_seeds(args.seed, epoch, it)[0])
+            resident.seed_default_generator(
+                device, resident.rank_seed(resident.step_seeds(args.seed, epoch, it)[0], mesh))
             if multitask:
                 (total_l, seg_l, cls_l), correct = train_step(images, pngs, cls, sm)
                 yield ([float(total_l)], [(float(seg_l), float(cls_l), int(correct))], [n_valid],
@@ -517,12 +616,12 @@ def train(args) -> str:
             best_score, best_epoch, best_val_metrics = current_score, epoch + 1, metrics
             if args.defer_ckpt:
                 deferred_best = {k: v.detach().clone() for k, v in model.state_dict().items()}
-            else:
+            elif main:
                 checkpoint.save_weights(best_model_path, model)
             print(f"New best model saved with score: {best_score:.4f}")
-        if not args.defer_ckpt:
+        if not args.defer_ckpt and main:
             checkpoint.save_weights(last_model_path, model)
-        if args.ckpt_every and (epoch + 1) % args.ckpt_every == 0:
+        if args.ckpt_every and (epoch + 1) % args.ckpt_every == 0 and main:
             checkpoint.save_state(
                 os.path.join(weights_folder, "resume.pth"), model, optimizer, step,
                 extra={
@@ -533,15 +632,20 @@ def train(args) -> str:
                 },
             )
 
-    if args.defer_ckpt:
+    if args.defer_ckpt and main:
         if deferred_best is not None:
             checkpoint.save_weights(best_model_path, deferred_best)
         checkpoint.save_weights(last_model_path, model)
+    mesh_lib.barrier(mesh)  # the test evaluation loads rank 0's best.pth
 
     total_time = time.time() - start_time
     print(f"Training completed in {datetime.timedelta(seconds=int(total_time))}")
 
-    plot_training_curves(train_losses, val_losses, val_metrics_history, weights_folder)
+    if main:
+        try:
+            plot_training_curves(train_losses, val_losses, val_metrics_history, weights_folder)
+        except ImportError as e:  # no matplotlib: the run's other files still get written
+            print(f"[WARN] training curves not written: {e}")
 
     test_metrics = None
     try:  # keep artifact writing alive, like the reference
@@ -551,13 +655,15 @@ def train(args) -> str:
                 CanvasCache(test_source, input_shape, return_cls_label=multitask), device)
         else:
             test_data = DataLoader(make_ds("test", False), batch_size, shuffle=False,
-                                   seed=args.seed, prefetch=2)
+                                   seed=args.seed, prefetch=2, rank=mesh.rank,
+                                   world_size=mesh.world_size)
         checkpoint.load_weights(best_model_path, model)
         test_metrics = evaluate(test_data, max_test_batches)
-        with open(os.path.join(exp_folder, "test_metrics.json"), "w", encoding="utf-8") as f:
-            json.dump(test_metrics, f, ensure_ascii=False, indent=2)
+        if main:
+            with open(os.path.join(exp_folder, "test_metrics.json"), "w", encoding="utf-8") as f:
+                json.dump(test_metrics, f, ensure_ascii=False, indent=2)
 
-        if args.task in ("binary", "multitask") and args.export_vis:
+        if args.task in ("binary", "multitask") and args.export_vis and main:
             # binary: the diff head's sign, as the eval step predicts
             export_binary_visuals(steps.make_predict_fn(model, amp=args.amp), test_source,
                                   out_dir=os.path.join(exp_folder, "vis"),
@@ -567,6 +673,8 @@ def train(args) -> str:
         traceback.print_exc()
         print(f"[WARN] Skip test evaluation: {e}")
 
+    if not main:
+        return exp_folder
     write_history(exp_folder, val_metrics_history)
     with open(os.path.join(exp_folder, "summary.json"), "w", encoding="utf-8") as f:
         json.dump({
@@ -655,9 +763,11 @@ def parse_args(argv=None):
                         help="Trace a few train steps: not ported yet")
     parser.add_argument("--profile-steps", default=4, type=int)
     parser.add_argument("--mesh-data", default=None, type=int,
-                        help="Data-parallel size: one card in this slice")
+                        help="Data-parallel axis size: ranks, one card (cpu: one process) "
+                             "each (default: every visible card on cuda, 1 on cpu; under "
+                             "torchrun, its processes)")
     parser.add_argument("--mesh-space", default=1, type=int,
-                        help="Spatial-parallel size: one card in this slice")
+                        help="Spatial-parallel axis size over image H: not ported, 1 only")
     args = parser.parse_args(argv)
     if args.pos_weight == "":
         args.pos_weight = None
@@ -665,4 +775,8 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    train(parse_args())
+    try:
+        train(parse_args())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

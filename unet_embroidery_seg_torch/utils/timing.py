@@ -88,13 +88,14 @@ def device_ms_by_group(prof, calls: int) -> tuple[dict[str, float], list[dict]]:
     """(card ms per call by kernel group, largest first; the 15 largest kernels) of a window.
 
     ``prof`` is a finished ``torch.profiler.profile`` over ``calls`` calls.
-    The optimizer's profiler annotation is skipped: its kernels count on
-    their own.
+    The optimizer's and DDP's profiler annotations (ranges that span the
+    kernels they launch) are skipped: the kernels count on their own.
     """
     by_group: dict[str, float] = {}
     top = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key.startswith("Optimizer."):
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key.startswith(("Optimizer.", "DistributedDataParallel."))):
             continue
         ms = evt.self_device_time_total / 1e3 / calls
         if ms > 0:
