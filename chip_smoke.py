@@ -160,6 +160,38 @@ card; a 1-rank NCCL group stands in for the CLI's backend on one card:
   card's; with one card, a line saying that it did not run and why.
   ``--multi-card-only`` runs the build and 12d alone.
 
+Phase 13 takes the tooling to the card: the kernels as registered operators
+(``unet_seg::*``, ``ops/library.py``), the ``torch.export`` serving artifact
+that runs them, and the train CLI's ``--profile``:
+
+- 13a. ``torch.library.opcheck`` of each of the five operators at one site
+  shape (batch 8), in bf16 and in f32: schema, fake against real (shape,
+  dtype, strides), AOT dispatch with dynamic shapes;
+- 13b. full-width unet_resnet50 (seeded weights saved to a ``.pth``)
+  exported through ``export_serving.main`` (``--check``) at 480^2 for
+  batches 1 and 8 on ``cuda``, bf16; each artifact loaded with
+  ``load_artifact`` and run on phase 4's 16 canvases against
+  ``predict_probs`` on the eager model (within 1e-3, the ``--check``
+  rule); 5 upsample and 6 fused-conv launches per artifact forward and no
+  other; the operators each forward dispatches (artifact, eager, and the
+  program as ``torch.export`` gives it, its metadata asserts kept): the
+  artifact's no more than eager's; artifact and eager serving forward
+  timed per batch in turns (median card ms per call by CUDA events, host
+  ms per call), the artifact's bytes;
+- 13c. the same for one ``--no-amp`` (f32) artifact at batch 1, every
+  fused site on ``tf32x3``;
+- 13d. the train CLI with ``--profile`` (resident path, unet_resnet50,
+  512^2, batch 8, chunks of 2): the trace file parses and holds, in its
+  window (chunk 1: 2 steps), exactly 2 x (5, 5, 6, 6) CUDA kernels of the
+  upsample forward and backward, the fused conv forward and its dgrad, and
+  as many ``unet_seg::`` operator events; its ``HBM:`` line shows memory
+  in use;
+- 13e. the host cost of the operators' dispatch: host us per call of each
+  operator against its CUDA implementation called directly, and 11b's
+  resident chunk in ms/step through the operators and with the Functions
+  calling the CUDA implementations directly (direct, operators, operators,
+  direct), beside 11b's figure of this run.
+
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
 kernel: in f32 every site is ``tf32x3``.
@@ -313,6 +345,18 @@ TOL_DDP_LOSS_F32, TOL_DDP_LOSS_BF16, DDP_LR_SGD = 1e-5, 1e-3, 1e-2
 DDP_BF16_FLOOR_FACTOR = 2.0
 CLI_TIMEOUT_S = 300  # 12d's CLI run: a few steps at 512^2 take ~1 min
 DDP_RANKS = 2
+# Phase 13. 13a: one site shape per operator (batch 8; 480^2 forward, 512^2
+# backward sites): up_concat3.up, its cat slice, up_concat2.conv2, and
+# unet_plain's down2 conv2 for the bias-free conv. 13b/13c: the artifact
+# against eager predict to export_serving's --check rule; 13d: the CLI's
+# profiled window.
+OPCHECK_SHAPES = {"upsample2x": (512, 30), "upsample2x_backward": (512, 32, 512),
+                  "conv3x3_bias_relu": (128, 120), "conv3x3_same": (256, 120),
+                  "conv3x3_dgrad": (128, 128)}
+SERVING_BATCHES = {"bf16": (1, BATCH), "f32": (1,)}
+SERVING_CALLS = 20
+PROFILE_CHUNK, PROFILE_TRAIN_BATCHES = 2, 4
+DISPATCH_CALLS = 500
 # How kernel and library ``ms`` are timed: calls captured into a CUDA graph
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
@@ -1926,6 +1970,325 @@ def data_parallel_phase(counters, data) -> dict:
     return out
 
 
+def opcheck_on_card() -> dict:
+    """13a: ``torch.library.opcheck`` of each operator at one site shape, bf16 and f32."""
+    from unet_embroidery_seg_torch.ops.library import registered_ops
+
+    ops = registered_ops()
+    gen = torch.Generator().manual_seed(13)
+
+    def act(c, h, dtype, extra_c=0):
+        x = torch.randn(BATCH, c + extra_c, h, h, generator=gen).to("cuda", dtype)
+        return x.contiguous(memory_format=torch.channels_last)[:, extra_c:]
+
+    def weights(c):
+        w = torch.randn(c, c, 3, 3, generator=gen) / (3.0 * c ** 0.5)
+        return w.cuda(), (0.1 * torch.randn(c, generator=gen)).cuda()
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c_up, h_up = OPCHECK_SHAPES["upsample2x"]
+        c_bw, h_bw, skip = OPCHECK_SHAPES["upsample2x_backward"]
+        w1, b1 = weights(OPCHECK_SHAPES["conv3x3_bias_relu"][0])
+        w2, _ = weights(OPCHECK_SHAPES["conv3x3_same"][0])
+        w3, _ = weights(OPCHECK_SHAPES["conv3x3_dgrad"][0])
+        cases = {
+            "upsample2x": (act(c_up, h_up, dtype), True),
+            # the cat gradient's channel slice, read in place
+            "upsample2x_backward": (act(c_bw, 2 * h_bw, dtype, skip), True),
+            "conv3x3_bias_relu": (act(*OPCHECK_SHAPES["conv3x3_bias_relu"], dtype), w1, b1, True),
+            "conv3x3_same": (act(*OPCHECK_SHAPES["conv3x3_same"], dtype), w2, True),
+            "conv3x3_dgrad": (act(*OPCHECK_SHAPES["conv3x3_dgrad"], dtype), w3),
+        }
+        for name, args in cases.items():
+            t0 = time.perf_counter()
+            res = torch.library.opcheck(ops[name], args)  # raises on a failed check
+            out[f"{name}[{dtype}]"] = {"shape": list(args[0].shape), **res,
+                                       "seconds": time.perf_counter() - t0}
+        del cases
+    torch.cuda.empty_cache()
+    print("opcheck " + json.dumps(out), flush=True)
+    return out
+
+
+def _aten_ops_per_call(fn, x) -> int:
+    """The operators ``fn(x)`` dispatches (below autograd): the host's work in ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Count():
+        fn(x)
+    return Count.n
+
+
+def _serving_times(fns: dict, x) -> dict:
+    """Median card ms per call (CUDA events around each call) and host ms per call of each fn.
+
+    The fns run in turns (a, b, b, a, a, b, b, a), ``SERVING_CALLS`` calls a
+    turn, so a drift of the host's speed falls on both alike.
+    """
+    card: dict = {k: [] for k in fns}
+    host: dict = {k: [] for k in fns}
+    with torch.no_grad():
+        for name in (list(fns) + list(fns)[::-1]) * 2:
+            fn = fns[name]
+            for _ in range(3):
+                fn(x)
+            torch.cuda.synchronize()
+            marks = []
+            for _ in range(SERVING_CALLS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                fn(x)
+                host[name].append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                marks.append((start, end))
+            torch.cuda.synchronize()
+            card[name] += [a.elapsed_time(b) for a, b in marks]
+    return {k: {"ms_median": statistics.median(card[k]),
+                "host_ms_median": statistics.median(host[k])} for k in fns}
+
+
+def serving_phase(counters) -> dict:
+    """13b and 13c: unet_resnet50's serving artifacts on the card, against eager predict."""
+    from unet_embroidery_seg_torch import export_serving
+    from unet_embroidery_seg_torch.data.synthetic import letterboxed_canvases
+    from unet_embroidery_seg_torch.engine import checkpoint
+    from unet_embroidery_seg_torch.engine.steps import make_predict_fn
+    from unet_embroidery_seg_torch.models import build_model
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    workdir = tempfile.mkdtemp(prefix="serving-")
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        model = build_model("unet_resnet50", 2, generator=torch.Generator().manual_seed(0))
+        weights = os.path.join(workdir, "unet_resnet50_seed0.pth")
+        checkpoint.save_weights(weights, model)
+        canvases = letterboxed_canvases(2 * BATCH, SIZE, seed=0)
+        out = {}
+        for label, batches in SERVING_BATCHES.items():
+            amp = label == "bf16"
+            t0 = time.perf_counter()
+            # the CLI, --check included; it states the float32 precision
+            # (cuDNN TF32 on, as every CLI), restored below
+            manifest = export_serving.main(
+                ["--weights", weights, "--model", "unet_resnet50", "--input-size", str(SIZE),
+                 "--batches", *map(str, batches), "--platforms", "cuda",
+                 "--out", os.path.join(workdir, label), "--check"] + ([] if amp else ["--no-amp"]))
+            export_s = time.perf_counter() - t0
+            predict_fn = make_predict_fn(model, amp)
+            eager = export_serving.build_predict(model, amp)
+            paths = square_conv_paths(model, torch.bfloat16 if amp else torch.float32)
+            if not amp and paths != {"tf32x3": 6}:
+                raise AssertionError(f"f32 artifact: fused sites on {paths}, not all on tf32x3")
+            for b in batches:
+                art = manifest["artifacts"][str(b)]["cuda"]
+                module = export_serving.load_artifact(os.path.join(workdir, label, art["file"]))
+                err = 0.0
+                with torch.no_grad():
+                    for start in range(0, len(canvases), b):
+                        chunk = canvases[start : start + b]
+                        got = module(torch.from_numpy(chunk).cuda()).cpu().numpy()
+                        err = max(err, float(np.abs(got - predict_probs(predict_fn, chunk)).max()))
+                    x = torch.from_numpy(canvases[:b]).cuda()
+                    torch.cuda.synchronize()
+                    for c in counters:
+                        c.launches = 0
+                    probs = module(x)
+                    torch.cuda.synchronize()
+                    launches = {c.__name__: c.launches for c in counters}
+                want = {c.__name__: 0 for c in counters} | {"upsample2x": 5, "conv3x3_bias_relu": 6}
+                with torch.no_grad():  # the export as torch.export gives it, asserts and all
+                    exported = torch.export.export(eager, (x,)).module()
+                ops = {"artifact": _aten_ops_per_call(module, x),
+                       "eager": _aten_ops_per_call(eager, x),
+                       "torch_export_as_given": _aten_ops_per_call(exported, x)}
+                del exported
+                row = {"file": art["file"], "bytes": art["bytes"],
+                       "check_max_abs_diff": art["check_max_abs_diff"],
+                       "max_abs_diff_vs_predict_probs": err, "launches_per_forward": launches,
+                       "aten_ops_per_forward": ops,
+                       **_serving_times({"artifact": module, "eager": eager}, x),
+                       "square_conv_paths": paths}
+                print(f"serving[{label},b{b}] " + json.dumps(row), flush=True)
+                if (launches != want or not err <= export_serving.CHECK_TOLERANCE
+                        or probs.shape != (b, SIZE, SIZE, 2) or ops["artifact"] > ops["eager"]):
+                    raise AssertionError(f"serving artifact {art['file']}: launches {launches} "
+                                         f"!= {want}, max abs diff {err}, or ops {ops}")
+                out[f"{label}_b{b}"] = row
+                del module, probs
+            out[f"{label}_export_seconds"] = export_s
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _kernel_role(name: str) -> str | None:
+    """Which hand-written kernel a CUDA kernel event's (demangled) name is, or None.
+
+    The conv kernel's last template flag is BIAS_RELU: on in unet_resnet50's
+    forward, off in dgrad (``void (anonymous namespace)::tc::
+    conv3x3_wgmma_kernel<__nv_bfloat16, 64, true, true>(...)``).
+    """
+    for role, key in (("upsample2x", "::upsample2x_kernel<"),
+                      ("upsample2x_backward", "::upsample2x_bwd_kernel<")):
+        if key in name:
+            return role
+    if "::conv3x3_wgmma_kernel<" not in name:
+        return None
+    flags = name.split("::conv3x3_wgmma_kernel<", 1)[1].split(">", 1)[0].split(",")
+    return "conv3x3 forward" if flags[-1].strip() == "true" else "conv3x3 dgrad"
+
+
+def profile_cli() -> dict:
+    """13d: the train CLI's --profile on the card: the trace and the HBM line."""
+    import glob
+    import re
+
+    workdir = tempfile.mkdtemp(prefix="profile-cli-")
+    cmd = [sys.executable, "-m", "unet_embroidery_seg_torch.train", "--data-path",
+           f"synthetic:{PROFILE_TRAIN_BATCHES * BATCH}", "--model", "unet_resnet50",
+           "--input-size", str(TRAIN_SIZE), "--batch-size", str(BATCH), "--epochs", "1",
+           "--max-train-batches", str(PROFILE_TRAIN_BATCHES), "--scan-chunk", str(PROFILE_CHUNK),
+           "--max-val-batches", "1", "--max-test-batches", "1", "--no-export-vis",
+           "--ckpt-every", "0", "--profile"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    try:
+        traces = glob.glob(os.path.join(workdir, "run", "train", "exp", "trace", "*.json"))
+        kernels = {"upsample2x": 0, "upsample2x_backward": 0, "conv3x3 forward": 0,
+                   "conv3x3 dgrad": 0}
+        ops, n_events, trace_bytes = {}, 0, 0
+        if len(traces) == 1:
+            trace_bytes = os.path.getsize(traces[0])
+            with open(traces[0]) as f:
+                events = json.load(f)["traceEvents"]
+            n_events = len(events)
+            for e in events:
+                name = str(e.get("name", ""))
+                if e.get("cat") == "kernel" and _kernel_role(name) is not None:
+                    kernels[_kernel_role(name)] += 1
+                elif name.startswith("unet_seg::"):
+                    ops[name] = ops.get(name, 0) + 1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    hbm = [tuple(map(int, m)) for m in re.findall(r"HBM: (\d+)/(\d+)MB", stdout)]
+    result = {"returncode": proc.returncode, "seconds": time.perf_counter() - t0,
+              "traces": len(traces), "trace_bytes": trace_bytes, "trace_events": n_events,
+              "kernels_in_window": kernels, "operator_events_in_window": ops, "hbm_mb": hbm,
+              "stderr_tail": stderr[-3000:] if proc.returncode else ""}
+    print("profile_cli " + json.dumps(result), flush=True)
+    per_step = {"upsample2x": 5, "upsample2x_backward": 5, "conv3x3 forward": 6,
+                "conv3x3 dgrad": 6}
+    want_ops = {"unet_seg::upsample2x": 5, "unet_seg::upsample2x_backward": 5,
+                "unet_seg::conv3x3_bias_relu": 6, "unet_seg::conv3x3_dgrad": 6}
+    if (proc.returncode != 0 or len(traces) != 1
+            or kernels != {k: PROFILE_CHUNK * v for k, v in per_step.items()}
+            or ops != {k: PROFILE_CHUNK * v for k, v in want_ops.items()}
+            or not hbm or not all(used > 0 for used, _ in hbm)):
+        raise AssertionError(f"--profile on the card: {result}")
+    return result
+
+
+def _host_us_per_call(fn, args) -> float:
+    """Host us per call over a run of ``DISPATCH_CALLS`` calls (the card keeps up: tiny shapes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_CALLS):
+        fn(*args)
+    us = (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS
+    torch.cuda.synchronize()
+    return us
+
+
+def dispatch_cost(counters, data, resident_step_ms: float) -> dict:
+    """13e: what the operators' dispatch adds on the host, per call and per resident step.
+
+    Per call: each operator against its CUDA implementation called
+    directly, on tiny tensors, in turns (direct, operator, operator,
+    direct). Per step: 11b's resident chunk with the autograd Functions
+    calling the operators (as shipped) and calling the CUDA implementations
+    directly (the module globals swapped for the run), in the same turns.
+    """
+    from unet_embroidery_seg_torch.ops import conv3x3 as conv_mod
+    from unet_embroidery_seg_torch.ops import upsample as up_mod
+
+    direct = {  # module, operator global, its CUDA implementation
+        "upsample2x": (up_mod, "upsample2x_op", up_mod._upsample2x_cuda),
+        "upsample2x_backward": (up_mod, "upsample2x_backward_op",
+                                up_mod._upsample2x_backward_cuda),
+        "conv3x3_bias_relu": (conv_mod, "conv3x3_bias_relu_op", conv_mod._conv3x3_bias_relu_cuda),
+        "conv3x3_same": (conv_mod, "conv3x3_same_op", conv_mod._conv3x3_same_cuda),
+        "conv3x3_dgrad": (conv_mod, "conv3x3_dgrad_op", conv_mod._conv3x3_dgrad_cuda),
+    }
+    x = torch.randn(1, 64, 8, 8, device="cuda", dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w, b = torch.randn(64, 64, 3, 3, device="cuda") * 0.05, torch.zeros(64, device="cuda")
+    args = {"upsample2x": (x, True), "upsample2x_backward": (x, True),
+            "conv3x3_bias_relu": (x, w, b, True), "conv3x3_same": (x, w, True),
+            "conv3x3_dgrad": (x, w)}
+    per_call = {}
+    with torch.no_grad():
+        for name, (mod, op_name, impl) in direct.items():
+            op = getattr(mod, op_name)
+            _host_us_per_call(op, args[name])  # warm-up
+            d1, o1, o2, d2 = (_host_us_per_call(f, args[name]) for f in (impl, op, op, impl))
+            per_call[name] = {"operator_us": (o1 + o2) / 2, "direct_us": (d1 + d2) / 2,
+                              "dispatch_us": (o1 + o2 - d1 - d2) / 2}
+
+    def chunk_ms(use_ops: bool) -> float:
+        saved = {name: getattr(mod, op_name) for name, (mod, op_name, _) in direct.items()}
+        try:
+            if not use_ops:
+                for mod, op_name, impl in direct.values():
+                    setattr(mod, op_name, impl)
+            return _resident_chunks(None, counters, data)["step_ms_median"]
+        finally:
+            for name, (mod, op_name, _) in direct.items():
+                setattr(mod, op_name, saved[name])
+
+    turns = [("direct", chunk_ms(False)), ("operators", chunk_ms(True)),
+             ("operators", chunk_ms(True)), ("direct", chunk_ms(False))]
+    ops_ms = statistics.mean(t for k, t in turns if k == "operators")
+    direct_ms = statistics.mean(t for k, t in turns if k == "direct")
+    calls_per_step = sum(RESNET_PER_STEP.values())
+    result = {"per_call": per_call, "resident_step_ms_turns": turns,
+              "resident_step_ms_operators": ops_ms, "resident_step_ms_direct": direct_ms,
+              "added_ms_per_step": ops_ms - direct_ms, "calls_per_step": calls_per_step,
+              "ms_per_step_from_per_call": sum(n * per_call[k]["dispatch_us"]
+                                               for k, n in RESNET_PER_STEP.items()) / 1e3,
+              "phase_11b_step_ms_median": resident_step_ms}
+    print("dispatch_cost " + json.dumps(result), flush=True)
+    return result
+
+
+def tooling_phase(counters, data, resident_step_ms: float) -> dict:
+    """Phase 13: operators on the card, the serving artifact, --profile, the dispatch cost."""
+    t0 = time.perf_counter()
+    out = {"opcheck": opcheck_on_card(), "serving": serving_phase(counters),
+           "profile_cli": profile_cli(),
+           "dispatch": dispatch_cost(counters, data, resident_step_ms)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -2128,6 +2491,9 @@ def main(argv=None) -> int:
     ddp = data_parallel_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu,
                                conv3x3_dgrad], data)
 
+    # Phase 13: the tooling.
+    tooling = tooling_phase(train_counters, data, res["train"]["step_ms_median"])
+
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
@@ -2144,7 +2510,7 @@ def main(argv=None) -> int:
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
                        "tasks": tasks, "resident": res, "data_parallel": ddp,
-                       "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "tooling": tooling, "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

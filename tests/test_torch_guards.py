@@ -14,7 +14,9 @@ from unet_embroidery_seg_torch.utils.device import resolve_device
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "unet_embroidery_seg_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "unet_embroidery_seg_tpu"}
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The port's package, its scripts and chip_smoke.py.
+PORT_FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -508,7 +508,7 @@ def test_task_model_mismatch_raises(workdir, task, model):
     assert not os.path.exists("run")  # refused before any artefact
 
 
-@pytest.mark.parametrize("flag", [["--profile"], ["--mesh-space", "2"]])
+@pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2"], ["--mesh-space", "2"]])
 def test_unported_flags_still_raise_for_multitask(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_train.train(port_train.parse_args(CLI_ARGS + flag))

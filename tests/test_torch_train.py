@@ -429,7 +429,7 @@ def test_train_cli_resume_continues_the_run(workdir):
     assert ha == hb
 
 
-@pytest.mark.parametrize("flag", [["--profile"], ["--mesh-space", "2"]])
+@pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2"], ["--mesh-space", "2"]])
 def test_train_cli_raises_on_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_train.train(port_train.parse_args(CLI_ARGS + flag))

@@ -36,12 +36,19 @@ which the JAX package computes with a flax ``nn.Conv``
   ``conv3x3_dgrad_plain``, nine shifted-slice products accumulated in
   float32 (autocast off), the arithmetic of the Pallas kernel's per-row
   im2col GEMMs.
+- Operators (``ops/library.py``): ``unet_seg::conv3x3_bias_relu(x, weight,
+  bias, cache)``, ``unet_seg::conv3x3_same(x, weight, cache)`` and
+  ``unet_seg::conv3x3_dgrad(g, weight)`` (``*_op``): on a CUDA tensor the
+  kernel, on a CPU tensor the plain version, and a fake implementation for
+  tracing. ``cache`` is the autograd Function's choice, made from grad
+  mode outside the operator.
 - Wrappers: ``conv3x3_bias_relu`` and ``conv3x3_same``, each a
-  ``torch.autograd.Function`` whose backward runs ``conv3x3_dgrad``, and
-  ``conv3x3_dgrad``. A CPU tensor takes the plain versions; a CUDA tensor
-  launches the kernel or raises on what the kernel does not take.
-  ``conv3x3_bias_relu.launches``, ``conv3x3_same.launches`` and
-  ``conv3x3_dgrad.launches`` count kernel launches and nothing else.
+  ``torch.autograd.Function`` over its operator whose backward runs
+  ``conv3x3_dgrad``, and ``conv3x3_dgrad``. A CPU tensor takes the plain
+  versions; a CUDA tensor launches the kernel or raises on what the kernel
+  does not take. ``conv3x3_bias_relu.launches``, ``conv3x3_same.launches``
+  and ``conv3x3_dgrad.launches`` count kernel launches and nothing else
+  (not calls traced with fake tensors).
 
 Weights are OIHW (``nn.Conv2d``'s layout). ``pack_conv3x3_weight`` puts them
 in the kernel's layout. With grad mode off (predict, eval) the wrappers pack
@@ -64,6 +71,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from unet_embroidery_seg_torch.ops import _build
+from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel_output
 
 __all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
            "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight", "tf32_split"]
@@ -307,15 +315,57 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
     return out
 
 
-def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-             cache: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return conv3x3_bias_relu_plain(x, weight, bias)
+def _conv3x3_bias_relu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            cache: bool) -> torch.Tensor:
+    """``unet_seg::conv3x3_bias_relu`` on a CUDA tensor: the kernel with bias and ReLU fused.
+
+    ``cache``: take the packed weights from the per-version cache (grad
+    mode off), else pack them anew.
+    """
     _check_shapes(x, weight, bias)
     packed, b = _packed_params(weight, bias, x.dtype) if cache else _pack(weight, bias, x.dtype)
     out = _launch(x, packed, b, "conv3x3")
     conv3x3_bias_relu.launches += 1
     return out
+
+
+conv3x3_bias_relu_op = torch.library.custom_op(
+    "unet_seg::conv3x3_bias_relu", _conv3x3_bias_relu_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@conv3x3_bias_relu_op.register_kernel("cpu")
+def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_bias_relu_plain(x, weight, bias))
+
+
+@conv3x3_bias_relu_op.register_fake
+def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool) -> torch.Tensor:
+    _check_shapes(x, weight, bias)
+    return empty_kernel_output(x.shape, x)
+
+
+def _conv3x3_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``unet_seg::conv3x3_dgrad`` on a CUDA tensor: the kernel, flipped and transposed weights."""
+    _check_shapes(g, weight, None)
+    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad")
+    conv3x3_dgrad.launches += 1
+    return dx
+
+
+conv3x3_dgrad_op = torch.library.custom_op(
+    "unet_seg::conv3x3_dgrad", _conv3x3_dgrad_cuda, mutates_args=(), device_types="cuda")
+
+
+@conv3x3_dgrad_op.register_kernel("cpu")
+def _(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_dgrad_plain(g, weight))
+
+
+@conv3x3_dgrad_op.register_fake
+def _(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    _check_shapes(g, weight, None)
+    return empty_kernel_output(g.shape, g)
 
 
 def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -325,12 +375,7 @@ def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     runs the conv kernel on ``g`` with the flipped, transposed weights
     (packed anew on every call) and its epilogue's bias and ReLU off.
     """
-    if g.device.type == "cpu":
-        return conv3x3_dgrad_plain(g, weight)
-    _check_shapes(g, weight, None)
-    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad")
-    conv3x3_dgrad.launches += 1
-    return dx
+    return conv3x3_dgrad_op(g, weight)
 
 
 conv3x3_dgrad.launches = 0
@@ -347,7 +392,7 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, cache: bool):
-        y = _forward(x, weight, bias, cache)
+        y = conv3x3_bias_relu_op(x, weight, bias, cache)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight, y)
             ctx.bias_dtype = bias.dtype
@@ -383,14 +428,31 @@ def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
 conv3x3_bias_relu.launches = 0
 
 
-def _same_forward(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return conv3x3_same_plain(x, weight)
+def _conv3x3_same_cuda(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
+    """``unet_seg::conv3x3_same`` on a CUDA tensor: the kernel, epilogue off.
+
+    ``cache`` as ``_conv3x3_bias_relu_cuda``'s.
+    """
     _check_shapes(x, weight, None)
     packed, _ = _packed_params(weight, None, x.dtype) if cache else _pack(weight, None, x.dtype)
     out = _launch(x, packed, None, "conv3x3_same")
     conv3x3_same.launches += 1
     return out
+
+
+conv3x3_same_op = torch.library.custom_op(
+    "unet_seg::conv3x3_same", _conv3x3_same_cuda, mutates_args=(), device_types="cuda")
+
+
+@conv3x3_same_op.register_kernel("cpu")
+def _(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_same_plain(x, weight))
+
+
+@conv3x3_same_op.register_fake
+def _(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
+    _check_shapes(x, weight, None)
+    return empty_kernel_output(x.shape, x)
 
 
 class _Conv3x3Same(torch.autograd.Function):
@@ -405,7 +467,7 @@ class _Conv3x3Same(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, cache: bool):
-        y = _same_forward(x, weight, cache)
+        y = conv3x3_same_op(x, weight, cache)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight)
         return y

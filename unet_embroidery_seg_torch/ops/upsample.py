@@ -23,11 +23,16 @@ einsum).
 - Plain versions: ``ops/resize.py:upsample2x_plain`` and
   ``upsample2x_backward_plain``, the interpolation-matrix contractions (the
   backward's are the transposed ones) in float32.
-- Wrappers: ``upsample2x`` (a ``torch.autograd.Function`` whose backward is
-  ``upsample2x_backward``). A CPU tensor takes the plain versions; a CUDA
-  tensor launches the kernels or raises on what they do not take.
-  ``upsample2x.launches`` and ``upsample2x_backward.launches`` count kernel
-  launches and nothing else.
+- Operators (``ops/library.py``): ``unet_seg::upsample2x`` and
+  ``unet_seg::upsample2x_backward`` (``upsample2x_op``,
+  ``upsample2x_backward_op``): on a CUDA tensor the kernel, on a CPU tensor
+  the plain version, and a fake implementation for tracing.
+- Wrappers: ``upsample2x`` (a ``torch.autograd.Function`` over the forward
+  operator whose backward is ``upsample2x_backward``, the backward
+  operator). A CPU tensor takes the plain versions; a CUDA tensor launches
+  the kernels or raises on what they do not take. ``upsample2x.launches``
+  and ``upsample2x_backward.launches`` count kernel launches and nothing
+  else (not calls traced with fake tensors).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from unet_embroidery_seg_torch.ops import _build
+from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel_output
 from unet_embroidery_seg_torch.ops.resize import (
     _interp_matrix,
     _linear_coords,
@@ -172,15 +178,13 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
-def _forward(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return upsample2x_plain(x, align_corners)
+def _upsample2x_cuda(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    """``unet_seg::upsample2x`` on a CUDA tensor: the forward kernel (channels_last in and out)."""
     _check_cuda(x, "upsample2x")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("upsample2x: the CUDA kernel needs channels_last memory")
     n, c, h, w = x.shape
-    out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = empty_kernel_output((n, c, 2 * h, 2 * w), x)
     if out.numel() == 0:
         return out
     rows_idx, rows_w = _device_tables(h, align_corners, x.device)
@@ -193,6 +197,21 @@ def _forward(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
     _build.check(code, "upsample2x")
     upsample2x.launches += 1
     return out
+
+
+upsample2x_op = torch.library.custom_op(
+    "unet_seg::upsample2x", _upsample2x_cuda, mutates_args=(), device_types="cuda")
+
+
+@upsample2x_op.register_kernel("cpu")
+def _(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    return as_kernel_layout(upsample2x_plain(x, align_corners))
+
+
+@upsample2x_op.register_fake
+def _(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    n, c, h, w = x.shape
+    return empty_kernel_output((n, c, 2 * h, 2 * w), x)
 
 
 def _pixel_strides(g: torch.Tensor) -> tuple[int, int] | None:
@@ -209,24 +228,14 @@ def _pixel_strides(g: torch.Tensor) -> tuple[int, int] | None:
     return None
 
 
-def upsample2x_backward(g: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
-    """dx of ``upsample2x`` from the output's gradient ``g`` (N, C, 2H, 2W).
-
-    On the card ``g`` may be any channels_last-like view, such as the
-    channel slice of a ``torch.cat`` gradient, which the kernel reads in
-    place; any other layout (plain NCHW) is first copied to channels_last
-    (one read and write of ``g``). dx comes back channels_last in ``g``'s
-    dtype.
-    """
-    if g.device.type == "cpu":
-        return upsample2x_backward_plain(g, align_corners)
+def _upsample2x_backward_cuda(g: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    """``unet_seg::upsample2x_backward`` on a CUDA tensor: the backward kernel."""
     _check_cuda(g, "upsample2x_backward")
     n, c, oh, ow = g.shape
     if oh % 2 or ow % 2:
         raise ValueError(f"upsample2x_backward: needs an even output size, got {oh} x {ow}")
     h, w = oh // 2, ow // 2
-    dx = torch.empty((n, c, h, w), dtype=g.dtype, device=g.device,
-                     memory_format=torch.channels_last)
+    dx = empty_kernel_output((n, c, h, w), g)
     if dx.numel() == 0:
         return dx
     strides = _pixel_strides(g)
@@ -246,6 +255,34 @@ def upsample2x_backward(g: torch.Tensor, align_corners: bool = False) -> torch.T
     return dx
 
 
+upsample2x_backward_op = torch.library.custom_op(
+    "unet_seg::upsample2x_backward", _upsample2x_backward_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@upsample2x_backward_op.register_kernel("cpu")
+def _(g: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    return as_kernel_layout(upsample2x_backward_plain(g, align_corners))
+
+
+@upsample2x_backward_op.register_fake
+def _(g: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    n, c, oh, ow = g.shape
+    return empty_kernel_output((n, c, oh // 2, ow // 2), g)
+
+
+def upsample2x_backward(g: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """dx of ``upsample2x`` from the output's gradient ``g`` (N, C, 2H, 2W).
+
+    On the card ``g`` may be any channels_last-like view, such as the
+    channel slice of a ``torch.cat`` gradient, which the kernel reads in
+    place; any other layout (plain NCHW) is first copied to channels_last
+    (one read and write of ``g``). dx comes back channels_last in ``g``'s
+    dtype.
+    """
+    return upsample2x_backward_op(g, align_corners)
+
+
 upsample2x_backward.launches = 0
 
 
@@ -253,7 +290,7 @@ class _Upsample2x(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, align_corners: bool) -> torch.Tensor:
         ctx.align_corners = align_corners
-        return _forward(x, align_corners)
+        return upsample2x_op(x, align_corners)
 
     @staticmethod
     @once_differentiable

@@ -53,9 +53,16 @@ and the losses, metrics and BatchNorm statistics are the global batch's.
 Rank 0 makes ``expN`` and writes every file and print; the checkpoints
 hold the model's own keys (no DDP ``module.`` prefix).
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--mesh-space`` above 1 (the spatial axis) and ``--profile``
-(tooling).
+``--profile`` traces a post-warm-up window of epoch 0 with
+``torch.profiler`` (``utils/profiling.py``), JAX's windows: on the resident
+path the second chunk (chunk 1), on the host path steps [1, 1 +
+``--profile-steps``). The Chrome trace goes to ``expN/trace/`` (host
+operators, the kernels as ``unet_seg::<op>``, and on the card every CUDA
+kernel); under ``--mesh-data`` rank 0 traces. Each epoch starts with an
+``HBM: used/limit MB`` line on the card.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+``--mesh-space`` above 1 (the spatial axis).
 """
 
 from __future__ import annotations
@@ -82,16 +89,14 @@ from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.ops import schedules
 from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
 from unet_embroidery_seg_torch.predict import resolve_amp_default
+from unet_embroidery_seg_torch.utils import profiling
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_exp_folder
 from unet_embroidery_seg_torch.utils.plotting import plot_training_curves
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 from unet_embroidery_seg_torch.utils.vis_export import export_binary_visuals
 
-NOT_PORTED = {
-    "mesh_space": mesh_lib.SPACE_NOT_PORTED,
-    "profile": "ROADMAP.md Queue 1 item 11 (tooling)",
-}
+NOT_PORTED = {"mesh_space": mesh_lib.SPACE_NOT_PORTED}
 
 
 class LogColor:
@@ -114,8 +119,6 @@ def check_supported(args) -> None:
         )
     if args.mesh_space != 1:
         raise NotImplementedError(f"--mesh-space > 1: {NOT_PORTED['mesh_space']}")
-    if args.profile:
-        raise NotImplementedError(f"--profile is not ported yet: {NOT_PORTED['profile']}")
 
 
 def resolve_mesh_data(args, device: torch.device) -> int:
@@ -535,11 +538,25 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
         print(f"[resume] restored {args.resume}: starting at epoch "
               f"{start_epoch + 1}/{train_epoch}, best={best_score:.4f}")
 
+    # --profile: rank 0 traces a window of epoch 0 (JAX's) into expN/trace.
+    trace_dir = os.path.join(exp_folder, "trace")
+    profile = args.profile and main
+
     def host_epoch(epoch: int):
-        """(losses, multitask's (seg, cls, correct) or None, n_valid, rows) per step, host-fed."""
+        """(losses, multitask's (seg, cls, correct) or None, n_valid, rows) per step, host-fed.
+
+        With ``--profile``, epoch 0's steps [1, 1 + ``--profile-steps``) are traced.
+        """
+        prof = None
         for it, (images, pngs, cls, sm, n_valid) in enumerate(host_batches(train_loader, epoch)):
             if max_train_batches and it >= max_train_batches:
                 break
+            if profile and epoch == 0:
+                if it == 1:
+                    prof = profiling.safe_start_trace(trace_dir)
+                elif prof is not None and it == 1 + args.profile_steps:
+                    profiling.safe_stop_trace(prof, trace_dir)
+                    prof = None
             # The step's random draws (multitask's dropout) from (seed, epoch,
             # step), as the JAX CLI folds them in: --resume continues exactly.
             resident.seed_default_generator(
@@ -550,28 +567,40 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
                        len(train_loader))
             else:
                 yield [float(train_step(images, pngs, sm))], None, [n_valid], len(train_loader)
+        if prof is not None:
+            profiling.safe_stop_trace(prof, trace_dir)
 
     def resident_epoch(epoch: int):
-        """The same per chunk of ``--scan-chunk`` steps, read from the card once per chunk."""
+        """The same per chunk of ``--scan-chunk`` steps, read from the card once per chunk.
+
+        With ``--profile``, epoch 0's chunk 1 is traced, to its losses' read.
+        """
         idx, maskp = resident.epoch_index_plan(train_res.n, batch_size, epoch, True, args.seed,
                                                max_train_batches)
         idx_t, mask_t = resident.upload_plan(idx, maskp, device)
         n_batches, chunk = len(idx), max(args.scan_chunk, 1)
-        for c0 in range(0, n_batches, chunk):
+        for ci, c0 in enumerate(range(0, n_batches, chunk)):
             c1 = min(c0 + chunk, n_batches)
+            prof = (profiling.safe_start_trace(trace_dir) if profile and epoch == 0 and ci == 1
+                    else None)
             out = train_chunk(train_res, idx_t[c0:c1], mask_t[c0:c1], epoch, range(c0, c1))
             n_valid = [int(v) for v in maskp[c0:c1].sum(1)]
             if multitask:
                 total_l, seg_l, cls_l, correct = read_once(torch.stack(out))[0]
-                yield (total_l.tolist(), list(zip(seg_l.tolist(), cls_l.tolist(),
-                                                  correct.astype(int).tolist())),
-                       n_valid, n_batches)
+                losses = total_l.tolist()
+                mt_steps = list(zip(seg_l.tolist(), cls_l.tolist(), correct.astype(int).tolist()))
             else:
-                yield read_once(out)[0].tolist(), None, n_valid, n_batches
+                losses, mt_steps = read_once(out)[0].tolist(), None
+            if prof is not None:
+                profiling.safe_stop_trace(prof, trace_dir)
+            yield losses, mt_steps, n_valid, n_batches
 
     for epoch in range(start_epoch, train_epoch):
         lr_now = lr_scheduler_func(epoch)
         schedules.set_learning_rate(optimizer, lr_now)
+        hbm = profiling.device_memory_stats(device)
+        if hbm:
+            print(f"HBM: {hbm}")
         print_train_header()
         epoch_loss, seen, images_done = 0.0, 0, 0
         mt = {"seg": 0.0, "cls": 0.0, "correct": 0, "total": 0}
@@ -760,7 +789,8 @@ def parse_args(argv=None):
                         help="Save the full resume state (params+optimizer) every N epochs "
                              "(0 = never); best/last stay model-only like the reference")
     parser.add_argument("--profile", action=boolopt, default=False,
-                        help="Trace a few train steps: not ported yet")
+                        help="Write a torch.profiler trace of a few train steps of epoch 0 "
+                             "to expN/trace (rank 0)")
     parser.add_argument("--profile-steps", default=4, type=int)
     parser.add_argument("--mesh-data", default=None, type=int,
                         help="Data-parallel axis size: ranks, one card (cpu: one process) "
