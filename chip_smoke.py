@@ -190,7 +190,31 @@ that runs them, and the train CLI's ``--profile``:
   operator against its CUDA implementation called directly, and 11b's
   resident chunk in ms/step through the operators and with the Functions
   calling the CUDA implementations directly (direct, operators, operators,
-  direct), beside 11b's figure of this run.
+  direct), beside 11b's figure of this run;
+- 13f. the ``--no-bake-weights`` artifact (bf16, batch 1): exported on the
+  card (``--check``), loaded, called with the model's state dict on phase
+  4's 16 canvases against eager ``predict_probs`` (the ``--check`` rule),
+  5 + 6 launches per forward.
+
+Phase 14 drives the paper pipeline (``python -m
+unet_embroidery_seg_torch.pipeline``, ``run.sh``'s stages through the
+port) in process on ``synthetic:16`` at 512^2, batch 8, full width, one
+epoch of two steps a fit, ``--no-amp`` as ``run.sh`` trains: binary with
+every stage (10 fits), multiclass to stage 1 (2), multitask (1). The
+counts are set to 0 before it and read after. It fails unless each leg's
+``expN/config.json`` sequence of (task, model, loss) is ``pipeline.plan``'s
+with the winner picked, every run is f32 on the card, the tables hold a
+row per fit (multitask renders none, as ``run.sh``), every square conv
+site is on ``tf32x3``, the f32 upsample (forward, backward) and conv
+(fused and bias-free forward, dgrad) all launched, and each fit's counts
+are its family's sites times its model forwards (backward: its train
+steps, 2). Prints each leg's seconds per fit.
+
+Phase 15 runs one seed of ``scripts/torch_parity_study.py``'s bf16
+unet_resnet50 + Lovasz arm for 2 epochs at 256^2: the study writes its
+data tree (parquet where ``datasets`` is installed, else VOC), checks that
+the CLI opens it and not the synthetic fallback, and the JSON entry must
+hold a finite test IoU from a bf16 run that launched the kernels.
 
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
@@ -357,18 +381,18 @@ SERVING_BATCHES = {"bf16": (1, BATCH), "f32": (1,)}
 SERVING_CALLS = 20
 PROFILE_CHUNK, PROFILE_TRAIN_BATCHES = 2, 4
 DISPATCH_CALLS = 500
+# Phase 14: the paper pipeline's legs (task, --max-stage) on synthetic:16
+# at 512^2, batch 8, one epoch of two steps; each fit's train forwards.
+PIPELINE_LEGS = (("binary", 4), ("multiclass", 1), ("multitask", 4))
+PIPELINE_FLAGS = ["--data-path", "synthetic:16", "--epochs", "1", "--max-batches", "2",
+                  "--input-size", str(TRAIN_SIZE), "--batch-size", str(BATCH)]
+PIPELINE_STEPS = 2
+# Phase 15: one seed of the accuracy study's bf16 unet_resnet50 + Lovasz arm.
+STUDY_ARM, STUDY_EPOCHS = "resnet_lovasz/bf16", 2
 # How kernel and library ``ms`` are timed: calls captured into a CUDA graph
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
 MS_METHOD = "cuda_graph_replay"
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(nbytes: float, flops: float, dtype, path: str = "") -> tuple[float, str]:
@@ -2127,10 +2151,57 @@ def serving_phase(counters) -> dict:
                 del module, probs
             out[f"{label}_export_seconds"] = export_s
             torch.cuda.empty_cache()
+        out["bf16_b1_unbaked"] = unbaked_artifact(model, weights, canvases, workdir, counters)
         return out
     finally:
         torch.backends.cudnn.allow_tf32 = allow_tf32
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def unbaked_artifact(model, weights: str, canvases, workdir: str, counters) -> dict:
+    """13f: the ``--no-bake-weights`` artifact (bf16, batch 1) on the card against eager predict.
+
+    The artifact takes the model's state dict at every call; on each of the
+    canvases it must equal ``predict_probs`` of the eager model within the
+    ``--check`` rule, with 5 upsample and 6 fused-conv launches per forward.
+    """
+    from unet_embroidery_seg_torch import export_serving
+    from unet_embroidery_seg_torch.engine.steps import make_predict_fn
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    out_dir = os.path.join(workdir, "unbaked")
+    manifest = export_serving.main(
+        ["--weights", weights, "--model", "unet_resnet50", "--input-size", str(SIZE),
+         "--batches", "1", "--platforms", "cuda", "--out", out_dir, "--check",
+         "--no-bake-weights"])
+    art = manifest["artifacts"]["1"]["cuda"]
+    module = export_serving.load_artifact(os.path.join(out_dir, art["file"]))
+    predict_fn = make_predict_fn(model, True)
+    state = model.state_dict()
+    err = 0.0
+    with torch.no_grad():
+        for i in range(len(canvases)):
+            got = module(state, torch.from_numpy(canvases[i : i + 1]).cuda()).cpu().numpy()
+            err = max(err, float(np.abs(got - predict_probs(predict_fn, canvases[i : i + 1]))
+                                 .max()))
+        x = torch.from_numpy(canvases[:1]).cuda()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        module(state, x)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters} | {"upsample2x": 5, "conv3x3_bias_relu": 6}
+    row = {"file": art["file"], "bytes": art["bytes"], "baked_weights": manifest["baked_weights"],
+           "check_max_abs_diff": art["check_max_abs_diff"],
+           "max_abs_diff_vs_predict_probs": err, "canvases": len(canvases),
+           "launches_per_forward": launches}
+    print("serving[bf16,b1,unbaked] " + json.dumps(row), flush=True)
+    if (manifest["baked_weights"] or launches != want
+            or not err <= export_serving.CHECK_TOLERANCE):
+        raise AssertionError(f"--no-bake-weights artifact: launches {launches} != {want} or "
+                             f"max abs diff {err}")
+    return row
 
 
 def _kernel_role(name: str) -> str | None:
@@ -2289,6 +2360,186 @@ def tooling_phase(counters, data, resident_step_ms: float) -> dict:
     return out
 
 
+def _exp_configs(cwd: str) -> list[dict]:
+    """The config.json of each ``run/train/expN`` under ``cwd``, in the order of N."""
+    import glob
+
+    exps = glob.glob(os.path.join(cwd, "run", "train", "exp*"))
+    out = []
+    for exp in sorted(exps, key=lambda p: int(os.path.basename(p)[3:] or 0)):
+        with open(os.path.join(exp, "config.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _fit_sites(model: str) -> dict:
+    """{launch counter: launches per forward} of ``model``'s kernel sites."""
+    if model in ("unet_resnet50", "multitask_unet"):
+        return {k: RESNET_PER_STEP[k] for k in ("upsample2x", "conv3x3_bias_relu",
+                                                "conv3x3_same")}
+    return FAMILY_FORWARD_LAUNCHES[model]
+
+
+def _check_fit_launches(fit: dict) -> dict:
+    """The launches one fit should have made: its sites times its forwards (train and eval),
+    the backward kernels' its sites times its train forwards."""
+    per = _fit_sites(fit["model"])
+    n_all, n_train = fit["forwards"]["train"] + fit["forwards"]["eval"], fit["forwards"]["train"]
+    want = {"upsample2x": per["upsample2x"] * n_all,
+            "upsample2x_backward": per["upsample2x"] * n_train,
+            "conv3x3_bias_relu": per["conv3x3_bias_relu"] * n_all,
+            "conv3x3_same": per["conv3x3_same"] * n_all,
+            "conv3x3_dgrad": (per["conv3x3_bias_relu"] + per["conv3x3_same"]) * n_train}
+    if fit["launches"] != want or n_train != PIPELINE_STEPS:
+        raise AssertionError(f"pipeline fit {fit['model']}+{fit['loss']}: launches "
+                             f"{fit['launches']} != {want}, or {n_train} train steps "
+                             f"!= {PIPELINE_STEPS}")
+    return want
+
+
+def pipeline_phase(counters) -> dict:
+    """Phase 14: the paper pipeline (``unet_embroidery_seg_torch.pipeline``) on the card.
+
+    Three legs, each in a working directory of its own: binary with every
+    stage (10 fits), multiclass to stage 1 (2 fits), multitask (1 fit), at
+    512^2, full width, ``--no-amp`` as ``run.sh`` trains. Each fit is timed
+    and its kernel launches and model forwards (train, eval) are counted.
+    Fails unless the fits' (task, model, loss) follow ``pipeline.plan``
+    with the winner picked, every config.json records an f32 run on the
+    card, the tables hold a row per fit (multitask renders none, as
+    ``run.sh``), every square conv site is on ``tf32x3``, and each fit's
+    launches are its sites times its forwards (backward: train forwards).
+    """
+    from unet_embroidery_seg_torch import pipeline
+    from unet_embroidery_seg_torch import train as train_cli
+
+    fits: list[dict] = []
+    forwards: list[bool] = []
+    paths: list[dict] = []
+    real_fit, real_build = pipeline.run_fit, train_cli.build_model
+
+    def counted_build(*args, **kwargs):
+        model = real_build(*args, **kwargs)
+        paths.append(square_conv_paths(model, torch.float32))
+        model.register_forward_pre_hook(lambda m, a: forwards.append(torch.is_grad_enabled()))
+        return model
+
+    def counted_fit(argv):
+        forwards.clear()
+        before = {c.__name__: c.launches for c in counters}
+        t0 = time.perf_counter()
+        exp = real_fit(argv)
+        fits.append({"model": argv[argv.index("--model") + 1],
+                     "loss": argv[argv.index("--loss") + 1], "exp": exp,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {c.__name__: c.launches - before[c.__name__] for c in counters},
+                     "forwards": {"train": sum(forwards), "eval": len(forwards) - sum(forwards)}})
+        return exp
+
+    workdir = tempfile.mkdtemp(prefix="pipeline-")
+    cwd = os.getcwd()
+    out: dict = {"legs": {}}
+    t_phase = time.perf_counter()
+    pipeline.run_fit, train_cli.build_model = counted_fit, counted_build
+    for c in counters:
+        c.launches = 0
+    try:
+        for task, max_stage in PIPELINE_LEGS:
+            leg_dir = os.path.join(workdir, task)
+            os.makedirs(leg_dir)
+            os.chdir(leg_dir)
+            first = len(fits)
+            t0 = time.perf_counter()
+            records = pipeline.main(["--task", task, "--max-stage", str(max_stage)]
+                                    + PIPELINE_FLAGS)
+            leg_s = time.perf_counter() - t0
+            leg_fits = fits[first:]
+            best = None
+            if task != "multitask":
+                (a, sa), (b, sb) = ((r["loss"], r["best_score"]) for r in records[:2])
+                best = pipeline.winner(a, b, sa, sb) if max_stage >= 2 else None
+            want = [(task, m, l) for m, l in pipeline.plan(task, max_stage, None, best)]
+            configs = _exp_configs(leg_dir)
+            got = [(c["task"], c["model"], c["loss"]) for c in configs]
+            tables = sorted(os.listdir(os.path.join(leg_dir, "run", "tables")))
+            rows = 0
+            if "all_runs.csv" in tables:
+                with open(os.path.join(leg_dir, "run", "tables", "all_runs.csv")) as f:
+                    rows = len(f.read().strip().splitlines()) - 1
+            leg = {"fits": len(leg_fits), "seconds": leg_s, "winner": best, "tables": tables,
+                   "all_runs_rows": rows,
+                   "fit_seconds": [round(f["seconds"], 2) for f in leg_fits]}
+            print(f"pipeline[{task}] " + json.dumps(leg), flush=True)
+            f32 = all(c["amp"] is False and c["device"] == "cuda" for c in configs)
+            want_rows = 0 if task == "multitask" else len(want)
+            if (got != want or len(leg_fits) != len(want) or not f32 or rows != want_rows
+                    or (task == "multitask") != (tables == [])):
+                raise AssertionError(f"pipeline leg {task}: fits {got} != {want}, f32 {f32}, "
+                                     f"tables {tables} with {rows} rows")
+            out["legs"][task] = leg
+        for fit in fits:
+            _check_fit_launches(fit)
+        if any(set(p) - {"tf32x3"} for p in paths):
+            raise AssertionError(f"pipeline: square conv sites off tf32x3 in f32: {paths}")
+    finally:
+        pipeline.run_fit, train_cli.build_model = real_fit, real_build
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    totals = {c.__name__: c.launches for c in counters}
+    if not all(totals[k] > 0 for k in ("upsample2x", "upsample2x_backward", "conv3x3_bias_relu",
+                                       "conv3x3_same", "conv3x3_dgrad")):
+        raise AssertionError(f"pipeline: a kernel of the f32 path was not launched: {totals}")
+    out.update(launches=totals, seconds=time.perf_counter() - t_phase,
+               fits=[{k: f[k] for k in ("model", "loss", "seconds", "launches", "forwards")}
+                     for f in fits])
+    print("pipeline_fits " + json.dumps(
+        [(f["model"], f["loss"], round(f["seconds"], 2)) for f in fits]), flush=True)
+    return out
+
+
+def study_phase(counters) -> dict:
+    """Phase 15: one seed of the accuracy study's bf16 resnet + Lovasz arm for 2 epochs.
+
+    ``scripts/torch_parity_study.py`` writes its data tree (parquet where
+    ``datasets`` is installed, else VOC), checks that the train CLI opens it
+    and not the synthetic fallback, trains, and writes the JSON entry; the
+    entry must hold a finite test IoU, and the kernels must have run.
+    """
+    import importlib.util
+    import math
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_parity_study.py")
+    spec = importlib.util.spec_from_file_location("torch_parity_study", path)
+    study = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = study  # dataclasses look their module up there
+    spec.loader.exec_module(study)
+    workdir = tempfile.mkdtemp(prefix="study-")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        results = study.main(["--arms", STUDY_ARM, "--seeds", "0", "--epochs", str(STUDY_EPOCHS),
+                              "--data", os.path.join(workdir, "data"),
+                              "--out", os.path.join(workdir, "parity.json"),
+                              "--workdir", os.path.join(workdir, "runs")])
+        with open(os.path.join(workdir, "parity.json")) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    run = written["arms"][STUDY_ARM]["by_seed"]["0"]
+    out = {"format": written["data"]["format"], "run": run, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print("study " + json.dumps(out), flush=True)
+    if (not math.isfinite(run["IoU"]) or run["amp"] is not True
+            or results["arms"][STUDY_ARM]["by_seed"]["0"] != run
+            or not all(launches[k] > 0 for k in ("upsample2x", "upsample2x_backward",
+                                                 "conv3x3_bias_relu", "conv3x3_dgrad"))):
+        raise AssertionError(f"study leg: {out}")
+    return out
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -2401,7 +2652,7 @@ def main(argv=None) -> int:
     from unet_embroidery_seg_torch.ops import _build
     from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad, conv3x3_same
     from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
-    from unet_embroidery_seg_torch.utils.device import set_float32_precision
+    from unet_embroidery_seg_torch.utils.device import card_line, set_float32_precision
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2493,6 +2744,11 @@ def main(argv=None) -> int:
 
     # Phase 13: the tooling.
     tooling = tooling_phase(train_counters, data, res["train"]["step_ms_median"])
+    del cache, data
+    torch.cuda.empty_cache()
+
+    # Phase 14: the paper pipeline; phase 15: a short leg of the accuracy study.
+    paper = {"pipeline": pipeline_phase(train_counters), "study": study_phase(train_counters)}
 
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
@@ -2510,7 +2766,8 @@ def main(argv=None) -> int:
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
                        "tasks": tasks, "resident": res, "data_parallel": ddp,
-                       "tooling": tooling, "kernels": kernels, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "tooling": tooling, "paper": paper, "kernels": kernels,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

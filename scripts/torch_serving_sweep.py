@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -48,18 +47,10 @@ from unet_embroidery_seg_torch.export_serving import (  # noqa: E402
     load_artifact,
 )
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model  # noqa: E402
-from unet_embroidery_seg_torch.utils.device import set_float32_precision  # noqa: E402
+from unet_embroidery_seg_torch.utils.device import card_line, set_float32_precision  # noqa: E402,E501
 
 WARMUP = 3
 BUDGET_MS = 500.0  # measured calls per point: about this much card time, 5 to 50 calls
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def measure(module, x: torch.Tensor) -> dict:

@@ -241,6 +241,38 @@ def runs(tmp_path_factory):
     return out
 
 
+HOST_CASES = ("bce_tail", "lovasz")  # bce_tail: ranks 2 and 3 hold only padded rows
+HOST_RANKS = 4
+
+
+@pytest.fixture(scope="module")
+def two_host_ranks(runs, tmp_path_factory):
+    """The results of a 4-rank gloo job joined by an explicit ``file://`` address as two
+    hosts of two CPU devices each (``torch_parallel_worker.run_on_two_hosts``), by rank."""
+    import torch.multiprocessing as mp
+
+    tmp = tmp_path_factory.mktemp("two_hosts")
+    port_cases, _ = _cases()
+    torch.save({n: port_cases[n] for n in HOST_CASES}, tmp / "inputs.pt")
+    ctx = mp.start_processes(
+        worker.run_on_two_hosts,
+        args=(f"file://{tmp / 'store'}", HOST_RANKS, str(tmp / "inputs.pt"), str(tmp)),
+        nprocs=HOST_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOB_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            assert time.monotonic() < deadline, "the 4-rank job did not end"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = [torch.load(tmp / f"host_rank{r}.pt", weights_only=False) for r in range(HOST_RANKS)]
+    for f in os.listdir(tmp):
+        os.remove(tmp / f)
+    return out
+
+
 def _cat(ranks: list, *path) -> torch.Tensor:
     def get(r):
         for p in path:
@@ -284,6 +316,24 @@ def test_shard_batch_arrays_rows_are_the_jax_data_shards(rank):
         shard = [s for s in theirs.addressable_shards if s.device == device]
         np.testing.assert_array_equal(ours, np.asarray(shard[0].data))
     assert mesh_lib.global_batch_from_local(mesh, images, None) == (images, None)
+
+
+def test_explicit_address_job_on_two_hosts_builds_its_mesh(two_host_ranks):
+    # Each rank sees its host's two devices; the mesh spans both hosts'.
+    # Before the repair every rank raised "mesh (4x1) needs 4 devices, have 2".
+    got = [r["mesh"] for r in two_host_ranks]
+    assert got == [{"rank": r, "world_size": HOST_RANKS, "local_rank": r % 2,
+                    "local_world_size": 2} for r in range(HOST_RANKS)]
+
+
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_two_host_sgd_step_equals_one_process(runs, two_host_ranks, case):
+    want = runs["port"][case]
+    for r in two_host_ranks:
+        np.testing.assert_allclose(r[case]["loss"], want["loss"], rtol=1e-6)
+        for k in _float_keys(want["state"]):
+            np.testing.assert_allclose(r[case]["state"][k].numpy(), want["state"][k].numpy(),
+                                       atol=1e-5, rtol=1e-4, err_msg=k)
 
 
 def test_a_failing_rank_fails_the_launch():

@@ -165,3 +165,25 @@ def run(rank: int, inputs_path: str, out_dir: str) -> None:
     results = {name: run_case(kind, case, mesh) for name, (kind, case) in inputs.items()}
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
+
+def run_on_two_hosts(rank: int, init_method: str, world: int, inputs_path: str,
+                     out_dir: str) -> None:
+    """Worker of a gloo job joined by explicit address, as two hosts of two CPU devices each.
+
+    Ranks 0-1 see the hostname ``host0``, ranks 2-3 ``host1``; each builds
+    the mesh on its host's two devices and computes the sgd cases of
+    ``inputs_path`` on its rows.
+    """
+    import socket
+
+    torch.set_num_threads(1)
+    socket.gethostname = lambda: f"host{rank // 2}"  # this worker process only
+    mesh_lib.init_multihost(init_method, world, rank, backend="gloo")
+    mesh = mesh_lib.make_mesh(devices=[torch.device("cpu")] * 2)
+    inputs = torch.load(inputs_path, weights_only=False)
+    results = {name: run_case(kind, case, mesh) for name, (kind, case) in inputs.items()}
+    results["mesh"] = {"rank": mesh.rank, "world_size": mesh.world_size,
+                       "local_rank": int(os.environ["LOCAL_RANK"]),
+                       "local_world_size": int(os.environ["LOCAL_WORLD_SIZE"])}
+    torch.save(results, os.path.join(out_dir, f"host_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()

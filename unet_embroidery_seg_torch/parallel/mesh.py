@@ -23,8 +23,9 @@ resize and BatchNorm would need one written out (ROADMAP.md Queue 1 item
 
 Backends: NCCL on the card, gloo on the CPU (and gloo with CUDA tensors
 where NCCL cannot go, two ranks on one card). A job is joined from
-``torchrun``'s environment (``init_multihost()``) or started here with one
-worker process per rank (``launch_local``).
+``torchrun``'s environment (``init_multihost()``), by an explicit address
+on any number of hosts (``init_multihost(address, world, rank)``), or
+started here with one worker process per rank (``launch_local``).
 """
 
 from __future__ import annotations
@@ -86,6 +87,28 @@ def _local_rank(rank: int) -> int:
     return int(os.environ.get("LOCAL_RANK", rank))
 
 
+def host_topology() -> tuple[int, int]:
+    """(local rank, processes on this host) of this process in the joined job.
+
+    Every rank all-gathers the name of its host (``socket.gethostname()``)
+    over a gloo group made for the purpose, so
+    that it works before a card is chosen under NCCL; the ranks that share
+    a name share a host, and this process's local rank is its place among
+    them. A collective: every rank of the job calls it.
+    """
+    import socket
+
+    host = socket.gethostname()
+    group = dist.new_group(backend="gloo")
+    try:
+        hosts: list = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, host, group=group)
+    finally:
+        dist.destroy_process_group(group)
+    mine = [r for r, h in enumerate(hosts) if h == host]
+    return mine.index(dist.get_rank()), len(mine)
+
+
 def init_multihost(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
@@ -99,10 +122,13 @@ def init_multihost(
     ``WORLD_SIZE`` above 1) the call is a no-op that returns 0, as the JAX
     function is without a coordinator. Otherwise pass all three:
     ``coordinator_address`` is an ``init_method`` (``tcp://host:port``,
-    ``file://path``) or a bare ``host:port``. ``backend`` defaults to NCCL
-    when a card is present, else gloo; under NCCL this process's card
-    (``LOCAL_RANK``, else the rank) becomes the current device first.
-    A process that already joined gets its rank back.
+    ``file://path``) or a bare ``host:port``. A job joined so learns each
+    process's local rank and its host's process count from the job itself
+    (``host_topology``, by hostname) and sets ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` as ``torchrun`` does, so that ``make_mesh`` counts
+    the devices of every host. ``backend`` defaults to NCCL when a card is present, else gloo;
+    under NCCL this process's card is the one of its local rank, never its
+    global rank. A process that already joined gets its rank back.
     """
     if dist.is_initialized():
         return dist.get_rank()
@@ -117,10 +143,17 @@ def init_multihost(
                        else f"tcp://{coordinator_address}")
         world, rank = num_processes, process_id
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
-    if backend == "nccl":
+    explicit = init_method != "env://"
+    if backend == "nccl" and not explicit:
         torch.cuda.set_device(_local_rank(rank))
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    if explicit:
+        if world > 1:
+            local_rank, local_world = host_topology()
+            os.environ.update(LOCAL_RANK=str(local_rank), LOCAL_WORLD_SIZE=str(local_world))
+        if backend == "nccl":  # before the first NCCL collective binds a card
+            torch.cuda.set_device(_local_rank(rank))
     return rank
 
 
@@ -138,7 +171,11 @@ def make_mesh(n_data: int | None = None, n_space: int = 1,
     """This process's ``Mesh`` on a data axis of ``n_data`` ranks (default: every process).
 
     ``devices`` lists the devices of this host's ranks, by local rank:
-    every visible card by default, else the CPU once per process. The data
+    every visible card by default, else the CPU once per process. The job
+    holds that many devices on each host (hosts: the world size over
+    ``LOCAL_WORLD_SIZE``, which ``torchrun`` and an explicit-address
+    ``init_multihost`` set; one host without it), and this process takes
+    the device of its local rank (``LOCAL_RANK``, else its rank). The data
     axis must span the job: one process per rank. On a card, the rank's
     card becomes the current device here, before any kernel launches.
     """
@@ -148,7 +185,7 @@ def make_mesh(n_data: int | None = None, n_space: int = 1,
     if devices is None:
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                    or [torch.device("cpu")] * max(world, n_data))
-    hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))  # torchrun sets it
+    hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
     check_mesh_size(n_data, n_space, len(devices) * hosts)
     if n_data != world:
         raise ValueError(f"a data axis of {n_data} needs {n_data} processes, this job has "

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -34,8 +36,25 @@ def set_float32_precision() -> None:
       dgrad) is f32-accurate whatever these say: 3xTF32 on the tensor cores
       (``tf32x3``), or the CUDA cores (``fma``).
 
-    Whether ``--no-amp`` should turn cuDNN's TF32 off is an open question
-    (ROADMAP Queue 3). Under bf16 autocast neither flag matters.
+    cuDNN's TF32 stays on under ``--no-amp`` for now: the accuracy study
+    (``scripts/torch_parity_study.py``, ``TORCH_PARITY.json``) detected no
+    difference in test IoU with it off at 8 seeds an arm (an effect up to
+    ~0.05 is not excluded), at 1.4x the time per fit. The question stays
+    open (ROADMAP Queue 3). Under bf16 autocast neither flag matters.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi`` reports them.
+
+    Every measurement on the card is written beside it: a card set below
+    its maximum power runs slower under load. Raises where ``nvidia-smi``
+    does not run.
+    """
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
