@@ -216,6 +216,25 @@ data tree (parquet where ``datasets`` is installed, else VOC), checks that
 the CLI opens it and not the synthetic fallback, and the JSON entry must
 hold a finite test IoU from a bf16 run that launched the kernels.
 
+Phase 16 drives the mesh's space axis (``--mesh-space``, ``parallel/halo.py``):
+16a holds the kernels' halo-padded (conv: forward and dgrad) and band
+(upsample: forward and backward) modes at unet_resnet50's 11 sites at
+512^2, batch 8, each image's rows split in two, bf16 and f32: each shard
+against its plain version, the shards together against the unsplit kernel
+(forward exactly, backward within one more rounding), each shard timed
+beside ``F.conv2d`` with padding (0, 1) on the same input or
+``F.interpolate`` on the band, with its bound. 16b runs two gloo ranks on
+the one card as a 1x2 mesh against one process: the f32 SGD step (12b's
+rule), f32 eval counts exactly (the seeded weights), the bf16 eval's
+logits and predictions within 4x the floor of a one-ulp input move, 6 bf16
+Lovasz steps per rank with 5 + 5 + 6 + 6 launches per step, every one in
+its halo or band mode, the exchange's collectives per step, ms/step,
+the card's busy ms per step (2 profiled steps) and peak memory beside one
+process's. 16c (``--multi-card-only``, four
+cards): the train CLI with ``--mesh-data 2 --mesh-space 2`` over NCCL
+writes ``expN``, and the 1x2 steps run over NCCL on two cards; with fewer
+cards it prints why it did not run.
+
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
 kernel: in f32 every site is ``tf32x3``.
@@ -223,8 +242,9 @@ kernel: in f32 every site is ``tf32x3``.
 Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
 families' under names of their own, then the f32 conv's, ``[f32]``, with
 phase 9's launches, then the f32 entries at unet_resnet50's sites,
-``[...,f32]``, with phase 10b's multitask launches), the card line, and the
-result line.
+``[...,f32]``, with phase 10b's multitask launches, then phase 16's halo
+and band entries, ``[...,halo]`` and ``[band...]``, with 16b's launches),
+the card line, and the result line.
 
 Imports nothing of JAX, PIL or cv2. Exits non-zero, printing no result,
 without a CUDA card or outside a checkout of the repository.
@@ -1762,11 +1782,12 @@ def _sgd_model_and_batch(device):
     return model, seeded_train_batch(BATCH, TRAIN_SIZE, seed=12)
 
 
-def _sgd_step(model, batch, group=None) -> float:
+def _sgd_step(model, batch, group=None, space=None) -> float:
     from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
 
     opt = torch.optim.SGD(model.parameters(), lr=DDP_LR_SGD)
-    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=False, group=group)
+    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=False, group=group,
+                                  space=space)
     return float(step(*batch))
 
 
@@ -2540,6 +2561,469 @@ def study_phase(counters) -> dict:
     return out
 
 
+# Phase 16, the mesh's space axis: a 1x2 mesh splits each 512^2 image's
+# rows in two. 16a: the kernels' halo-padded (conv) and band (upsample)
+# modes at unet_resnet50's 11 sites, each shard against its plain version
+# (phase 2's tolerances) and the shards together against the unsplit kernel:
+# forward bit for bit (every output row is the unsplit kernel's own sum);
+# backward, the two shards' partial gradients of a halo row are each
+# rounded to the type before they are added, so within one more rounding:
+# 2^-7 of the largest value in bf16, phase 2's f32 rule in f32. 16b: two
+# gloo ranks on the one card against one process; the f32 SGD step to
+# 12b's rule, the bf16 steps' first loss to 11b's rtol 1e-3, eval counts
+# exactly in f32 (TF32 off). In bf16 cuDNN picks its kernels by shape, and
+# a band's convs (H padding 0, fewer rows) round their sums otherwise than
+# the whole image's; through ~50 bf16 layers that moves the logits by about
+# what one bf16 rounding of the input does, and a logit near 0 changes
+# sign. So the bf16 eval is held, as phase 6 holds f32 gradients, to 4x the
+# floor measured in the same run: the one-process logits with the input
+# moved by one bf16 ulp (2^-8) either way; the pixels whose prediction
+# changes, and the logits' largest difference as a share of their largest
+# value. 16c: four cards (--multi-card-only).
+SPACE_SPLIT = 2
+SPACE_STEPS = 6  # 16b's bf16 train steps per rank, after one warm-up step
+SPACE_PROFILED_STEPS = 2  # then these under the profiler: the card's busy ms per step
+TOL_SPACE_BWD_BF16 = 2.0 ** -7
+BF16_ULP = 2.0 ** -8
+
+
+def _space_shards(h: int):
+    """(shard, own rows, input rows with the halo, conv pads) of a 2-way split of ``h`` rows."""
+    b = h // SPACE_SPLIT
+    return [(0, slice(0, b), slice(0, b + 1), (1, 0)),
+            (1, slice(b, h), slice(b - 1, h), (0, 1))]
+
+
+def _space_row(kernel, site, s, path, dtype, run, plain, library, nbytes, flops, shape):
+    """One timed 16a row; shard 0's counts in the pass of one rank, shard 1's are held only."""
+    return measure_site("space_site", kernel, f"{site}.shard{s}", path, dtype, run, plain,
+                        library, nbytes, flops,
+                        {"shape": shape, "count": int(s == 0), "sites_of": "unet_resnet50, 1x2",
+                         "shard": s})
+
+
+@torch.no_grad()
+def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
+    """16a: the halo and band modes at the 11 sites, 512^2, batch 8, bf16 and f32, split in two.
+
+    Returns (the timed rows, the shards-against-unsplit differences by site).
+    The conv's library yardstick is ``F.conv2d`` with padding (0, 1) on the
+    same halo-padded input (TF32 off), dgrad's cuDNN's on the band's own
+    rows, the upsample's ``F.interpolate`` of the band's input and its
+    backward on the band's rows.
+    """
+    from unet_embroidery_seg_torch.ops import conv3x3 as C
+    from unet_embroidery_seg_torch.ops import upsample as U
+    from unet_embroidery_seg_torch.ops.resize import band_input_rows
+
+    dev, cl = torch.device("cuda"), torch.channels_last
+    rows, unsplit = [], {}
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "" if dtype == torch.bfloat16 else ".f32"
+        for site, c, h in DGRAD_SITES:
+            x = torch.relu(torch.randn(BATCH, c, h, h, generator=gen)).to(dev, dtype)
+            x = x.contiguous(memory_format=cl)
+            g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(
+                memory_format=cl)
+            w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
+            b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+            wd, bd = w.to(dtype).contiguous(memory_format=cl), b.to(dtype)
+            path, es = C.conv3x3_path(c, dtype), x.element_size()
+            want_y, want_dx = C.conv3x3_bias_relu(x, w, b), C.conv3x3_dgrad(g, w)
+            got_y, got_dx = [], torch.zeros(want_dx.shape, device=dev)
+            for s, own, halo_rows, pad in _space_shards(h):
+                xs = x[:, :, halo_rows].contiguous(memory_format=cl)
+                gs = g[:, :, own].contiguous(memory_format=cl)
+                flops = 2.0 * 9 * c * c * BATCH * (h // 2) * h
+                rows.append(_space_row(
+                    "conv3x3_same", site + tag, s, path, dtype,
+                    lambda xs=xs, pad=pad: C.conv3x3_bias_relu(xs, w, b, pad),
+                    lambda xs=xs, pad=pad: C.conv3x3_bias_relu_plain(xs, w, b, pad),
+                    lambda xs=xs: F.conv2d(xs, wd, bd, padding=(0, 1)),
+                    (xs.numel() + gs.numel() + 9 * c * c) * es + 4 * c, flops, list(xs.shape)))
+                dp = C.dgrad_pad(pad)
+                rows.append(_space_row(
+                    "conv3x3_dgrad", site + tag, s, path, dtype,
+                    lambda gs=gs, dp=dp: C.conv3x3_dgrad(gs, w, dp),
+                    lambda gs=gs, dp=dp: C.conv3x3_dgrad_plain(gs, w, dp),
+                    lambda gs=gs: torch.nn.grad.conv2d_input(gs.shape, wd, gs, padding=1),
+                    (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape)))
+                got_y.append(C.conv3x3_bias_relu(xs, w, b, pad))
+                got_dx[:, :, halo_rows] += C.conv3x3_dgrad(gs, w, dp).float()
+            unsplit[f"conv3x3_same:{site}{tag}"] = (torch.cat(got_y, 2).float()
+                                                     - want_y.float()).abs().max().item()
+            unsplit[f"conv3x3_dgrad:{site}{tag}"] = ((got_dx - want_dx.float()).abs().max().item()
+                                                      / want_dx.float().abs().max().item())
+        for site, c, h, skip in UPSAMPLE_BWD_SITES:
+            x = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(
+                memory_format=cl)
+            full_g = torch.randn(BATCH, skip + c, 2 * h, 2 * h, generator=gen)
+            g = full_g.to(dev, dtype).contiguous(memory_format=cl)[:, skip:]
+            es = x.element_size()
+            want_y, want_dx = U.upsample2x(x, True), U.upsample2x_backward(g, True)
+            got_y, got_dx = [], torch.zeros(want_dx.shape, device=dev)
+            for s, own, _, _ in _space_shards(h):
+                band = (h, own.start, own.stop)
+                first, n = band_input_rows(band)
+                xs = x[:, :, first:first + n].contiguous(memory_format=cl)
+                gs = g[:, :, 2 * own.start:2 * own.stop]  # the cat slice's rows, read in place
+                out_elems = BATCH * c * 2 * (h // 2) * 2 * h
+                rows.append(_space_row(
+                    "upsample2x", site + tag, s, "staged, band", dtype,
+                    lambda xs=xs, band=band: U.upsample2x(xs, True, band),
+                    lambda xs=xs, band=band: U.upsample2x_plain(xs, True, band),
+                    lambda xs=xs: F.interpolate(xs, scale_factor=2, mode="bilinear",
+                                                align_corners=True),
+                    (xs.numel() + out_elems) * es, 9.0 * out_elems, list(xs.shape)))
+                rows.append(_space_row(
+                    "upsample2x_backward", site + tag, s,
+                    "staged, band, cat slice" if skip else "staged, band", dtype,
+                    lambda gs=gs, band=band: U.upsample2x_backward(gs, True, band),
+                    lambda gs=gs, band=band: U.upsample2x_backward_plain(gs, True, band),
+                    lambda gs=gs: torch.ops.aten.upsample_bilinear2d_backward(
+                        gs, [gs.shape[2], 2 * h], [BATCH, c, gs.shape[2] // 2, h], True),
+                    (xs.numel() + out_elems) * es, 8.0 * out_elems, list(gs.shape)))
+                got_y.append(U.upsample2x(xs, True, band))
+                got_dx[:, :, first:first + n] += U.upsample2x_backward(gs, True, band).float()
+            unsplit[f"upsample2x:{site}{tag}"] = (torch.cat(got_y, 2).float()
+                                                   - want_y.float()).abs().max().item()
+            unsplit[f"upsample2x_backward:{site}{tag}"] = (
+                (got_dx - want_dx.float()).abs().max().item()
+                / want_dx.float().abs().max().item())
+        torch.cuda.empty_cache()
+    print("space_unsplit " + json.dumps(unsplit), flush=True)
+    for key, err in unsplit.items():
+        kernel = key.split(":")[0]
+        tol = 0.0 if kernel in ("conv3x3_same", "upsample2x") else (
+            TOL_SPACE_BWD_BF16 if not key.endswith(".f32") else TOL_F32[kernel])
+        if not err <= tol:
+            raise AssertionError(f"space axis: {key} shards against the unsplit kernel: "
+                                 f"{err} > {tol}")
+    return rows, unsplit
+
+
+def _space_step_run(mesh, counters, amp: bool, steps: int, profile: bool = False) -> dict:
+    """unet_resnet50 (seed 0) Lovasz train steps at 512^2, batch 8, on ``mesh`` (None: one process).
+
+    First one eval step's counts and the eval forward's logits (grad off,
+    the seeded weights: both sides read the same; the logits under
+    ``logits``, on the CPU; one process also gives ``logits_moved``, with
+    the input moved by one bf16 ulp up and down), then one warm-up step,
+    then ``steps`` steps with the counters (and the halo exchange's) zeroed
+    just before and read just after, CUDA events per step and the peak
+    memory; with ``profile``, ``SPACE_PROFILED_STEPS`` more under the
+    profiler: the card's busy ms per step and its kernel groups.
+    """
+    from unet_embroidery_seg_torch.data.synthetic import seeded_train_batch
+    from unet_embroidery_seg_torch.engine.steps import (
+        make_binary_eval_step,
+        make_binary_train_step,
+    )
+    from unet_embroidery_seg_torch.models import build_model
+    from unet_embroidery_seg_torch.ops import schedules
+    from unet_embroidery_seg_torch.parallel import halo
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    device = torch.device("cuda") if mesh is None else mesh.device
+    model = build_model("unet_resnet50", 2, diff_head=True,
+                        generator=torch.Generator().manual_seed(0), device=device)
+    opt = schedules.make_train_optimizer(model.parameters(), TRAIN_LR)
+    group, space = (None, None) if mesh is None else (mesh.group, halo.space_axis(mesh))
+    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=amp, group=group,
+                                  space=space)
+    batch = seeded_train_batch(BATCH, TRAIN_SIZE, seed=0)
+    if mesh is not None:
+        batch = mesh_lib.shard_batch_arrays(mesh, *batch)
+    evaluate = make_binary_eval_step(model, "lovasz_hinge", None, amp=amp, group=group,
+                                     space=space)
+    eval_counts = evaluate(*batch)[1].tolist()
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp):
+        x = torch.as_tensor(batch[0]).to(device).permute(0, 3, 1, 2)
+        logits = model(x).float().cpu()
+        moved = ([model(x * scale).float().cpu() for scale in (1 + BF16_ULP, 1 - BF16_ULP)]
+                 if mesh is None else None)
+    losses = [float(step(*batch))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for c in counters:
+        c.launches = c.halo_launches = 0
+    halo.SpaceAxis.collectives = 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    marks[0].record()
+    out = []
+    for k in range(steps):
+        out.append(step(*batch))
+        marks[k + 1].record()
+    losses += [float(v) for v in out]
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    result = {"losses": losses, "step_ms_median": statistics.median(step_ms),
+              "step_ms": step_ms, "step_ms_method": "cuda_events",
+              "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+              "launches": {c.__name__: c.launches for c in counters},
+              "halo_launches": {c.__name__: c.halo_launches for c in counters},
+              "exchange_calls_per_step": halo.SpaceAxis.collectives / steps,
+              "eval_counts": eval_counts,
+              "logits": logits, "logits_moved": moved}
+    if profile:
+        from unet_embroidery_seg_torch.utils.timing import device_ms_by_group
+
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(SPACE_PROFILED_STEPS):
+                step(*batch)
+            torch.cuda.synchronize()
+        by_group, _ = device_ms_by_group(prof, SPACE_PROFILED_STEPS)
+        result["device_busy_ms_per_step"] = sum(by_group.values())
+        result["device_ms_by_group"] = by_group
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def _space_rank(rank: int, devices: list, out_dir: str) -> None:
+    """One rank of 16b (gloo, two ranks on one card) or 16c (NCCL): the 1x2 mesh's steps.
+
+    The f32 eval counts and SGD step (TF32 off; its state dict saved for the
+    parent), then the bf16 eval and steps of ``_space_step_run``; results to
+    ``out_dir/space_rank<r>.json``.
+    """
+    import torch.distributed as dist
+
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad
+    from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
+    from unet_embroidery_seg_torch.parallel import halo
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(1, SPACE_SPLIT, devices)
+    counters = [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad]
+    result = {"rank": rank, "device": str(mesh.device), "backend": dist.get_backend()}
+    from unet_embroidery_seg_torch.engine.steps import make_binary_eval_step
+
+    model, batch = _sgd_model_and_batch(mesh.device)
+    batch = mesh_lib.shard_batch_arrays(mesh, *batch)
+    space = halo.space_axis(mesh)
+    result["f32_eval_counts"] = make_binary_eval_step(
+        model, "lovasz_hinge", None, amp=False, group=mesh.group, space=space)(*batch)[1].tolist()
+    for c in counters:
+        c.halo_launches = 0
+    result["sgd_loss"] = _sgd_step(model, batch, mesh.group, space)
+    result["sgd_halo_launches"] = {c.__name__: c.halo_launches for c in counters}
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(out_dir, f"space_rank{rank}_sgd.pt"))
+    del model
+    torch.cuda.empty_cache()
+    result["bf16"] = _space_step_run(mesh, counters, True, SPACE_STEPS, profile=True)
+    result["bf16"].pop("logits_moved")
+    torch.save(result["bf16"].pop("logits"), os.path.join(out_dir, f"space_rank{rank}_logits.pt"))
+    with open(os.path.join(out_dir, f"space_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _run_space_ranks(devices: list, backend: str) -> tuple[list[dict], list[dict], float]:
+    """``_space_rank`` on two new processes: (their results, their SGD states, seconds).
+
+    Each result's bf16 ``logits`` are the rank's band of the eval logits.
+    """
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    out_dir = tempfile.mkdtemp(prefix="space-ranks-")
+    t0 = time.perf_counter()
+    try:
+        mesh_lib.launch_local(_space_rank, SPACE_SPLIT, (devices, out_dir), backend=backend,
+                              timeout_s=600)
+        seconds = time.perf_counter() - t0
+        ranks, states = [], []
+        for r in range(SPACE_SPLIT):
+            with open(os.path.join(out_dir, f"space_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            states.append(torch.load(os.path.join(out_dir, f"space_rank{r}_sgd.pt"),
+                                     weights_only=True))
+            ranks[-1]["bf16"]["logits"] = torch.load(
+                os.path.join(out_dir, f"space_rank{r}_logits.pt"), weights_only=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return ranks, states, seconds
+
+
+def space_one_card(counters) -> dict:
+    """16b: a 1x2 mesh of two gloo ranks on the one card against one process.
+
+    One process first: the f32 SGD step three times (input as is, and moved
+    by one ulp either way: the noise floor, as 12b), its eval counts, and
+    ``SPACE_STEPS`` bf16 Lovasz steps with launches, ms/step and peak
+    memory. Then the two ranks, each on its band of every image's rows.
+    """
+    from unet_embroidery_seg_torch.engine.steps import make_binary_eval_step
+
+    init, batch = _sgd_model_and_batch("cpu")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    one = {}
+    for run, scale in (("one", 1.0), ("one_up", 1 + 2.0 ** -23), ("one_down", 1 - 2.0 ** -23)):
+        model, _ = _sgd_model_and_batch("cuda")
+        if run == "one":
+            one_f32_counts = make_binary_eval_step(model, "lovasz_hinge", None, amp=False)(
+                *batch)[1].tolist()
+        images, pngs, sm = batch
+        loss = _sgd_step(model, (images * np.float32(scale), pngs, sm))
+        one[run] = (loss, {k: v.cpu() for k, v in model.state_dict().items()})
+        del model
+    torch.cuda.empty_cache()
+    one_bf16 = _space_step_run(None, counters, True, SPACE_STEPS, profile=True)
+    ranks, states, seconds = _run_space_ranks([torch.device("cuda", 0)] * SPACE_SPLIT, "gloo")
+    bf16 = [r["bf16"] for r in ranks]
+    want_logits = one_bf16.pop("logits")
+    got_logits = torch.cat([r.pop("logits") for r in bf16], 1)  # (N, H, W): bands of H
+
+    def apart(a):  # (pixels whose prediction differs, largest difference / largest logit)
+        return (int(((a > 0) != (want_logits > 0)).sum()),
+                ((a - want_logits).abs().max() / want_logits.abs().max()).item())
+
+    flips, logit_diff = apart(got_logits)
+    floors = [apart(a) for a in one_bf16.pop("logits_moved")]
+    floor_flips, floor_diff = max(f[0] for f in floors), max(f[1] for f in floors)
+    result = {"mesh": "1x2", "backend": "gloo", "devices": "cuda:0 x2", "seconds": seconds,
+              "sgd": {"lr": DDP_LR_SGD, "loss_space": ranks[0]["sgd_loss"],
+                      "loss_one_process": one["one"][0],
+                      "loss_rel_diff": abs(ranks[0]["sgd_loss"] - one["one"][0])
+                      / abs(one["one"][0]),
+                      "ranks_bit_equal": all(torch.equal(states[0][k], states[1][k])
+                                             for k in states[0]),
+                      "halo_launches_per_rank": [r["sgd_halo_launches"] for r in ranks]},
+              "f32_eval_counts": {"space": [r["f32_eval_counts"] for r in ranks],
+                                  "one_process": one_f32_counts},
+              "bf16": {"steps": SPACE_STEPS, "losses_space": bf16[0]["losses"],
+                       "losses_one_process": one_bf16["losses"],
+                       "first_loss_rel_diff": abs(bf16[0]["losses"][0] - one_bf16["losses"][0])
+                       / abs(one_bf16["losses"][0]),
+                       "launches_per_rank": [r["launches"] for r in bf16],
+                       "halo_launches_per_rank": [r["halo_launches"] for r in bf16],
+                       "exchange_calls_per_step_per_rank": [r["exchange_calls_per_step"]
+                                                            for r in bf16],
+                       "step_ms_median_per_rank": [r["step_ms_median"] for r in bf16],
+                       "step_ms_per_rank": [r["step_ms"] for r in bf16],
+                       "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in bf16],
+                       "busy_ms_per_step_per_rank": [r["device_busy_ms_per_step"] for r in bf16],
+                       "device_ms_by_group_rank0": bf16[0]["device_ms_by_group"],
+                       "one_process_busy_ms_per_step": one_bf16["device_busy_ms_per_step"],
+                       "one_process_device_ms_by_group": one_bf16["device_ms_by_group"],
+                       "one_process_step_ms_median": one_bf16["step_ms_median"],
+                       "one_process_peak_mem_gb": one_bf16["peak_mem_gb"],
+                       "one_process_launches": one_bf16["launches"],
+                       "eval_counts_space": [r["eval_counts"] for r in bf16],
+                       "eval_counts_one_process": one_bf16["eval_counts"],
+                       "eval_flipped_pixels": flips,
+                       "eval_flipped_share": flips / want_logits.numel(),
+                       "eval_logit_rel_diff": logit_diff,
+                       "eval_floor_flipped_pixels": floor_flips,
+                       "eval_floor_logit_rel_diff": floor_diff}}
+    ref = one["one"][1]
+    ok = result["sgd"]["ranks_bit_equal"] and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
+    for stats in (False, True):
+        two = _update_rel(states[0], ref, init, stats)
+        noise = {k: max(a, b) for (k, a), b in zip(
+            _update_rel(one["one_up"][1], ref, init, stats).items(),
+            _update_rel(one["one_down"][1], ref, init, stats).values())}
+        worst = max(two, key=two.get)
+        entry = {"median_rel_diff": statistics.median(two.values()),
+                 "median_rel_noise": statistics.median(noise.values()),
+                 "worst_rel_diff": two[worst], "worst": worst,
+                 "worst_rel_noise": max(noise.values())}
+        result["sgd"]["bn_statistics" if stats else "parameter_updates"] = entry
+        floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
+        ok = ok and (entry["median_rel_diff"] <= floor(entry["median_rel_noise"])
+                     and entry["worst_rel_diff"] <= floor(entry["worst_rel_noise"]))
+    want = {k: v * SPACE_STEPS for k, v in RESNET_PER_STEP.items() if k in bf16[0]["launches"]}
+    print("space_one_card " + json.dumps(result), flush=True)
+    ok = (ok and all(r["launches"] == want and r["halo_launches"] == want for r in bf16)
+          and one_bf16["launches"] == want and not any(one_bf16["halo_launches"].values())
+          and all(c == one_f32_counts for c in result["f32_eval_counts"]["space"])
+          and bf16[0]["eval_counts"] == bf16[1]["eval_counts"]
+          and flips <= TOL_TRAIN_NOISE_FACTOR * floor_flips
+          and logit_diff <= TOL_TRAIN_NOISE_FACTOR * floor_diff
+          and bf16[0]["losses"] == bf16[1]["losses"]
+          and result["bf16"]["first_loss_rel_diff"] <= TOL_RESIDENT_LOSS
+          and np.isfinite(bf16[0]["losses"]).all())
+    if not ok:
+        raise AssertionError(f"space axis, two ranks on one card against one process: {result}")
+    return result
+
+
+def space_four_cards(one_card: dict | None = None) -> dict:
+    """16c: the train CLI with --mesh-data 2 --mesh-space 2 over NCCL, and a 1x2 step on two cards.
+
+    With fewer than four cards it says why it did not run. ``one_card``:
+    16b's result, for the one-process bf16 losses the 1x2 step is held to.
+    """
+    n = torch.cuda.device_count()
+    if n < 4:
+        reason = (f"phase 16c not run: this machine has {n} CUDA card(s), and a 2x2 mesh over "
+                  "NCCL needs four")
+        print(reason, flush=True)
+        return {"ran": False, "reason": reason}
+    ranks, _, seconds = _run_space_ranks([torch.device("cuda", i) for i in range(SPACE_SPLIT)],
+                                         "nccl")
+    workdir = tempfile.mkdtemp(prefix="space-cli-")
+    cmd = [sys.executable, "-m", "unet_embroidery_seg_torch.train", "--data-path",
+           "synthetic:16", "--input-size", str(TRAIN_SIZE), "--batch-size", str(BATCH),
+           "--epochs", "1", "--max-train-batches", "4", "--max-val-batches", "1",
+           "--max-test-batches", "1", "--mesh-data", "2", "--mesh-space", "2",
+           "--no-export-vis", "--ckpt-every", "0"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, stderr = proc.communicate()
+    cli_s = time.perf_counter() - t0
+    runs = sorted(os.listdir(os.path.join(workdir, "run", "train"))) if proc.returncode == 0 \
+        else []
+    files = sorted(os.listdir(os.path.join(workdir, "run", "train", "exp"))) if runs else []
+    shutil.rmtree(workdir, ignore_errors=True)
+    bf16 = [r["bf16"] for r in ranks]
+    for r in bf16:
+        del r["logits"]
+    result = {"ran": True, "cards": n, "backend": "nccl", "seconds": seconds,
+              "step_1x2": {"losses": bf16[0]["losses"],
+                           "step_ms_median_per_rank": [r["step_ms_median"] for r in bf16],
+                           "launches_per_rank": [r["launches"] for r in bf16],
+                           "halo_launches_per_rank": [r["halo_launches"] for r in bf16],
+                           "exchange_calls_per_step_per_rank": [
+                               r["exchange_calls_per_step"] for r in bf16],
+                           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in bf16],
+                           "busy_ms_per_step_per_rank": [r["device_busy_ms_per_step"]
+                                                         for r in bf16],
+                           "device_ms_by_group_rank0": bf16[0]["device_ms_by_group"],
+                           "eval_counts_per_rank": [r["eval_counts"] for r in bf16]},
+              "cli": {"returncode": proc.returncode, "seconds": cli_s, "runs": runs,
+                      "files": files, "stderr_tail": stderr[-4000:]}}
+    if one_card is not None:
+        want = one_card["bf16"]["losses_one_process"]
+        result["step_1x2"]["first_loss_rel_diff"] = abs(bf16[0]["losses"][0] - want[0]) / abs(
+            want[0])
+    print("space_four_cards " + json.dumps(result), flush=True)
+    if (proc.returncode != 0 or runs != ["exp"] or "summary.json" not in files
+            or not np.isfinite(bf16[0]["losses"]).all()
+            or result["step_1x2"].get("first_loss_rel_diff", 0.0) > TOL_RESIDENT_LOSS):
+        raise AssertionError(f"space axis on four cards: {result}")
+    return result
+
+
+def space_phase(counters) -> dict:
+    """Phase 16: 16a's kernel modes, 16b's two ranks on one card, 16c's four cards."""
+    t0 = time.perf_counter()
+    rows, unsplit = check_space_sites(torch.Generator().manual_seed(16))
+    out = {"sites": rows, "unsplit": unsplit, "one_card": space_one_card(counters)}
+    out["four_cards"] = space_four_cards(out["one_card"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -2609,15 +3093,32 @@ def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, site
     return entry
 
 
+# Phase 16's entries: the halo-padded conv and the band upsample over a 1x2
+# mesh, one rank's pass (shard 0's rows); launches: rank 0's halo launches
+# in 16b's bf16 steps, and in its f32 SGD step for the f32 entries.
+SPACE_KERNELS = {
+    "upsample2x[band]": ("upsample2x", "upsample2x", "torch.bfloat16"),
+    "upsample2x_backward[band]": ("upsample2x_backward", "upsample2x_backward",
+                                  "torch.bfloat16"),
+    "conv3x3_same[fused,halo]": ("conv3x3_same", "conv3x3_bias_relu", "torch.bfloat16"),
+    "conv3x3_dgrad[fused,halo]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.bfloat16"),
+    "upsample2x[band,f32]": ("upsample2x", "upsample2x", "torch.float32"),
+    "upsample2x_backward[band,f32]": ("upsample2x_backward", "upsample2x_backward",
+                                      "torch.float32"),
+    "conv3x3_same[fused,halo,f32]": ("conv3x3_same", "conv3x3_bias_relu", "torch.float32"),
+    "conv3x3_dgrad[fused,halo,f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
+}
+
+
 def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
                    family_launches: dict, f32_launches: dict, f32_resnet_rows: list[dict],
-                   f32_resnet_launches: dict) -> list[dict]:
-    """Every kernel entry: unet_resnet50's sites, the families' sites, then the f32 ones.
+                   f32_resnet_launches: dict, space: dict) -> list[dict]:
+    """Every kernel entry: unet_resnet50's sites, the families' sites, the f32 ones, the halo ones.
 
     ``launches`` are unet_resnet50's train path's counts; ``family_launches``
     the three families' train paths' counts summed; ``f32_launches`` phase
     9's f32 train path's counts; ``f32_resnet_launches`` phase 10b's f32
-    steps of multitask_unet.
+    steps of multitask_unet; ``space`` phase 16's result.
     """
     out = []
     for kernel, (_, _, counter) in KERNEL_META.items():
@@ -2637,6 +3138,15 @@ def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
         out.append(_summary_entry(name, kernel, f32_resnet_rows, f32_resnet_launches[counter],
                                   "unet_resnet50, multitask_unet in f32 (--no-amp), "
                                   f"512^2 {where}", dtype))
+    one_card = space["one_card"]
+    for name, (kernel, counter, dtype) in SPACE_KERNELS.items():
+        where = "forward" if kernel in ("upsample2x", "conv3x3_same") else "backward"
+        launches = (one_card["bf16"]["halo_launches_per_rank"][0][counter]
+                    if dtype == "torch.bfloat16"
+                    else one_card["sgd"]["halo_launches_per_rank"][0][counter])
+        out.append(_summary_entry(name, kernel, space["sites"], launches,
+                                  f"unet_resnet50 on a 1x2 mesh, one rank's band of 512^2, "
+                                  f"{where}", dtype))
     return out
 
 
@@ -2644,7 +3154,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the full report as JSON here")
     parser.add_argument("--multi-card-only", action="store_true",
-                        help="build the kernels and run phase 12d (two cards) alone")
+                        help="build the kernels and run phases 12d (two cards) and 16c (four "
+                             "cards) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2667,9 +3178,13 @@ def main(argv=None) -> int:
         _, data = resident_split()
         counters = [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad]
         result = two_cards(_resident_chunks(None, counters, data))
-        print(json.dumps({"two_cards": result, "seconds": time.perf_counter() - t_start}))
+        del data
+        torch.cuda.empty_cache()
+        space = space_four_cards()
+        print(json.dumps({"two_cards": result, "space_four_cards": space,
+                          "seconds": time.perf_counter() - t_start}))
         print(card)
-        return 0 if result["ran"] else 1
+        return 0 if result["ran"] and space["ran"] else 1
 
     rows = check_sites(torch.Generator().manual_seed(0))
     update = weight_update_check(torch.Generator().manual_seed(2))
@@ -2749,13 +3264,17 @@ def main(argv=None) -> int:
 
     # Phase 14: the paper pipeline; phase 15: a short leg of the accuracy study.
     paper = {"pipeline": pipeline_phase(train_counters), "study": study_phase(train_counters)}
+    torch.backends.cudnn.allow_tf32 = False
+
+    # Phase 16: the mesh's space axis.
+    space = space_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad])
 
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
     kernels = kernel_summary(rows + bwd_rows, train["launches"], family_rows, family_launches,
                              f32_full["launches"], f32_resnet_rows,
-                             tasks["multitask_f32"]["launches"])
+                             tasks["multitask_f32"]["launches"], space)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "sites": rows,
@@ -2766,7 +3285,7 @@ def main(argv=None) -> int:
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
                        "tasks": tasks, "resident": res, "data_parallel": ddp,
-                       "tooling": tooling, "paper": paper, "kernels": kernels,
+                       "tooling": tooling, "paper": paper, "space": space, "kernels": kernels,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

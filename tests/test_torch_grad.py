@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from unet_embroidery_seg_tpu.ops import resize as jax_resize
 from unet_embroidery_seg_torch.ops import upsample as upsample_mod
+from unet_embroidery_seg_torch.ops.resize import band_input_rows
 from unet_embroidery_seg_torch.ops.conv3x3 import (
     conv3x3_bias_relu,
     conv3x3_dgrad,
@@ -194,7 +195,8 @@ def test_backward_taps_transpose_to_inverse_taps(size, align_corners):
         assert reads == list(range(first[i], last[i] + 1))
 
 
-def _streamed_backward(g: np.ndarray, align_corners: bool, band: int, strip: int) -> np.ndarray:
+def _streamed_backward(g: np.ndarray, align_corners: bool, band: int, strip: int,
+                       rows_band=None) -> np.ndarray:
     """numpy model of the backward kernel's schedule on NHWC ``g``, in float32.
 
     Reads the device tables as the kernel does (same layout and offsets),
@@ -203,11 +205,15 @@ def _streamed_backward(g: np.ndarray, align_corners: bool, band: int, strip: int
     strip's output columns; a column pass over each input column's 4
     inverse taps; a row pass into the two rolling input-row accumulators,
     storing a row when i0 moves past it. Every dx element is written once.
+    ``rows_band`` (H, r0, r1): the kernel's band mode (the mesh's space
+    axis), g the band's output rows and dx its input rows, halo included.
     """
     n, oh, ow, c = g.shape
-    h, w = oh // 2, ow // 2
+    h = oh // 2 if rows_band is None else band_input_rows(rows_band)[1]
+    w = ow // 2
     cpu = torch.device("cpu")
-    ridx, rw = (t.numpy() for t in upsample_mod._backward_tables(h, align_corners, cpu))
+    ridx, rw = (t.numpy() for t in upsample_mod._backward_tables(h, align_corners, cpu,
+                                                                 rows_band))
     cidx, cw = (t.numpy() for t in upsample_mod._backward_tables(w, align_corners, cpu))
     dx = np.full((n, h, w, c), np.nan, np.float32)
     written = np.zeros((h, w), np.int32)
@@ -266,3 +272,30 @@ def test_streamed_backward_schedule_matches_plain(band, strip, align_corners):
         want = _nhwc(upsample2x_backward_plain(_nchw(g), align_corners))
         # f32 both sides, <= 16 taps of O(1) values summed in another order.
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("band,strip", [(2, 16), (4, 32), (16, 16)])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_streamed_backward_schedule_matches_plain_over_a_band(band, strip, align_corners):
+    # The band mode's tables (a band's output rows, its input rows with one
+    # halo row each side inside the image) through the same schedule, at
+    # the image's top, inside it and at its bottom.
+    rng = np.random.RandomState(band + strip + int(align_corners))
+    for h, r0, r1 in [(12, 0, 4), (12, 4, 8), (12, 8, 12), (37, 5, 29), (40, 0, 40)]:
+        g = rng.randn(2, 2 * (r1 - r0), 2 * 9, 3).astype(np.float32)
+        got = _streamed_backward(g, align_corners, band, strip, (h, r0, r1))
+        want = _nhwc(upsample2x_backward_plain(_nchw(g), align_corners, (h, r0, r1)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_forward_band_tables_fit_every_tile(align_corners):
+    # Every band of every size up to 300 rows: the indices lie in the band's
+    # input rows and each tile's taps fit its staging area (checked inside).
+    cpu = torch.device("cpu")
+    for h in range(2, 301, 7):
+        for r0, r1 in [(0, h // 2), (h // 2, h), (h // 3, 2 * h // 3)]:
+            first, rows = band_input_rows((h, r0, r1))
+            idx, _ = upsample_mod._device_tables(rows, align_corners, cpu, (h, r0, r1))
+            assert idx.numel() == 4 * (r1 - r0)
+            assert int(idx.min()) >= 0 and int(idx.max()) < rows

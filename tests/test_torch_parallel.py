@@ -294,7 +294,8 @@ def test_init_multihost_is_a_noop_without_peers(monkeypatch):
 
 
 def test_space_axis_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10b"):
+    # The space axis is ported: a 1x2 mesh on one device raises as JAX's make_mesh does.
+    with pytest.raises(ValueError, match=r"mesh \(1x2\) needs 2 devices, have 1"):
         mesh_lib.make_mesh(n_space=2, devices=[torch.device("cpu")])
 
 

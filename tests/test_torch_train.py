@@ -429,7 +429,9 @@ def test_train_cli_resume_continues_the_run(workdir):
     assert ha == hb
 
 
-@pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2"], ["--mesh-space", "2"]])
+@pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2", "--model", "unet_plain"],
+                                  ["--mesh-space", "2", "--model", "unet_plain"]])
 def test_train_cli_raises_on_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # unet_resnet50 binary takes --mesh-space; another family over it is item 10c's.
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
         port_train.train(port_train.parse_args(CLI_ARGS + flag))

@@ -7,18 +7,24 @@ rows through the port's data-parallel code; with ``mesh=None`` it is the
 against. ``run`` is the worker: it computes every case on its rank and
 saves the results for the test to read. Imports torch and the port only
 (no JAX): the spawned ranks start from a fresh import.
+
+``run_space`` is the worker of ``tests/test_torch_space.py``'s 4-rank job:
+the mesh's space axis on 1x4, 1x2 and 2x2 meshes (``space_cases``), and
+``space_one_process`` the same cases in one process.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from unet_embroidery_seg_torch.data.synthetic import resident_canvases
 from unet_embroidery_seg_torch.engine import resident, steps
 from unet_embroidery_seg_torch.models import blocks, build_model
 from unet_embroidery_seg_torch.ops import schedules
+from unet_embroidery_seg_torch.parallel import halo
 from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
 
 RESIDENT_CANVASES = 12  # three global batches of 4
@@ -187,3 +193,93 @@ def run_on_two_hosts(rank: int, init_method: str, world: int, inputs_path: str,
                        "local_world_size": int(os.environ["LOCAL_WORLD_SIZE"])}
     torch.save(results, os.path.join(out_dir, f"host_rank{rank}.pt"))
     torch.distributed.destroy_process_group()
+
+
+# --- the space axis (tests/test_torch_space.py) ----------------------------------------------
+
+SPACE_SIZE, SPACE_BATCH, SPACE_LR = 64, 4, 1e-3
+SPACE_LOSSES = ("bce", "lovasz_hinge")
+EXCHANGE_HALO = (2, 1)  # (top, bottom) rows of the exchange case, zero rows at the image's edges
+
+
+def space_batch(seed: int, sample_mask):
+    """A global batch at 64^2: seeded images, one disc per mask, the sample mask."""
+    rng = np.random.RandomState(seed)
+    n, size = len(sample_mask), SPACE_SIZE
+    images = rng.rand(n, size, size, 3).astype(np.float32)
+    yy, xx = np.mgrid[:size, :size] / size
+    cx, cy, r = rng.uniform(0.2, 0.8, (3, n, 1, 1))
+    pngs = (((xx - cx) ** 2 + (yy - cy) ** 2) < (0.5 * r) ** 2).astype(np.int32)
+    return images, pngs, np.asarray(sample_mask, np.float32)
+
+
+def space_cases(state: dict) -> dict:
+    """Inputs of the space job: unet_resnet50's state, an eval batch, one SGD batch per loss."""
+    g = torch.Generator().manual_seed(21)
+    return {"state": state, "eval": {"pos_weight": 3.0, "batch": space_batch(20, [1, 1, 1, 0])},
+            "sgd": {"bce": space_batch(10, [1, 1, 1, 0]), "lovasz_hinge": space_batch(11, [1] * 4)},
+            "exchange": {"x": torch.randn(2, 3, 12, 5, generator=g),
+                         "g": torch.randn(2, 3, 12 + sum(EXCHANGE_HALO), 5, generator=g)}}
+
+
+def _space_eval(cases: dict, mesh) -> dict:
+    e = cases["eval"]
+    model = port_model("unet_resnet50", 2, cases["state"], diff_head=True)
+    step = steps.make_binary_eval_step(model, "bce", e["pos_weight"], amp=False,
+                                       group=_group(mesh), space=halo.space_axis(mesh))
+    loss, counts = step(*_rows(mesh, *e["batch"]))
+    return {"loss": float(loss), "counts": counts.tolist()}
+
+
+def _space_sgd(cases: dict, loss: str, mesh) -> dict:
+    torch.manual_seed(0)
+    model = port_model("unet_resnet50", 2, cases["state"], diff_head=True)
+    opt = torch.optim.SGD(model.parameters(), lr=SPACE_LR)
+    step = steps.make_binary_train_step(model, opt, loss, None, amp=False, group=_group(mesh),
+                                        space=halo.space_axis(mesh))
+    value = step(*_rows(mesh, *cases["sgd"][loss]))
+    return {"loss": float(value), "state": _snapshot(model)}
+
+
+def _space_exchange(case: dict, mesh) -> dict:
+    """This rank's band with its halo, and its rows' gradient, beside what slicing gives."""
+    top, bottom = EXCHANGE_HALO
+    x, g = case["x"], case["g"]
+    h = x.shape[2] // mesh.n_space
+    xs = x[:, :, mesh.band(x.shape[2])].clone().requires_grad_(True)
+    out = halo.space_axis(mesh).exchange(xs, top, bottom, zero_edges=True)
+    lo = mesh.s * h  # rows of the zero-padded image: every band's window has top + h + bottom
+    (out * g[:, :, lo:lo + out.shape[2]]).sum().backward()
+    want_dx = torch.zeros_like(g)
+    for j in range(mesh.n_space):  # every band's copy of each row adds its gradient
+        want_dx[:, :, j * h:j * h + h + top + bottom] += g[:, :, j * h:j * h + h + top + bottom]
+    padded = torch.nn.functional.pad(x, (0, 0, top, bottom))
+    return {"out": out.detach(), "want": padded[:, :, lo:lo + h + top + bottom],
+            "dx": xs.grad, "want_dx": want_dx[:, :, top + lo:top + lo + h]}
+
+
+def space_one_process(cases: dict) -> dict:
+    """The space job's eval and SGD cases in one process on whole images."""
+    return {"eval": _space_eval(cases, None),
+            "sgd": {loss: _space_sgd(cases, loss, None) for loss in SPACE_LOSSES}}
+
+
+def run_space(rank: int, inputs_path: str, out_dir: str) -> None:
+    """Worker of the 4-rank space job: a 2x2 mesh, its space groups as two 1x2 meshes, a 1x4 mesh.
+
+    Each 1x2 mesh is one space group of the 2x2 mesh taken as a whole job
+    (both compute the same step); the 1x4 mesh runs the exchange case.
+    """
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    mesh22 = mesh_lib.make_mesh(2, 2, [cpu] * 4)
+    pair = mesh22.space_group
+    mesh12 = mesh_lib.Mesh(rank % 2, 2, cpu, pair, n_space=2, space_group=pair)
+    world = torch.distributed.group.WORLD
+    mesh14 = mesh_lib.Mesh(rank, 4, cpu, world, n_space=4, space_group=world)
+    cases = torch.load(inputs_path, weights_only=False)
+    results = {"exchange": _space_exchange(cases["exchange"], mesh14),
+               "eval": _space_eval(cases, mesh22),
+               "sgd": {name: {loss: _space_sgd(cases, loss, m) for loss in SPACE_LOSSES}
+                       for name, m in (("1x2", mesh12), ("2x2", mesh22))}}
+    torch.save(results, os.path.join(out_dir, f"space_rank{rank}.pt"))

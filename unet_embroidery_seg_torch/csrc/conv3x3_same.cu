@@ -1,5 +1,17 @@
 // SAME, stride-1 3x3 convolution with C_in = C_out, fused bias and ReLU.
 //
+// Halo-padded mode (the mesh's space axis, parallel/halo.py): each launch
+// takes pad_top and pad_bottom, 0 to 2 each, the zero rows above and below
+// the input in H (SAME is 1 and 1). Output rows are h + pad_top +
+// pad_bottom - 2, and output row y reads input rows y - pad_top .. y -
+// pad_top + 2. A band of an image with its neighbours' rows already
+// exchanged runs with 0 inside the image and 1 at its global edge; dgrad of
+// such a band runs with 2 - pad on each side (its output has the halo rows'
+// gradients, which the exchange's backward returns). The Pallas kernel took
+// its H halo the same way, as two one-row views. W stays SAME. The pads
+// only move the halo box's first row and the tile count, so they are
+// launch arguments, and the epilogue stays a template parameter.
+//
 // Replaces: docs/negative-results/pallas_conv.py, conv3x3_same
 // (pl.pallas_call over _kernel): NHWC x HWIO -> NHWC with f32 accumulation,
 // one im2col GEMM per kernel row on the TPU. As there, the same kernel
@@ -24,8 +36,9 @@
 //        warpgroup (setmaxnreg 40) one thread of which issues every TMA
 //        copy (cp.async.bulk.tensor) into mbarrier rings. A halo stage is a
 //        4-D box (64 channels, TW+2, TH+2, 1 image) of the NHWC input at
-//        (c0, x0-1, y0-1, n): TMA's zero fill outside the tensor is the
-//        SAME padding (and pads C up to 64), so no edge is masked on load.
+//        (c0, x0-1, y0-pad_top, n): TMA's zero fill outside the tensor is
+//        the SAME padding (and pads C up to 64), so no edge is masked on
+//        load.
 //        64 bf16 channels are 128 bytes, the 128-byte swizzle width.
 //      * MMA: wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate). B (the
 //        weights, [co][64 ci] rows, 128B-swizzled by TMA) comes from shared
@@ -176,7 +189,7 @@ struct Cfg {
 struct Params {
   const float* bias;  // read only by the BIAS_RELU kernels
   __nv_bfloat16* out;
-  int h, w, c, th, tw, tiles_x, tiles_y, co_tiles, nchunks, co_pad, items;
+  int h, w, c, th, tw, tiles_x, tiles_y, co_tiles, nchunks, co_pad, items, pad_top;
   uint32_t halo_tx;  // bytes of one halo box
 };
 
@@ -474,7 +487,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_wait(hempty + 8 * hs, ((hi / C::H_STAGES) & 1) ^ 1);
           mbar_expect_tx(hfull + 8 * hs, p.halo_tx);
           tma_load_4d(halo_g + hs * C::HALO_BYTES, &xmap, hfull + 8 * hs, ch * C::CHUNK,
-                      tx * p.tw - 1, ty * p.th - 1, n);
+                      tx * p.tw - 1, ty * p.th - p.pad_top, n);
           if (!RESIDENT) {
             for (int tap = 0; tap < 9; ++tap, ++wi) {
               const int ws = wi % C::W_STAGES;
@@ -726,9 +739,10 @@ Tile pick_tile(int m, int max_halo_rows, int h, int w) {
   return best;
 }
 
+// x has h rows; out has h + pad_top + pad_bottom - 2.
 template <typename T, int BN, bool RESIDENT, bool BIAS_RELU>
 int launch(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
-           int c, cudaStream_t stream) {
+           int c, int pad_top, int pad_bottom, cudaStream_t stream) {
   using C = Cfg<T, BN, RESIDENT>;
   constexpr int CHUNK = C::CHUNK;
   constexpr cuuint64_t ES = sizeof(T);
@@ -750,7 +764,8 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
     smem_set = true;
   }
 
-  const Tile t = pick_tile(TILE_M, HALO_ROWS, h, w);
+  const int oh = h + pad_top + pad_bottom - 2;
+  const Tile t = pick_tile(TILE_M, HALO_ROWS, oh, w);
   Params p;
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -760,11 +775,12 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   p.th = t.th;
   p.tw = t.tw;
   p.tiles_x = (w + t.tw - 1) / t.tw;
-  p.tiles_y = (h + t.th - 1) / t.th;
+  p.tiles_y = (oh + t.th - 1) / t.th;
   p.co_tiles = (c + BN - 1) / BN;
   p.nchunks = (c + CHUNK - 1) / CHUNK;
   p.co_pad = p.co_tiles * BN;
   p.items = n * p.tiles_y * p.tiles_x * p.co_tiles;
+  p.pad_top = pad_top;
   p.halo_tx = static_cast<uint32_t>((t.th + 2) * (t.tw + 2) * ROW_BYTES);
   if (RESIDENT && p.nchunks != 1) return static_cast<int>(cudaErrorInvalidValue);
 
@@ -781,8 +797,13 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t ydim[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(oh), static_cast<cuuint64_t>(n)};
+  const cuuint64_t ystride[3] = {static_cast<cuuint64_t>(c) * ES,
+                                 static_cast<cuuint64_t>(w) * c * ES,
+                                 static_cast<cuuint64_t>(oh) * w * c * ES};
   const cuuint32_t ybox[4] = {CHUNK, static_cast<cuuint32_t>(t.tw), static_cast<cuuint32_t>(t.th), 1};
-  if (encode(&ymap, DTYPE, 4, out, xdim, xstride, ybox, ones,
+  if (encode(&ymap, DTYPE, 4, out, ydim, ystride, ybox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -818,7 +839,7 @@ static_assert((TH * TW / PX) * (CO_T / CO_PER) == THREADS, "one thread per micro
 template <typename T, bool BIAS_RELU>
 __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
     const T* __restrict__ x, const T* __restrict__ wt, const float* __restrict__ bias,
-    T* __restrict__ out, int h, int w, int c, int tiles_x) {
+    T* __restrict__ out, int h, int w, int c, int tiles_x, int oh, int pad_top) {
   __shared__ float in_s[CI_T][TH + 2][HALO_W];
   __shared__ float w_s[9][CI_T][CO_T];
 
@@ -831,7 +852,7 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
   const int tile_y = (blockIdx.x / tiles_x) * TH;
   const int tile_x = (blockIdx.x % tiles_x) * TW;
   const int co0 = blockIdx.y * CO_T;
-  const long long img = (long long)blockIdx.z * h;
+  const long long img = (long long)blockIdx.z * h, img_out = (long long)blockIdx.z * oh;
 
   float acc[PX][CO_PER];
 #pragma unroll
@@ -845,7 +866,7 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
       const int ci = e % CI_T;
       const int pix = e / CI_T;
       const int ly = pix / HALO_W, lx = pix % HALO_W;
-      const int gy = tile_y + ly - 1, gx = tile_x + lx - 1, gc = ci0 + ci;
+      const int gy = tile_y + ly - pad_top, gx = tile_x + lx - 1, gc = ci0 + ci;
       float v = 0.0f;
       if (gy >= 0 && gy < h && gx >= 0 && gx < w && gc < c)
         v = to_f32(x[((img + gy) * w + gx) * c + gc]);
@@ -884,12 +905,12 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
   }
 
   const int gy = tile_y + row;
-  if (gy >= h) return;
+  if (gy >= oh) return;
 #pragma unroll
   for (int p = 0; p < PX; ++p) {
     const int gx = tile_x + col + p;
     if (gx >= w) continue;
-    T* dst = out + ((img + gy) * w + gx) * c;
+    T* dst = out + ((img_out + gy) * w + gx) * c;
 #pragma unroll
     for (int j = 0; j < CO_PER; ++j) {
       const int co = co0 + cg + CO_PER * j;
@@ -903,24 +924,37 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
 // Epilogue mode, both paths: bias_relu = 1 stores relu(conv + bias) (the
 // forward), 0 stores the bare conv and never reads bias (dgrad). Each mode
 // is its own template instance, so the forward's code is the same as
-// without the mode.
-//
+// without the mode. pad_top, pad_bottom (0 to 2 each; SAME is 1, 1): the
+// zero rows above and below x in H; out has h + pad_top + pad_bottom - 2
+// rows.
+namespace {
+
+bool bad_pads(int h, int pad_top, int pad_bottom) {
+  return pad_top < 0 || pad_top > 2 || pad_bottom < 0 || pad_bottom > 2 ||
+         h + pad_top + pad_bottom - 2 < 1;
+}
+
+}  // namespace
+
 // Tensor-core path. x, wpk (packed) and out bf16; bias f32. Needs C % 16 == 0
 // and 16-byte aligned x and wpk (TMA); C <= 64 takes the persistent
 // resident-weight kernel, C > 64 the streamed-weight one.
 extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* bias, void* out,
-                                    int n, int h, int w, int c, int bias_relu, void* stream) {
+                                    int n, int h, int w, int c, int bias_relu, int pad_top,
+                                    int pad_bottom, void* stream) {
   if (c % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0)
+      reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
+      bad_pads(h, pad_top, pad_bottom))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  const int pt = pad_top, pb = pad_bottom;
   if (c <= 64) {
-    if (bias_relu) return tc::launch<bf16, 64, true, true>(x, wpk, bias, out, n, h, w, c, s);
-    return tc::launch<bf16, 64, true, false>(x, wpk, bias, out, n, h, w, c, s);
+    if (bias_relu) return tc::launch<bf16, 64, true, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+    return tc::launch<bf16, 64, true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
   }
-  if (bias_relu) return tc::launch<bf16, 128, false, true>(x, wpk, bias, out, n, h, w, c, s);
-  return tc::launch<bf16, 128, false, false>(x, wpk, bias, out, n, h, w, c, s);
+  if (bias_relu) return tc::launch<bf16, 128, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  return tc::launch<bf16, 128, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
 }
 
 // Tensor-core path in f32 (3xTF32). x, out and bias f32; wpk the two tf32
@@ -928,45 +962,50 @@ extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* 
 // 16-byte strides) and 16-byte aligned x, wpk and out; tiles of 64 output
 // channels for C <= 64, 128 above, weights streamed at every C.
 extern "C" int conv3x3_tf32x3_launch(const void* x, const void* wpk, const void* bias, void* out,
-                                     int n, int h, int w, int c, int bias_relu, void* stream) {
+                                     int n, int h, int w, int c, int bias_relu, int pad_top,
+                                     int pad_bottom, void* stream) {
   if (c % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      bad_pads(h, pad_top, pad_bottom))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int pt = pad_top, pb = pad_bottom;
   if (c <= 64) {
-    if (bias_relu) return tc::launch<float, 64, false, true>(x, wpk, bias, out, n, h, w, c, s);
-    return tc::launch<float, 64, false, false>(x, wpk, bias, out, n, h, w, c, s);
+    if (bias_relu) return tc::launch<float, 64, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+    return tc::launch<float, 64, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
   }
-  if (bias_relu) return tc::launch<float, 128, false, true>(x, wpk, bias, out, n, h, w, c, s);
-  return tc::launch<float, 128, false, false>(x, wpk, bias, out, n, h, w, c, s);
+  if (bias_relu) return tc::launch<float, 128, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  return tc::launch<float, 128, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
 }
 
 // CUDA-core path. dtype: 0 = float32, 1 = bfloat16 (x, wt and out); bias is
 // float32; wt is [ky][kx][co][ci].
 extern "C" int conv3x3_fma_launch(const void* x, const void* wt, const void* bias, void* out,
                                   int n, int h, int w, int c, int dtype, int bias_relu,
-                                  void* stream) {
+                                  int pad_top, int pad_bottom, void* stream) {
+  if (bad_pads(h, pad_top, pad_bottom)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int oh = h + pad_top + pad_bottom - 2;
   const int tiles_x = (w + TW - 1) / TW;
-  const dim3 grid(tiles_x * ((h + TH - 1) / TH), (c + CO_T - 1) / CO_T, n);
+  const dim3 grid(tiles_x * ((oh + TH - 1) / TH), (c + CO_T - 1) / CO_T, n);
   const float* b = static_cast<const float*>(bias);
   using bf16 = __nv_bfloat16;
   if (dtype == 0 && bias_relu) {
     conv3x3_fma_kernel<float, true><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt), b,
-        static_cast<float*>(out), h, w, c, tiles_x);
+        static_cast<float*>(out), h, w, c, tiles_x, oh, pad_top);
   } else if (dtype == 0) {
     conv3x3_fma_kernel<float, false><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt), b,
-        static_cast<float*>(out), h, w, c, tiles_x);
+        static_cast<float*>(out), h, w, c, tiles_x, oh, pad_top);
   } else if (dtype == 1 && bias_relu) {
     conv3x3_fma_kernel<bf16, true><<<grid, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
-        static_cast<bf16*>(out), h, w, c, tiles_x);
+        static_cast<bf16*>(out), h, w, c, tiles_x, oh, pad_top);
   } else if (dtype == 1) {
     conv3x3_fma_kernel<bf16, false><<<grid, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
-        static_cast<bf16*>(out), h, w, c, tiles_x);
+        static_cast<bf16*>(out), h, w, c, tiles_x, oh, pad_top);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,6 +33,13 @@
 // tiles, 512-byte chunks, streaming stores and a persistent
 // double-buffered (cp.async) variant were no faster on the H100.
 //
+// Band mode (the mesh's space axis, ops/upsample.py): the output height oh
+// is a launch argument, not 2h. A rank holding input rows [r0, r1) of an
+// image, plus one exchanged row on each side inside the image, makes output
+// rows [2 r0, 2 r1): the row tables are the whole image's rows for those
+// outputs, shifted to the band's first input row, so the band's outputs are
+// the unsplit kernel's bit for bit. The whole image is oh = 2h.
+//
 // The index and weight tables per output row and column come from the host
 // (ops/resize.py:_linear_coords, float64 maths), so the weights equal the
 // JAX ones bit for bit and any H, W >= 1 and any C work; the TPU kernel's
@@ -91,7 +98,7 @@ __global__ void __launch_bounds__(THREADS) upsample2x_kernel(
     const T* __restrict__ x, T* __restrict__ out,
     const int* __restrict__ rows_idx, const float* __restrict__ rows_w,
     const int* __restrict__ cols_idx, const float* __restrict__ cols_w,
-    int h, int w, int c, int col_tiles) {
+    int h, int w, int c, int col_tiles, int oh) {
   using V = Vec<T, VEC>;
   constexpr int TW = TILE_VECS / (TH * CV);     // output columns per tile
   constexpr int IN_H = TH / 2 + 2, IN_W = TW / 2 + 2;
@@ -99,7 +106,7 @@ __global__ void __launch_bounds__(THREADS) upsample2x_kernel(
   __shared__ int r_off[TH][2], c_off[TW][2];  // tap row / column in the tile
   __shared__ float r_w[TH], c_w[TW];
 
-  const int oh = 2 * h, ow = 2 * w, cv = c / VEC;
+  const int ow = 2 * w, cv = c / VEC;
   const int b = blockIdx.z;
   const int oy0 = blockIdx.y * TH;
   const int ox0 = (blockIdx.x % col_tiles) * TW;
@@ -181,43 +188,46 @@ __global__ void __launch_bounds__(THREADS) upsample2x_kernel(
 
 template <typename T, int VEC, int CV>
 int launch(const void* x, void* out, const void* ri, const void* rw, const void* ci,
-           const void* cw, int n, int h, int w, int c, cudaStream_t stream) {
+           const void* cw, int n, int h, int w, int c, int oh, cudaStream_t stream) {
   constexpr int TW = TILE_VECS / (TH * CV);
   const int col_tiles = (2 * w + TW - 1) / TW;
   const int chunks = (c / VEC + CV - 1) / CV;
   const long long gx = static_cast<long long>(col_tiles) * chunks;
-  const int gy = (2 * h + TH - 1) / TH;
+  const int gy = (oh + TH - 1) / TH;
   if (gx > 0x7fffffff || gy > 65535 || n > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(gx), gy, n);
   upsample2x_kernel<T, VEC, CV><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const int*>(ri),
       static_cast<const float*>(rw), static_cast<const int*>(ci),
-      static_cast<const float*>(cw), h, w, c, col_tiles);
+      static_cast<const float*>(cw), h, w, c, col_tiles, oh);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, void* out, const void* ri, const void* rw, const void* ci,
-             const void* cw, int n, int h, int w, int c, cudaStream_t stream) {
+             const void* cw, int n, int h, int w, int c, int oh, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
   if (aligned && c % kVec == 0) {
-    if (c / kVec >= 16) return launch<T, kVec, 16>(x, out, ri, rw, ci, cw, n, h, w, c, stream);
-    return launch<T, kVec, 8>(x, out, ri, rw, ci, cw, n, h, w, c, stream);
+    if (c / kVec >= 16) return launch<T, kVec, 16>(x, out, ri, rw, ci, cw, n, h, w, c, oh, stream);
+    return launch<T, kVec, 8>(x, out, ri, rw, ci, cw, n, h, w, c, oh, stream);
   }
-  return launch<T, 1, 8>(x, out, ri, rw, ci, cw, n, h, w, c, stream);
+  return launch<T, 1, 8>(x, out, ri, rw, ci, cw, n, h, w, c, oh, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// x: (n, h, w, c); out: (n, oh, 2w, c), oh output rows (2h for a whole
+// image); the row tables have oh entries each. dtype: 0 = float32, 1 = bfloat16.
 extern "C" int upsample2x_launch(const void* x, void* out, const void* rows_idx,
                                  const void* rows_w, const void* cols_idx,
-                                 const void* cols_w, int n, int h, int w, int c,
+                                 const void* cols_w, int n, int h, int w, int c, int oh,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, out, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, s);
+  if (oh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return dispatch<float>(x, out, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, oh, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, out, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, s);
+    return dispatch<__nv_bfloat16>(x, out, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, oh, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

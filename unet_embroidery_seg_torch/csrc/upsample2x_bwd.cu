@@ -41,6 +41,14 @@
 // torch.cat([skip, up(x)], 1) in the decoder): the kernel takes g's pixel
 // stride and image stride in elements and reads the slice in place.
 //
+// Band mode (the mesh's space axis, ops/upsample.py): the gradient's height
+// oh is a launch argument, not 2h. For a rank's band of outputs [2 r0,
+// 2 r1) and its input rows with one exchanged row on each side inside the
+// image, the row tables are the whole image's, taken for those outputs and
+// inputs and shifted to the band's first input row: dx then holds the
+// band's share of each input row's gradient, the halo rows' too, which the
+// exchange's backward adds into the neighbours' rows.
+//
 // Tables per dimension of size S (ops/upsample.py:backward_taps), int32
 // idx = [i0 (2S), first (S), last (S), inverse index (S x 4)] and float32
 // wgt = [w0 (2S), w1 (2S), inverse weight (S x 4)]: per output the input
@@ -126,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) upsample2x_bwd_kernel(
     const T* __restrict__ g, T* __restrict__ dx,
     const int* __restrict__ rows_idx, const float* __restrict__ rows_w,
     const int* __restrict__ cols_idx, const float* __restrict__ cols_w,
-    int h, int w, int c, int band, int strips, long long g_img, int g_pix) {
+    int h, int w, int c, int oh, int band, int strips, long long g_img, int g_pix) {
   using V = Vec<T, VEC>;
   constexpr int TW = THREADS / CV;  // input columns per strip
   constexpr int SPAN = 2 * TW + 2;  // output columns a strip reads, at most
@@ -134,7 +142,7 @@ __global__ void __launch_bounds__(THREADS) upsample2x_bwd_kernel(
   __shared__ int s_i0[MAX_ROWS];
   __shared__ float s_w0[MAX_ROWS], s_w1[MAX_ROWS];
 
-  const int oh = 2 * h, ow = 2 * w, cv = c / VEC;
+  const int ow = 2 * w, cv = c / VEC;
   const int b = blockIdx.z;
   const int iy0 = blockIdx.x * band;
   const int ix0 = (blockIdx.y % strips) * TW;
@@ -258,7 +266,7 @@ long long resident_blocks() {
 
 template <typename T, int VEC, int CV>
 int launch(const void* g, void* dx, const void* ri, const void* rw, const void* ci,
-           const void* cw, int n, int h, int w, int c, long long g_img, int g_pix,
+           const void* cw, int n, int h, int w, int c, int oh, long long g_img, int g_pix,
            cudaStream_t stream) {
   constexpr int TW = THREADS / CV;
   const int strips = (w + TW - 1) / TW;
@@ -285,40 +293,40 @@ int launch(const void* g, void* dx, const void* ri, const void* rw, const void* 
   upsample2x_bwd_kernel<T, VEC, CV><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(g), static_cast<T*>(dx), static_cast<const int*>(ri),
       static_cast<const float*>(rw), static_cast<const int*>(ci), static_cast<const float*>(cw),
-      h, w, c, band, strips, g_img, g_pix);
+      h, w, c, oh, band, strips, g_img, g_pix);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* g, void* dx, const void* ri, const void* rw, const void* ci,
-             const void* cw, int n, int h, int w, int c, long long g_img, int g_pix,
+             const void* cw, int n, int h, int w, int c, int oh, long long g_img, int g_pix,
              cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const bool aligned = ((uintptr_t)g % 16 == 0) && ((uintptr_t)dx % 16 == 0);
   if (aligned && c % kVec == 0 && g_pix % kVec == 0 && g_img % kVec == 0) {
     if (c / kVec >= 16)
-      return launch<T, kVec, 16>(g, dx, ri, rw, ci, cw, n, h, w, c, g_img, g_pix, stream);
-    return launch<T, kVec, 8>(g, dx, ri, rw, ci, cw, n, h, w, c, g_img, g_pix, stream);
+      return launch<T, kVec, 16>(g, dx, ri, rw, ci, cw, n, h, w, c, oh, g_img, g_pix, stream);
+    return launch<T, kVec, 8>(g, dx, ri, rw, ci, cw, n, h, w, c, oh, g_img, g_pix, stream);
   }
-  return launch<T, 1, 8>(g, dx, ri, rw, ci, cw, n, h, w, c, g_img, g_pix, stream);
+  return launch<T, 1, 8>(g, dx, ri, rw, ci, cw, n, h, w, c, oh, g_img, g_pix, stream);
 }
 
 }  // namespace
 
-// g: (n, 2h, 2w, c) with pixel stride g_pix and image stride g_img (elements),
-// channels contiguous; dx: (n, h, w, c) contiguous. dtype: 0 = float32,
-// 1 = bfloat16 (g and dx).
+// g: (n, oh, 2w, c) with pixel stride g_pix and image stride g_img
+// (elements), channels contiguous, oh = 2h for a whole image; dx: (n, h, w,
+// c) contiguous. dtype: 0 = float32, 1 = bfloat16 (g and dx).
 extern "C" int upsample2x_bwd_launch(const void* g, void* dx, const void* rows_idx,
                                      const void* rows_w, const void* cols_idx,
-                                     const void* cols_w, int n, int h, int w, int c,
+                                     const void* cols_w, int n, int h, int w, int c, int oh,
                                      long long g_img, int g_pix, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_pix < c) return static_cast<int>(cudaErrorInvalidValue);
+  if (g_pix < c || oh < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(g, dx, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, g_img, g_pix,
-                           s);
+    return dispatch<float>(g, dx, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, oh, g_img,
+                           g_pix, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(g, dx, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, g_img,
-                                   g_pix, s);
+    return dispatch<__nv_bfloat16>(g, dx, rows_idx, rows_w, cols_idx, cols_w, n, h, w, c, oh,
+                                   g_img, g_pix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

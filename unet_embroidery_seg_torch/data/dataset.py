@@ -95,9 +95,11 @@ class SegmentationDataset:
         return self.get(index, epoch=0)
 
 
-def collate(items: list) -> Batch:
-    images = np.stack([it[0] for it in items]).astype(np.float32)
-    pngs = np.stack([it[1] for it in items]).astype(np.int32)
+def collate(items: list, band: slice | None = None) -> Batch:
+    """One batch of decoded items; ``band``: only those image rows."""
+    rows = slice(None) if band is None else band
+    images = np.stack([it[0][rows] for it in items]).astype(np.float32)
+    pngs = np.stack([it[1][rows] for it in items]).astype(np.int32)
     cls = None
     if items[0][2] is not None:
         cls = np.asarray([it[2] for it in items], np.int32)
@@ -115,7 +117,9 @@ class DataLoader:
     Under data parallelism (``world_size`` ranks) ``batch_size`` is the
     global batch: every rank walks the same seeded order and decodes only
     its contiguous ``rows`` of each padded global batch; ``n_valid`` stays
-    the global batch's count.
+    the global batch's count. ``band`` (the mesh's space axis): the ranks
+    of one data index decode the same rows and each keeps its band of the
+    image rows.
     """
 
     def __init__(
@@ -128,6 +132,7 @@ class DataLoader:
         pad_final_batch: bool = True,
         rank: int = 0,
         world_size: int = 1,
+        band: slice | None = None,
     ):
         if batch_size % world_size:
             raise ValueError(f"batch size {batch_size} must divide the data axis ({world_size})")
@@ -139,6 +144,7 @@ class DataLoader:
         self.pad_final_batch = pad_final_batch
         b = batch_size // world_size
         self.rows = slice(rank * b, (rank + 1) * b)
+        self.band = band
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -160,7 +166,7 @@ class DataLoader:
                         reps = -(-self.batch_size // n_valid)
                         idxs = np.tile(idxs, reps)[: self.batch_size]
                     items = [self.dataset.get(int(i), epoch) for i in idxs[self.rows]]
-                    q.put((collate(items), n_valid))
+                    q.put((collate(items, self.band), n_valid))
                 q.put(None)
             except BaseException as e:  # surface worker errors to the consumer
                 q.put(e)

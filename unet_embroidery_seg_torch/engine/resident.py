@@ -23,8 +23,11 @@ whole split, as JAX replicates it, and plans the same global batches; step
 ``it`` draws the augmentation parameters of the whole global batch from its
 seed, then gathers and augments only this rank's rows with their slice of
 them, so the images do not depend on how the batch is split. Multitask's
-dropout draws from ``(dropout seed, rank)`` on each rank (``rank_seed``):
-no two ranks share a mask, and no split equals JAX's one global mask.
+dropout draws from ``(dropout seed, data index)`` on each rank
+(``rank_seed``): no two data rows share a mask, and no split equals JAX's
+one global mask. Over the space axis the ranks of one data index draw
+alike and each computes its band of the output rows (``Mesh.band``): the
+resample gathers from the replicated canvas, so no exchange is needed.
 """
 
 from __future__ import annotations
@@ -126,14 +129,19 @@ def seed_default_generator(device: torch.device, seed: int) -> None:
 
 
 def rank_seed(seed: int, mesh: Mesh | None) -> int:
-    """``seed`` for one process; else a seed of its own per rank, from ``(seed, rank)``."""
+    """``seed`` for one process; else a seed of its own per data index, from ``(seed, d)``."""
     if mesh is None or mesh.world_size == 1:
         return seed
-    return int(np.random.SeedSequence((seed, mesh.rank)).generate_state(1)[0])
+    return int(np.random.SeedSequence((seed, mesh.d)).generate_state(1)[0])
 
 
 def _rows(mesh: Mesh | None, batch: int) -> slice:
     return slice(None) if mesh is None else mesh.rows(batch)
+
+
+def _band(mesh: Mesh | None, h: int) -> slice | None:
+    """This rank's band of ``h`` image rows, or None for whole images."""
+    return None if mesh is None or mesh.n_space == 1 else mesh.band(h)
 
 
 def gather_batch(data: ResidentData, idxs: torch.Tensor):
@@ -170,7 +178,8 @@ def make_train_chunk_fn(
     ``augment`` off, only normalises them) and calls ``train_step``, after
     seeding the device's default generator (multitask's dropout) by the
     same rule. Under a ``mesh`` the plan is the global batch's: the step
-    takes this rank's rows of it and of the parameters drawn for all of it.
+    takes this rank's rows of it and of the parameters drawn for all of it,
+    and over the space axis this rank's band of the output rows.
     Returns the per-step losses stacked, (K,), on the card; for multitask a
     tuple ((K,) total, (K,) seg, (K,) cls, (K,) n_correct).
     """
@@ -179,6 +188,7 @@ def make_train_chunk_fn(
     def chunk(data: ResidentData, idx: torch.Tensor, mask: torch.Tensor, epoch: int, its):
         outs = []
         rows = _rows(mesh, idx.shape[1])
+        band = _band(mesh, input_shape[0])
         for k, it in enumerate(its):
             dropout_seed, aug_seed = step_seeds(seed, epoch, it)
             imgs, masks, wh, cls = gather_batch(data, idx[k, rows])
@@ -187,9 +197,10 @@ def make_train_chunk_fn(
                 params = device_augment.sample_params(gen, idx.shape[1])
                 images, pngs = device_augment.augment_batch(
                     imgs, masks, wh, params=tuple(p[rows] for p in params),
-                    out_hw=tuple(input_shape), binary=binary, num_classes=nc)
+                    out_hw=tuple(input_shape), binary=binary, num_classes=nc, band=band)
             else:
-                images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc)
+                images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc,
+                                                                     band)
             seed_default_generator(imgs.device, rank_seed(dropout_seed, mesh))
             if multitask:
                 losses, correct = train_step(images, pngs, cls, mask[k, rows])
@@ -211,18 +222,21 @@ def make_eval_chunk_fn(
     """``chunk(data, idx, mask)`` -> the eval step's outputs, stacked per step, on the card.
 
     Each step gathers its rows (under a ``mesh``, this rank's rows of the
-    global batch), normalises them (the eval input is the cached canvas
-    itself) and calls ``eval_step`` (with the class labels for multitask).
+    global batch, and over the space axis its band of their rows),
+    normalises them (the eval input is the cached canvas itself) and calls
+    ``eval_step`` (with the class labels for multitask).
     """
     nc = None if binary else num_classes
 
     def chunk(data: ResidentData, idx: torch.Tensor, mask: torch.Tensor):
         outs = []
         rows = _rows(mesh, idx.shape[1])
+        band = _band(mesh, data.images_u8.shape[1])
         with torch.inference_mode():
             for k in range(idx.shape[0]):
                 imgs, masks, _, cls = gather_batch(data, idx[k, rows])
-                images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc)
+                images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc,
+                                                                     band)
                 if multitask:
                     outs.append(eval_step(images, pngs, cls, mask[k, rows]))
                 else:

@@ -20,6 +20,12 @@ group, and the losses and counts are the global batch's (``ops/losses.py``,
 ``ops/metrics.py``): every rank returns the same numbers. Build one train
 step per model, as DDP hooks the parameters. Eval steps run the model
 itself (running statistics, no wrapper) and return global counts.
+
+The mesh's space axis (the binary steps; ``space``: ``parallel/halo.SpaceAxis``):
+each rank's images are a band of every image's rows, ``group`` is the
+whole job (BN, the losses, the counts and DDP span data x space), and the
+model's row-reading modules take their halos over ``space``
+(``blocks.set_space_axis``); the Lovasz hinge gathers whole images.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_embroidery_seg_torch.models.blocks import set_batchnorm_group
+from unet_embroidery_seg_torch.models.blocks import set_batchnorm_group, set_space_axis
 from unet_embroidery_seg_torch.ops import losses, metrics
 from unet_embroidery_seg_torch.parallel.mesh import Group, global_count
 
@@ -77,7 +84,14 @@ def _replica(model: nn.Module, group: Group) -> nn.Module:
     off = ("forward_sync_buffers" if "forward_sync_buffers"
            in inspect.signature(DistributedDataParallel.__init__).parameters
            else "broadcast_buffers")
-    return DistributedDataParallel(model, process_group=group, **{off: False})
+    # Over more than two ranks a ring all-reduce sums each gradient in an
+    # order set by its place in its bucket, and DDP rebuilds its buckets on
+    # a run's first step, so a resumed run would sum in other orders than
+    # the run it continues. With find_unused_parameters the buckets keep
+    # their first layout (every parameter is used, so nothing else changes).
+    keep_buckets = dist.get_world_size(group) > 2
+    return DistributedDataParallel(model, process_group=group,
+                                   find_unused_parameters=keep_buckets, **{off: False})
 
 
 def _backward_and_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
@@ -90,12 +104,14 @@ def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
     """predict(images) -> logits: the inference forward with BN in eval mode.
 
     The logits come back NHWC float32 on the model's device (multitask:
-    the ``(seg, cls)`` pair). Runs under ``torch.inference_mode``.
+    the ``(seg, cls)`` pair). Runs under ``torch.inference_mode``, on whole
+    images (no space axis, as JAX's predict has no mesh).
     """
     model.eval()
     device = _device(model)
 
     def predict(images: np.ndarray | torch.Tensor):
+        set_space_axis(model, None)
         x, _, _, _ = _inputs(device, images)
         with torch.inference_mode(), torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             logits = model(x)
@@ -112,23 +128,26 @@ def make_binary_train_step(
     ignore_index: int | None = None,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """train_step(images, pngs, sample_mask) -> loss (0-d float32 tensor on the device).
 
     One forward in train mode (BN batch statistics, running stats updated),
-    the binary loss, backward, and one optimizer step.
+    the binary loss, backward, and one optimizer step. ``space``: the
+    images and masks are this rank's band of rows (module docstring).
     """
     device = _device(model)
     net = _replica(model, group)
 
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
         model.train()
+        set_space_axis(model, space)
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             outputs = net(x)
         loss = losses.binary_segmentation_loss(
             _nhwc(outputs), t, loss_name=loss_name, pos_weight=pos_weight,
-            ignore_index=ignore_index, sample_mask=sm, group=group,
+            ignore_index=ignore_index, sample_mask=sm, group=group, space=space,
         )
         _backward_and_step(optimizer, loss)
         return loss.detach()
@@ -143,23 +162,26 @@ def make_binary_eval_step(
     ignore_index: int | None = None,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss, counts[4]) on the device.
 
     The prediction is ``diff > 0`` for a diff-head model (which equals the
-    argmax of its two logits) and the argmax otherwise.
+    argmax of its two logits) and the argmax otherwise. ``space``: as the
+    train step's.
     """
     device = _device(model)
 
     def eval_step(images, pngs, sample_mask):
         model.eval()
+        set_space_axis(model, space)
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
                 outputs = _nhwc(model(x))
             loss = losses.binary_segmentation_loss(
                 outputs, t, loss_name=loss_name, pos_weight=pos_weight,
-                ignore_index=ignore_index, sample_mask=sm, group=group,
+                ignore_index=ignore_index, sample_mask=sm, group=group, space=space,
             )
             pred = (outputs > 0).long() if outputs.dim() == 3 else outputs.argmax(-1)
             counts = metrics.binary_confusion_counts(pred, t, ignore_index=ignore_index,

@@ -19,6 +19,20 @@ every other conv is a stock ``nn.Conv2d``, as the JAX package left those to
 XLA. Module and slot names follow the reference's state-dict keys (the
 JAX package's ``utils/torch_interop.py`` maps them; ``utils/interop.py`` is
 the port's copy).
+
+The mesh's ``space`` axis (each rank holds a band of every image's rows,
+``parallel/halo.py``): every module that reads neighbouring rows has a
+``space`` attribute, None by default (the whole image, today's code path
+exactly), set by ``set_space_axis``. With one, the module first takes the
+rows it reads from the ranks above and below, and never reads a zero where
+the unsplit model reads a neighbour's row: ``Conv2d`` (every stock conv:
+its padding rows inside the image, zero rows at the image's edge, H
+padding 0), ``MaxPool2d`` (the stem's ceil-mode pool: the row below, and at
+the image's bottom the window clipped as ceil mode clips it),
+``Upsample2x`` (one row each side, the kernels' band mode),
+``SquareConv3x3`` and ``Conv3x3Same`` (one row each side, the kernels'
+halo-padded mode). Pointwise modules (BN, ReLU, the 1x1 head, the concat
+of a skip and an upsample, which hold the same band) need nothing.
 """
 
 from __future__ import annotations
@@ -39,12 +53,55 @@ from unet_embroidery_seg_torch.ops.upsample import upsample2x
 from unet_embroidery_seg_torch.parallel.mesh import Group
 
 
-def conv3x3(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that takes its H halo over the space axis when ``space`` is set.
+
+    A kernel of k rows at stride st with padding p reads, for a band of h
+    rows (h a multiple of st, starting at a multiple of st), p rows above
+    it and k - st - p below: those come from the neighbours, or are zeros
+    at the image's edge (the padding the unsplit conv reads there), and the
+    conv pads H by 0, so the band's h / st output rows are the unsplit
+    conv's. ``space`` None: ``nn.Conv2d`` itself.
+    """
+
+    space = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space is None:
+            return super().forward(x)
+        k, st, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        x = self.space.exchange(x, p, max(k - st - p, 0), zero_edges=True)
+        return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
-def conv1x1(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` that takes the rows below its band when ``space`` is set.
+
+    A window of k rows at stride st with no padding (the stem's pool) reads
+    k - st rows below a band. At the image's bottom nothing is added: a
+    ceil-mode pool clips its last window there, as the unsplit pool does.
+    """
+
+    space = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space is not None:
+            x = self.space.exchange(x, 0, self.kernel_size - self.stride)
+        return super().forward(x)
+
+
+def conv3x3(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias)
+
+
+def conv1x1(cin: int, cout: int, *, stride: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, 1, stride=stride, bias=bias)
+
+
+def _band_pad(space) -> tuple[int, int]:
+    """The hand-written conv's H pads for a band with a one-row halo: 1 at the image's edge."""
+    return int(space.first), int(space.last)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -135,7 +192,11 @@ class _SyncBatchNorm(torch.autograd.Function):
     as ``nn.SyncBatchNorm`` computes it: the local sums of dy and of
     dy * (x - mean), one all-reduce, then dx in two passes; the weight's
     and bias's gradients are this rank's share. No pass mixes memory
-    layouts (the model runs ``channels_last``).
+    layouts (the model runs ``channels_last``). The count n is the local
+    count times the group's size: every rank holds as many values, since
+    ``Mesh.rows`` and ``Mesh.band`` split evenly or raise, and over the
+    space axis every level's rows split evenly (the train CLI's input-size
+    rule), so no count needs a collective of its own.
     """
 
     @staticmethod
@@ -197,22 +258,35 @@ def set_batchnorm_group(model: nn.Module, group: Group) -> nn.Module:
 
 
 class Upsample2x(nn.Module):
-    """2x bilinear upsample through the hand-written kernel (``ops/upsample.py``)."""
+    """2x bilinear upsample through the hand-written kernel (``ops/upsample.py``).
+
+    With ``space``: one row from each neighbour, then the kernel's band mode.
+    """
+
+    space = None
 
     def __init__(self, align_corners: bool):
         super().__init__()
         self.align_corners = align_corners
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2x(x, self.align_corners)
+        if self.space is None:
+            return upsample2x(x, self.align_corners)
+        h = x.shape[2]
+        r0 = self.space.index * h
+        band = (h * self.space.size, r0, r0 + h)
+        return upsample2x(self.space.exchange(x, 1, 1), self.align_corners, band)
 
 
 class SquareConv3x3(nn.Module):
     """relu(conv3x3(x) + bias) with C_in = C_out, through the hand-written kernel.
 
     Parameters are ``nn.Conv2d``'s (OIHW ``weight``, ``bias``), so state-dict
-    keys and checkpoints are those of the reference's conv.
+    keys and checkpoints are those of the reference's conv. With ``space``:
+    one row from each neighbour, then the kernel's halo-padded mode.
     """
+
+    space = None
 
     def __init__(self, channels: int):
         super().__init__()
@@ -220,21 +294,53 @@ class SquareConv3x3(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3_bias_relu(x, self.weight, self.bias)
+        if self.space is None:
+            return conv3x3_bias_relu(x, self.weight, self.bias)
+        return conv3x3_bias_relu(self.space.exchange(x, 1, 1), self.weight, self.bias,
+                                 _band_pad(self.space))
 
 
 class Conv3x3Same(nn.Module):
     """conv3x3(x) with C_in = C_out and no bias, through the hand-written kernel (epilogue off).
 
     One OIHW ``weight``, the reference's bias-free ``nn.Conv2d`` parameter.
+    With ``space`` as ``SquareConv3x3``.
     """
+
+    space = None
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(channels, channels, 3, 3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3x3_same(x, self.weight)
+        if self.space is None:
+            return conv3x3_same(x, self.weight)
+        return conv3x3_same(self.space.exchange(x, 1, 1), self.weight, _band_pad(self.space))
+
+
+SPACE_MODULES = (Conv2d, MaxPool2d, Upsample2x, SquareConv3x3, Conv3x3Same)
+
+
+def set_space_axis(model: nn.Module, space) -> nn.Module:
+    """Set the ``space`` axis (``parallel/halo.SpaceAxis`` or None) of each row-reading module.
+
+    A model takes one only where every op of it is split right: its class
+    says so with ``takes_space_axis`` (unet_resnet50); any other raises
+    (ROADMAP.md Queue 1 item 10c). The model keeps the axis it was given as
+    ``space_axis``, so setting it again is one comparison (the binary steps
+    set theirs on every call, predict sets None: one model may serve both).
+    """
+    if getattr(model, "space_axis", None) is space:
+        return model  # already set: the steps call this every step
+    if space is not None and not getattr(model, "takes_space_axis", False):
+        raise NotImplementedError(f"{type(model).__name__} over the space axis: "
+                                  "ROADMAP.md Queue 1 item 10c")
+    for m in model.modules():
+        if isinstance(m, SPACE_MODULES):
+            m.space = space
+    model.space_axis = space
+    return model
 
 
 class ClassHead(nn.Conv2d):

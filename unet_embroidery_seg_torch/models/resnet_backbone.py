@@ -7,6 +7,10 @@ Returns 5 feature maps [feat1..feat5] with channels [64, 256, 512, 1024,
   - feat1 is taken before that maxpool (after conv7x7 + BN + ReLU).
 
 Only the direct 7x7 stem is ported (the JAX default, ``stem_mode="direct"``).
+Over the mesh's space axis (``blocks.set_space_axis``) the stem conv takes
+3 rows above its band and 2 below, the pool 1 below, each stride-2 3x3 1
+above; the stride-2 1x1 downsample needs none (a band starts on an even
+row at every level).
 Module names give the reference keys: ``resnet.layer1.0.conv1.weight``,
 ``resnet.layer1.0.downsample.0.weight``.
 """
@@ -17,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_embroidery_seg_torch.models.blocks import BatchNorm, conv1x1, conv3x3
+from unet_embroidery_seg_torch.models.blocks import BatchNorm, Conv2d, MaxPool2d, conv1x1, conv3x3
 
 
 class Bottleneck(nn.Module):
@@ -55,9 +59,9 @@ class ResNet50Backbone(nn.Module):
 
     def __init__(self, layers: tuple[int, ...] = (3, 4, 6, 3)):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=0, ceil_mode=True)  # no parameters
+        self.maxpool = MaxPool2d(3, stride=2, padding=0, ceil_mode=True)  # no parameters
         inplanes = 64
         for stage, (blocks, planes) in enumerate(zip(layers, (64, 128, 256, 512)), start=1):
             stride = 1 if stage == 1 else 2

@@ -6,6 +6,10 @@ resolution, and a 1x1 class head. ``decoder_width`` scales the decoder
 widths (1.0 is the reference architecture); checkpoints are width-specific.
 ``diff_head=True`` (binary training) returns the (N, H, W) logit difference
 instead of (N, 2, H, W) logits, with the same parameters.
+
+It takes the mesh's space axis (``blocks.set_space_axis``): every op that
+reads rows has its halo, so a band of rows (its height a multiple of 32,
+the encoder's deepest stride) computes the unsplit model's rows.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from unet_embroidery_seg_torch.models.resnet_backbone import ResNet50Backbone
 
 
 class UNetResNet50(nn.Module):
+    takes_space_axis = True
+
     def __init__(self, num_classes: int = 21, decoder_width: float = 1.0, diff_head: bool = False):
         super().__init__()
         self.resnet = ResNet50Backbone()

@@ -50,6 +50,19 @@ which the JAX package computes with a flax ``nn.Conv``
   and ``conv3x3_dgrad.launches`` count kernel launches and nothing else
   (not calls traced with fake tensors).
 
+Halo-padded mode (the mesh's ``space`` axis, ``parallel/halo.py``): every
+form takes ``pad=(pad_top, pad_bottom)``, the zero rows above and below x
+in H, 0 to 2 each; the default (1, 1) is SAME, the call of one whole image,
+bit for bit as before. The output has ``h + pad_top + pad_bottom - 2``
+rows, output row y reading input rows ``y - pad_top .. y - pad_top + 2``. A
+band with its neighbours' rows exchanged runs with 0 inside the image and 1
+at its global edge. Its backward runs dgrad with ``(2 - pad_top, 2 -
+pad_bottom)``, whose output carries the halo rows' gradients (the
+exchange's backward returns them), and wgrad (cuDNN's) on the input with
+its global-edge zero rows written out, H padding 0. The wrappers'
+``.halo_launches`` count the launches with pads other than (1, 1) (they
+are counted in ``.launches`` too).
+
 Weights are OIHW (``nn.Conv2d``'s layout). ``pack_conv3x3_weight`` puts them
 in the kernel's layout. With grad mode off (predict, eval) the wrappers pack
 a weight once per parameter version and keep the packed copy, and the
@@ -77,8 +90,9 @@ __all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "con
            "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight", "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+SAME = (1, 1)
 # Input channels per halo stage of a tensor-core path: 128 bytes of the type.
 CHUNK = {torch.bfloat16: 64, torch.float32: 32}
 # C entry point of each tensor-core path.
@@ -86,15 +100,29 @@ _TC_SYMBOLS = {"c64_persistent": "conv3x3_wgmma_launch", "wgmma": "conv3x3_wgmma
                "tf32x3": "conv3x3_tf32x3_launch"}
 
 
-def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> None:
+def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                  pad: tuple[int, int] = SAME) -> None:
     if x.dim() != 4:
         raise ValueError(f"conv3x3: x must be NCHW, got shape {tuple(x.shape)}")
+    if not all(0 <= p <= 2 for p in pad) or out_rows(x.shape[2], pad) < 1:
+        raise ValueError(f"conv3x3: pads {tuple(pad)} (0 to 2 each) leave no output row "
+                         f"of {x.shape[2]}")
     c = x.shape[1]
     if tuple(weight.shape) != (c, c, 3, 3):
         raise ValueError(f"conv3x3: needs a ({c}, {c}, 3, 3) weight for {c} channels, "
                          f"got {tuple(weight.shape)}")
     if bias is not None and tuple(bias.shape) != (c,):
         raise ValueError(f"conv3x3: needs a ({c},) bias for {c} channels, got {tuple(bias.shape)}")
+
+
+def out_rows(h: int, pad: tuple[int, int]) -> int:
+    """Output rows of a call on ``h`` input rows with H pads ``pad``."""
+    return h + pad[0] + pad[1] - 2
+
+
+def dgrad_pad(pad: tuple[int, int]) -> tuple[int, int]:
+    """dgrad's pads for a forward with ``pad``: its output has the forward's input rows."""
+    return 2 - pad[0], 2 - pad[1]
 
 
 def conv3x3_path(c: int, dtype: torch.dtype) -> str:
@@ -215,14 +243,17 @@ def _packed_params(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch
     return packed, b
 
 
-def _conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """SAME 3x3 conv as nine shifted-slice products, weights rounded to ``x.dtype``, in f32.
+def _conv3x3_f32(x: torch.Tensor, weight: torch.Tensor,
+                 pad: tuple[int, int] = SAME) -> torch.Tensor:
+    """3x3 conv (H pads ``pad``, W SAME) as nine shifted-slice products, in f32.
 
-    Autocast is off inside: under it the products would run in bf16.
+    Weights rounded to ``x.dtype``; autocast is off inside: under it the
+    products would run in bf16.
     """
-    n, c, h, w = x.shape
+    n, c, _, w = x.shape
+    h = out_rows(x.shape[2], pad)
     with torch.autocast(x.device.type, enabled=False):
-        xp = F.pad(x.float(), (1, 1, 1, 1))
+        xp = F.pad(x.float(), (1, 1, pad[0], pad[1]))
         wf = weight.to(x.dtype).float()
         acc = torch.zeros((n, c, h, w), dtype=torch.float32, device=x.device)
         for ky in range(3):
@@ -234,28 +265,30 @@ def _conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_bias_relu_plain(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, pad: tuple[int, int] = SAME
 ) -> torch.Tensor:
     """relu(conv3x3_same(x, weight) + bias) as nine shifted-slice products.
 
     The weights and the bias are rounded to ``x.dtype`` (as the kernel reads
     them), then everything is accumulated in float32 and the result cast to
-    ``x.dtype``.
+    ``x.dtype``. ``pad``: the H pads, as the kernel's.
     """
-    _check_shapes(x, weight, bias)
-    y = torch.relu(_conv3x3_f32(x, weight) + bias.to(x.dtype).float()[None, :, None, None])
+    _check_shapes(x, weight, bias, pad)
+    y = torch.relu(_conv3x3_f32(x, weight, pad) + bias.to(x.dtype).float()[None, :, None, None])
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def conv3x3_same_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3x3_same_plain(x: torch.Tensor, weight: torch.Tensor,
+                       pad: tuple[int, int] = SAME) -> torch.Tensor:
     """conv3x3_same(x, weight), no bias, as nine shifted-slice products.
 
     The Pallas kernel's own function. The weights are rounded to ``x.dtype``
     (as the kernel reads them), everything is accumulated in float32 and the
-    result cast to ``x.dtype``, in ``channels_last`` memory.
+    result cast to ``x.dtype``, in ``channels_last`` memory. ``pad``: the H
+    pads, as the kernel's.
     """
-    _check_shapes(x, weight, None)
-    return _conv3x3_f32(x, weight).to(x.dtype).contiguous(memory_format=torch.channels_last)
+    _check_shapes(x, weight, None, pad)
+    return _conv3x3_f32(x, weight, pad).to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def _dgrad_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -263,24 +296,26 @@ def _dgrad_weight(weight: torch.Tensor) -> torch.Tensor:
     return weight.detach().flip(2, 3).transpose(0, 1)
 
 
-def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor,
+                        pad: tuple[int, int] = SAME) -> torch.Tensor:
     """dx of conv3x3_same(x, weight) from the output's gradient ``g``, as nine products.
 
     The same conv of ``g`` with the weights flipped in space and transposed
     in channels, rounded to ``g.dtype``, accumulated in float32, cast to
-    ``g.dtype`` (the kernel's arithmetic).
+    ``g.dtype`` (the kernel's arithmetic). ``pad`` is dgrad's own H pads
+    (``dgrad_pad`` of the forward's).
     """
-    _check_shapes(g, weight, None)
-    dx = _conv3x3_f32(g, _dgrad_weight(weight))
+    _check_shapes(g, weight, None, pad)
+    dx = _conv3x3_f32(g, _dgrad_weight(weight), pad)
     return dx.to(g.dtype).contiguous(memory_format=torch.channels_last)
 
 
 def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
-            what: str, path: str | None = None) -> torch.Tensor:
+            what: str, path: str | None = None, pad: tuple[int, int] = SAME) -> torch.Tensor:
     """The kernel on ``x`` with packed weights; bias and ReLU fused when ``bias`` is given.
 
     ``path`` (``conv3x3_path``'s choice by default) must be the one the
-    weights were packed for; ``fma`` takes any call.
+    weights were packed for; ``fma`` takes any call. ``pad``: the H pads.
     """
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -296,7 +331,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
         raise ValueError(f"{what}: path {path} does not take {c} channels of {x.dtype}")
     if path != "fma" and x.data_ptr() % 16 != 0:
         raise ValueError(f"{what}: the tensor-core paths need a 16-byte aligned input (TMA)")
-    out = torch.empty_like(x, memory_format=torch.channels_last)
+    out = empty_kernel_output((n, c, out_rows(h, pad), w), x)
     if out.numel() == 0:
         return out
     b = 0 if bias is None else bias.data_ptr()
@@ -306,26 +341,33 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
         if path == "fma":
             fn = _build.load("conv3x3_same", "conv3x3_fma_launch", _FMA_ARGTYPES)
             code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c,
-                      _DTYPE_CODES[x.dtype], fused, stream)
+                      _DTYPE_CODES[x.dtype], fused, pad[0], pad[1], stream)
         else:
             fn = _build.load("conv3x3_same", _TC_SYMBOLS[path], _TC_ARGTYPES)
             code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c, fused,
-                      stream)
+                      pad[0], pad[1], stream)
     _build.check(code, what)
     return out
 
 
+def _count(wrapper, pad: tuple[int, int]) -> None:
+    wrapper.launches += 1
+    if tuple(pad) != SAME:
+        wrapper.halo_launches += 1
+
+
 def _conv3x3_bias_relu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                            cache: bool) -> torch.Tensor:
+                            cache: bool, pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
     """``unet_seg::conv3x3_bias_relu`` on a CUDA tensor: the kernel with bias and ReLU fused.
 
     ``cache``: take the packed weights from the per-version cache (grad
-    mode off), else pack them anew.
+    mode off), else pack them anew. ``pad_top``, ``pad_bottom``: the H pads.
     """
-    _check_shapes(x, weight, bias)
+    pad = (pad_top, pad_bottom)
+    _check_shapes(x, weight, bias, pad)
     packed, b = _packed_params(weight, bias, x.dtype) if cache else _pack(weight, bias, x.dtype)
-    out = _launch(x, packed, b, "conv3x3")
-    conv3x3_bias_relu.launches += 1
+    out = _launch(x, packed, b, "conv3x3", pad=pad)
+    _count(conv3x3_bias_relu, pad)
     return out
 
 
@@ -335,21 +377,28 @@ conv3x3_bias_relu_op = torch.library.custom_op(
 
 
 @conv3x3_bias_relu_op.register_kernel("cpu")
-def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool) -> torch.Tensor:
-    return as_kernel_layout(conv3x3_bias_relu_plain(x, weight, bias))
+def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool,
+      pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_bias_relu_plain(x, weight, bias, (pad_top, pad_bottom)))
 
 
 @conv3x3_bias_relu_op.register_fake
-def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool) -> torch.Tensor:
-    _check_shapes(x, weight, bias)
-    return empty_kernel_output(x.shape, x)
+def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool,
+      pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+    pad = (pad_top, pad_bottom)
+    _check_shapes(x, weight, bias, pad)
+    n, c, h, w = x.shape
+    return empty_kernel_output((n, c, out_rows(h, pad), w), x)
 
 
-def _conv3x3_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _conv3x3_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
+                        pad_bottom: int = 1) -> torch.Tensor:
     """``unet_seg::conv3x3_dgrad`` on a CUDA tensor: the kernel, flipped and transposed weights."""
-    _check_shapes(g, weight, None)
-    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad")
-    conv3x3_dgrad.launches += 1
+    pad = (pad_top, pad_bottom)
+    _check_shapes(g, weight, None, pad)
+    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad",
+                 pad=pad)
+    _count(conv3x3_dgrad, pad)
     return dx
 
 
@@ -358,27 +407,47 @@ conv3x3_dgrad_op = torch.library.custom_op(
 
 
 @conv3x3_dgrad_op.register_kernel("cpu")
-def _(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return as_kernel_layout(conv3x3_dgrad_plain(g, weight))
+def _(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
+      pad_bottom: int = 1) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_dgrad_plain(g, weight, (pad_top, pad_bottom)))
 
 
 @conv3x3_dgrad_op.register_fake
-def _(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    _check_shapes(g, weight, None)
-    return empty_kernel_output(g.shape, g)
+def _(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
+      pad_bottom: int = 1) -> torch.Tensor:
+    pad = (pad_top, pad_bottom)
+    _check_shapes(g, weight, None, pad)
+    n, c, h, w = g.shape
+    return empty_kernel_output((n, c, out_rows(h, pad), w), g)
 
 
-def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor,
+                  pad: tuple[int, int] = SAME) -> torch.Tensor:
     """dx of conv3x3_same(x, weight) from the output's gradient ``g`` (NCHW).
 
     A CPU tensor takes ``conv3x3_dgrad_plain``; a CUDA tensor (channels_last)
     runs the conv kernel on ``g`` with the flipped, transposed weights
     (packed anew on every call) and its epilogue's bias and ReLU off.
+    ``pad`` is dgrad's own H pads (``dgrad_pad`` of the forward's).
     """
-    return conv3x3_dgrad_op(g, weight)
+    return conv3x3_dgrad_op(g, weight, *pad)
 
 
 conv3x3_dgrad.launches = 0
+conv3x3_dgrad.halo_launches = 0
+
+
+def _wgrad(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+           pad: tuple[int, int]) -> torch.Tensor:
+    """dW of the conv with H pads ``pad`` (cuDNN's wgrad on the card), in the weight's dtype.
+
+    SAME is cuDNN's padding 1; other pads write their zero rows out and pad
+    H by 0, so the input rows the forward read are the rows wgrad reads.
+    """
+    if tuple(pad) == SAME:
+        return torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1).to(weight.dtype)
+    xp = F.pad(x, (0, 0, pad[0], pad[1])) if pad[0] or pad[1] else x
+    return torch.nn.grad.conv2d_weight(xp, weight.shape, g, padding=(0, 1)).to(weight.dtype)
 
 
 class _Conv3x3BiasRelu(torch.autograd.Function):
@@ -391,11 +460,11 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, cache: bool):
-        y = conv3x3_bias_relu_op(x, weight, bias, cache)
+    def forward(ctx, x, weight, bias, cache: bool, pad: tuple[int, int]):
+        y = conv3x3_bias_relu_op(x, weight, bias, cache, *pad)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight, y)
-            ctx.bias_dtype = bias.dtype
+            ctx.bias_dtype, ctx.pad = bias.dtype, pad
         return y
 
     @staticmethod
@@ -406,37 +475,40 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
         torch.ops.aten.threshold_backward.grad_input(g, y, 0, grad_input=g_pre)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad(g_pre, weight).to(x.dtype)
+            dx = conv3x3_dgrad(g_pre, weight, dgrad_pad(ctx.pad)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv2d_weight(x, weight.shape, g_pre.to(x.dtype), padding=1)
-            dw = dw.to(weight.dtype)
+            dw = _wgrad(x, weight, g_pre.to(x.dtype), ctx.pad)
         if ctx.needs_input_grad[2]:
             db = g_pre.sum(dim=(0, 2, 3), dtype=torch.float32).to(ctx.bias_dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
-def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                      pad: tuple[int, int] = SAME) -> torch.Tensor:
     """relu(conv3x3_same(x, weight) + bias) for an NCHW tensor (channels_last on the card).
 
     Differentiable in x, weight and bias. With grad mode off the packed
     weights come from the per-version cache; with it on (training) every
-    call packs what the weight holds now.
+    call packs what the weight holds now. ``pad``: the H pads (SAME: 1, 1).
     """
-    return _Conv3x3BiasRelu.apply(x, weight, bias, not torch.is_grad_enabled())
+    return _Conv3x3BiasRelu.apply(x, weight, bias, not torch.is_grad_enabled(), tuple(pad))
 
 
 conv3x3_bias_relu.launches = 0
+conv3x3_bias_relu.halo_launches = 0
 
 
-def _conv3x3_same_cuda(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
+def _conv3x3_same_cuda(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
+                       pad_bottom: int = 1) -> torch.Tensor:
     """``unet_seg::conv3x3_same`` on a CUDA tensor: the kernel, epilogue off.
 
-    ``cache`` as ``_conv3x3_bias_relu_cuda``'s.
+    ``cache`` as ``_conv3x3_bias_relu_cuda``'s; ``pad_top``, ``pad_bottom``: the H pads.
     """
-    _check_shapes(x, weight, None)
+    pad = (pad_top, pad_bottom)
+    _check_shapes(x, weight, None, pad)
     packed, _ = _packed_params(weight, None, x.dtype) if cache else _pack(weight, None, x.dtype)
-    out = _launch(x, packed, None, "conv3x3_same")
-    conv3x3_same.launches += 1
+    out = _launch(x, packed, None, "conv3x3_same", pad=pad)
+    _count(conv3x3_same, pad)
     return out
 
 
@@ -445,14 +517,18 @@ conv3x3_same_op = torch.library.custom_op(
 
 
 @conv3x3_same_op.register_kernel("cpu")
-def _(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
-    return as_kernel_layout(conv3x3_same_plain(x, weight))
+def _(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
+      pad_bottom: int = 1) -> torch.Tensor:
+    return as_kernel_layout(conv3x3_same_plain(x, weight, (pad_top, pad_bottom)))
 
 
 @conv3x3_same_op.register_fake
-def _(x: torch.Tensor, weight: torch.Tensor, cache: bool) -> torch.Tensor:
-    _check_shapes(x, weight, None)
-    return empty_kernel_output(x.shape, x)
+def _(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
+      pad_bottom: int = 1) -> torch.Tensor:
+    pad = (pad_top, pad_bottom)
+    _check_shapes(x, weight, None, pad)
+    n, c, h, w = x.shape
+    return empty_kernel_output((n, c, out_rows(h, pad), w), x)
 
 
 class _Conv3x3Same(torch.autograd.Function):
@@ -466,10 +542,11 @@ class _Conv3x3Same(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, cache: bool):
-        y = conv3x3_same_op(x, weight, cache)
+    def forward(ctx, x, weight, cache: bool, pad: tuple[int, int]):
+        y = conv3x3_same_op(x, weight, cache, *pad)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight)
+            ctx.pad = pad
         return y
 
     @staticmethod
@@ -479,20 +556,22 @@ class _Conv3x3Same(torch.autograd.Function):
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad(g, weight)
+            dx = conv3x3_dgrad(g, weight, dgrad_pad(ctx.pad))
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv2d_weight(x, weight.shape, g, padding=1).to(weight.dtype)
-        return dx, dw, None
+            dw = _wgrad(x, weight, g, ctx.pad)
+        return dx, dw, None, None
 
 
-def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def conv3x3_same(x: torch.Tensor, weight: torch.Tensor,
+                 pad: tuple[int, int] = SAME) -> torch.Tensor:
     """conv3x3_same(x, weight), no bias, for an NCHW tensor (channels_last on the card).
 
     Differentiable in x and weight. With grad mode off the packed weights
     come from the per-version cache; with it on (training) every call packs
-    what the weight holds now.
+    what the weight holds now. ``pad``: the H pads (SAME: 1, 1).
     """
-    return _Conv3x3Same.apply(x, weight, not torch.is_grad_enabled())
+    return _Conv3x3Same.apply(x, weight, not torch.is_grad_enabled(), tuple(pad))
 
 
 conv3x3_same.launches = 0
+conv3x3_same.halo_launches = 0

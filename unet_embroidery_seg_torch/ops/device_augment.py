@@ -225,12 +225,16 @@ def augment_batch(
     val: float = 0.3,
     binary: bool = True,
     num_classes: int | None = None,
+    band: slice | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Random-augment a batch of canvases on their device.
 
     The parameters come from ``params`` (``sample_params``' seven tensors,
     on the batch's device) or are drawn from ``generator``. Returns (images
-    (N, H, W, 3) float32 in [0, 1], masks (N, H, W) int32).
+    (N, H, W, 3) float32 in [0, 1], masks (N, H, W) int32). ``band``: only
+    those output rows (the mesh's space axis), bit for bit the whole
+    output's rows: the resample gathers from the whole canvas, every other
+    op is per pixel.
     """
     if (generator is None) == (params is None):
         raise ValueError("pass exactly one of generator and params")
@@ -239,6 +243,8 @@ def augment_batch(
 
     with torch.autocast(canvas_img.device.type, enabled=False):
         yc, yv, xc, xv = paste_coords(valid_wh, params, tuple(canvas_img.shape[1:3]), out_hw)
+        if band is not None:
+            yc, yv = yc[:, band], yv[:, band]
         inside = (yv[:, :, None] & xv[:, None, :])[..., None]
 
         img = canvas_img.to(torch.float32) * INV_255
@@ -259,7 +265,13 @@ def preprocess_eval_batch(
     canvas_mask: torch.Tensor,
     binary: bool = True,
     num_classes: int | None = None,
+    band: slice | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Eval path: the cached canvas is the letterboxed input; only normalise it to [0, 1]."""
+    """Eval path: the cached canvas is the letterboxed input; only normalise it to [0, 1].
+
+    ``band``: only those rows (the mesh's space axis).
+    """
+    if band is not None:
+        canvas_img, canvas_mask = canvas_img[:, band], canvas_mask[:, band]
     img = canvas_img.to(torch.float32) * INV_255
     return img, _targets(canvas_mask.to(torch.int32), binary, num_classes)

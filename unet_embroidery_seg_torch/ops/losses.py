@@ -23,6 +23,17 @@ targets' sums) go through one autograd-aware all-reduce
 (``parallel/mesh.global_sum``) before the division, so every rank gets
 the global loss, and its backward carries the gradient scale DDP's
 averaging expects (nothing is multiplied by the world size).
+
+The mesh's space axis (``space``: ``parallel/halo.SpaceAxis``; each rank
+holds a band of every image's rows, ``group`` is then the whole job): the
+pixel sums of BCE need nothing more. The Lovasz hinge sorts whole images:
+each rank gathers its images' hinge errors and labels over the space group
+(``SpaceAxis.gather_rows``), whose flattened order is then the unsplit
+image's, so the sort and its tie order are unchanged; every rank of the
+group computes the per-image losses, only space index 0 counts them (the
+others add zeros, and their gradients, zeros, still run the gather's
+backward), and the gather's backward gives each rank its slice of the
+coefficient: neither the loss nor its gradient is counted once per band.
 """
 
 from __future__ import annotations
@@ -114,25 +125,38 @@ class _LovaszErrorsLoss(torch.autograd.Function):
         return gbar[:, None] * coeff, None
 
 
-def lovasz_hinge_per_image(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """(N,) per-image Lovasz-hinge losses of (N, ...) logits and {0, 1} labels."""
+def lovasz_hinge_per_image(logits: torch.Tensor, labels: torch.Tensor,
+                           space=None) -> torch.Tensor:
+    """(N,) per-image Lovasz-hinge losses of (N, ...) logits and {0, 1} labels.
+
+    ``space``: the logits and labels are a band of each image's rows, and
+    the losses are the whole images', gathered over the space group.
+    """
     n = logits.shape[0]
     flat_logits = logits.reshape(n, -1).float()
     flat_labels = labels.reshape(n, -1).float()
     errors = 1.0 - flat_logits * (2.0 * flat_labels - 1.0)
+    if space is not None:
+        errors, flat_labels = space.gather_rows(errors), space.gather_rows(flat_labels)
     return _LovaszErrorsLoss.apply(errors, flat_labels)
 
 
 def lovasz_hinge(
     logits: torch.Tensor, labels: torch.Tensor, sample_mask: torch.Tensor | None = None,
-    group: Group = None,
+    group: Group = None, space=None,
 ) -> torch.Tensor:
-    """Lovasz-hinge loss: the mean of the per-image losses (over valid images with ``sample_mask``)."""
+    """Lovasz-hinge loss: the mean of the per-image losses (over valid images with ``sample_mask``).
+
+    ``space``: each rank holds a band of every image (module docstring);
+    space index 0 counts the images, the others count zero of them.
+    """
     if logits.dim() == 2:
         logits, labels = logits[None], labels[None]
-    per_image = lovasz_hinge_per_image(logits, labels)
-    if sample_mask is not None:
-        m = sample_mask.float()
+    per_image = lovasz_hinge_per_image(logits, labels, space)
+    m = None if sample_mask is None else sample_mask.float()
+    if space is not None:
+        m = (per_image.new_ones(per_image.shape) if m is None else m) * float(space.first)
+    if m is not None:
         if group is not None:
             return _global_ratio((per_image * m).sum(), m.sum(), group, 1.0)
         return (per_image * m).sum() / m.sum().clamp_min(1.0)
@@ -149,6 +173,7 @@ def binary_segmentation_loss(
     ignore_index: int | None = None,
     sample_mask: torch.Tensor | None = None,
     group: Group = None,
+    space=None,
 ) -> torch.Tensor:
     """BCE or Lovasz hinge on 2-class logits (N, H, W, 2) or a logit difference (N, H, W).
 
@@ -173,7 +198,7 @@ def binary_segmentation_loss(
             pos = logits >= 0
             labels = torch.where(valid, labels, pos.float())
             logits = torch.where(valid, logits, torch.where(pos, 1e3, -1e3))
-        return lovasz_hinge(logits, labels, sample_mask=sample_mask, group=group)
+        return lovasz_hinge(logits, labels, sample_mask=sample_mask, group=group, space=space)
     raise ValueError(f"Unsupported loss_name: {loss_name}")
 
 

@@ -69,15 +69,61 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
     return m
 
 
-def upsample2x_plain(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+Band = tuple[int, int, int]  # (H, r0, r1): the image's rows, the band's own rows [r0, r1)
+
+
+def band_input_rows(band: Band) -> tuple[int, int]:
+    """(first image row, rows) of a band's input: its rows and one more each side inside the image.
+
+    The rows a 2x upsample of the band's outputs [2 r0, 2 r1) reads, in
+    both conventions: input rows r0 - 1 to r1, clipped to the image.
+    """
+    h, r0, r1 = band
+    if not 0 <= r0 < r1 <= h:
+        raise ValueError(f"upsample2x: band rows [{r0}, {r1}) of an image of {h}")
+    first = max(r0 - 1, 0)
+    return first, min(r1 + 1, h) - first
+
+
+@lru_cache(maxsize=None)
+def band_matrix(band: Band, align_corners: bool) -> np.ndarray:
+    """(2 (r1 - r0), band input rows) rows of a 2x resize's matrix for a band (read-only).
+
+    The whole image's matrix, its rows for the band's outputs and its
+    columns for the band's input rows (``band_input_rows``); raises if any
+    of those outputs reads a row outside them.
+    """
+    h, r0, r1 = band
+    first, rows = band_input_rows(band)
+    m = _interp_matrix(h, 2 * h, align_corners)[2 * r0 : 2 * r1]
+    if m[:, :first].any() or m[:, first + rows :].any():
+        raise ValueError(f"upsample2x: band {band} reads beyond its halo")
+    out = np.ascontiguousarray(m[:, first : first + rows])
+    out.setflags(write=False)
+    return out
+
+
+def row_matrix(h: int, align_corners: bool, band: Band | None) -> np.ndarray:
+    """The (outputs, inputs) matrix of a 2x resize of ``h`` rows, or of a ``band`` of them."""
+    return _interp_matrix(h, 2 * h, align_corners) if band is None else band_matrix(band,
+                                                                                  align_corners)
+
+
+def upsample2x_plain(x: torch.Tensor, align_corners: bool = False,
+                     band: Band | None = None) -> torch.Tensor:
     """2x bilinear upsample of NCHW as the two interpolation-matrix contractions.
 
     Maths in float32 whatever the input type (the CUDA kernel's convention),
     autocast off; the result is cast back to ``x.dtype`` in ``channels_last``
-    memory.
+    memory. ``band`` (H, r0, r1): x is the band's input rows
+    (``band_input_rows``) of an image of H rows, and the result is its
+    output rows [2 r0, 2 r1), as the whole image's upsample has them.
     """
     h, w = x.shape[-2], x.shape[-1]
-    mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=x.device)
+    if band is not None and band_input_rows(band)[1] != h:
+        raise ValueError(f"upsample2x: band {band} takes {band_input_rows(band)[1]} rows, "
+                         f"got {h}")
+    mh = torch.tensor(row_matrix(h, align_corners, band), device=x.device)
     mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=x.device)
     with torch.autocast(x.device.type, enabled=False):
         y = torch.einsum("oh,nchw->ncow", mh, x.float())
@@ -85,14 +131,21 @@ def upsample2x_plain(x: torch.Tensor, align_corners: bool = False) -> torch.Tens
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def upsample2x_backward_plain(g: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+def upsample2x_backward_plain(g: torch.Tensor, align_corners: bool = False,
+                              band: Band | None = None) -> torch.Tensor:
     """dx of ``upsample2x_plain`` from the output's gradient: the transposed contractions.
 
     ``g`` is (N, C, 2H, 2W); maths in float32 (autocast off), the result cast back to
     ``g.dtype`` in ``channels_last`` memory (the backward kernel's convention).
+    ``band``: g is the band's output rows, dx its input rows (halo rows included).
     """
     h, w = g.shape[-2] // 2, g.shape[-1] // 2
-    mh = torch.tensor(_interp_matrix(h, 2 * h, align_corners), device=g.device)
+    if band is not None:
+        if 2 * (band[2] - band[1]) != g.shape[-2]:
+            raise ValueError(f"upsample2x_backward: band {band} has {2 * (band[2] - band[1])} "
+                             f"output rows, got {g.shape[-2]}")
+        h = band_input_rows(band)[1]
+    mh = torch.tensor(row_matrix(h, align_corners, band), device=g.device)
     mw = torch.tensor(_interp_matrix(w, 2 * w, align_corners), device=g.device)
     with torch.autocast(g.device.type, enabled=False):
         dx = torch.einsum("oh,ncop->nchp", mh, g.float())

@@ -1,4 +1,4 @@
-"""Data parallelism over processes (port of ``parallel/mesh.py``): the mesh's ``data`` axis.
+"""Data and spatial parallelism over processes (port of ``parallel/mesh.py``).
 
 The JAX package runs one program over a ``(data, space)`` device mesh and
 lets GSPMD insert the collectives. PyTorch has no such compiler, so the
@@ -16,10 +16,14 @@ axis is spelled out:
   ``ops/metrics.py``): local sums go through one all-reduce before any
   division.
 
-The ``space`` axis (H split over devices, GSPMD's conv halo exchanges) is
-not ported: stock PyTorch has no halo exchange, so every conv, pool,
-resize and BatchNorm would need one written out (ROADMAP.md Queue 1 item
-10b). ``n_space > 1`` raises.
+The ``space`` axis splits each image's H over ``n_space`` ranks, as JAX's
+``batch_sharding`` puts H on it. The grid is JAX's row-major
+``devices.reshape(n_data, n_space)``: rank = d * n_space + s. Each rank
+holds the rows of its data index ``d`` and, of those, the band of H rows
+of its space index ``s`` (``Mesh.rows``, ``Mesh.band``). GSPMD's halo
+exchanges are written out in ``parallel/halo.py``; ``group`` stays the
+whole job, over which BN, the losses, the counts and DDP reduce, and
+``space_group`` joins the ``n_space`` ranks of one data index.
 
 Backends: NCCL on the card, gloo on the CPU (and gloo with CUDA tensors
 where NCCL cannot go, two ranks on one card). A job is joined from
@@ -43,34 +47,57 @@ import torch.distributed as dist
 import torch.nn as nn
 
 Group = dist.ProcessGroup | None  # None: one process, no collective
-SPACE_NOT_PORTED = "ROADMAP.md Queue 1 item 10b (the mesh's space axis)"
 TIMEOUT_S = 600  # a rank that dies mid-collective stops the others after this
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place on the data axis.
+    """This process's place on the (data, space) mesh.
 
-    ``group`` is None for a single process: the code paths of one device,
-    with no wrapper and no collective.
+    ``group`` (the whole job) is None for a single process: the code paths
+    of one device, with no wrapper and no collective. ``space_group`` joins
+    the ``n_space`` ranks of this data index (None for ``n_space`` 1).
     """
 
     rank: int
     world_size: int
     device: torch.device
     group: Group
+    n_space: int = 1
+    space_group: Group = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def n_data(self) -> int:
+        return self.world_size // self.n_space
+
+    @property
+    def d(self) -> int:
+        """The data index: the row of JAX's ``(n_data, n_space)`` grid."""
+        return self.rank // self.n_space
+
+    @property
+    def s(self) -> int:
+        """The space index: the column of the grid."""
+        return self.rank % self.n_space
+
     def rows(self, batch: int) -> slice:
-        """This rank's contiguous rows of a global batch of ``batch`` rows."""
-        if batch % self.world_size:
+        """This rank's contiguous rows of a global batch of ``batch`` rows (by ``d``)."""
+        if batch % self.n_data:
             raise ValueError(f"batch of {batch} rows does not divide the data axis "
-                             f"({self.world_size})")
-        b = batch // self.world_size
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"({self.n_data})")
+        b = batch // self.n_data
+        return slice(self.d * b, (self.d + 1) * b)
+
+    def band(self, h: int) -> slice:
+        """This rank's contiguous band of ``h`` image rows (by ``s``)."""
+        if h % self.n_space:
+            raise ValueError(f"{h} rows do not divide the space axis ({self.n_space})")
+        b = h // self.n_space
+        return slice(self.s * b, (self.s + 1) * b)
 
 
 def backend_for(device: str | torch.device) -> str:
@@ -158,9 +185,9 @@ def init_multihost(
 
 
 def check_mesh_size(n_data: int, n_space: int, n_devices: int) -> None:
-    """Raise as the JAX package does for a mesh larger than the devices; refuse ``space``."""
-    if n_space != 1:
-        raise NotImplementedError(f"--mesh-space {n_space}: {SPACE_NOT_PORTED}")
+    """Raise as the JAX package does for a mesh larger than the devices."""
+    if n_data < 1 or n_space < 1:
+        raise ValueError(f"mesh ({n_data}x{n_space}): both axes need at least one device")
     if n_data * n_space > n_devices:
         raise ValueError(f"mesh ({n_data}x{n_space}) needs {n_data * n_space} devices, "
                          f"have {n_devices}")
@@ -168,40 +195,57 @@ def check_mesh_size(n_data: int, n_space: int, n_devices: int) -> None:
 
 def make_mesh(n_data: int | None = None, n_space: int = 1,
               devices: list[torch.device] | None = None) -> Mesh:
-    """This process's ``Mesh`` on a data axis of ``n_data`` ranks (default: every process).
+    """This process's ``Mesh`` of ``n_data`` x ``n_space`` ranks (default n_data: world // n_space).
 
     ``devices`` lists the devices of this host's ranks, by local rank:
     every visible card by default, else the CPU once per process. The job
     holds that many devices on each host (hosts: the world size over
     ``LOCAL_WORLD_SIZE``, which ``torchrun`` and an explicit-address
     ``init_multihost`` set; one host without it), and this process takes
-    the device of its local rank (``LOCAL_RANK``, else its rank). The data
-    axis must span the job: one process per rank. On a card, the rank's
-    card becomes the current device here, before any kernel launches.
+    the device of its local rank (``LOCAL_RANK``, else its rank). The mesh
+    must span the job: one process per rank. On a card, the rank's card
+    becomes the current device here, before any kernel launches. With
+    ``n_space`` above 1 every rank makes every space group (the ranks d *
+    n_space ... d * n_space + n_space - 1), in the same order, as
+    ``dist.new_group`` requires, and keeps its own.
     """
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    n_data = world if n_data is None else n_data
+    n_data = max(world // n_space, 1) if n_data is None else n_data
     if devices is None:
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                   or [torch.device("cpu")] * max(world, n_data))
+                   or [torch.device("cpu")] * max(world, n_data * n_space))
     hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
     check_mesh_size(n_data, n_space, len(devices) * hosts)
-    if n_data != world:
-        raise ValueError(f"a data axis of {n_data} needs {n_data} processes, this job has "
-                         f"{world}: start it with --mesh-data {n_data} or torchrun")
+    if n_data * n_space != world:
+        raise ValueError(f"a mesh of {n_data}x{n_space} needs {n_data * n_space} processes, "
+                         f"this job has {world}: start it with --mesh-data {n_data} "
+                         f"--mesh-space {n_space} or torchrun")
     device = devices[_local_rank(rank)]
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(rank, world, device, dist.group.WORLD if world > 1 else None)
+    space_group = None
+    if n_space > 1:
+        for d in range(n_data):
+            g = dist.new_group(list(range(d * n_space, (d + 1) * n_space)))
+            if d == rank // n_space:
+                space_group = g
+    return Mesh(rank, world, device, dist.group.WORLD if world > 1 else None, n_space,
+                space_group)
 
 
 def shard_batch_arrays(mesh: Mesh, *arrays):
-    """This rank's contiguous rows of each global-batch array (None stays None).
+    """This rank's shard of each global-batch array (None stays None).
 
-    The rows JAX's ``shard_batch_arrays`` places on data-axis index ``rank``.
+    The rows JAX's ``shard_batch_arrays`` places on data index ``d`` and,
+    for an array of 3 or more dimensions (images NHWC, masks NHW), of those
+    the band of H (dim 1) on space index ``s``, as ``batch_sharding`` does.
     """
-    return tuple(None if a is None else a[mesh.rows(len(a))] for a in arrays)
+    def shard(a):
+        a = a[mesh.rows(len(a))]
+        return a[:, mesh.band(a.shape[1])] if a.ndim >= 3 and mesh.n_space > 1 else a
+
+    return tuple(None if a is None else shard(a) for a in arrays)
 
 
 def global_batch_from_local(mesh: Mesh, *arrays):

@@ -53,6 +53,17 @@ and the losses, metrics and BatchNorm statistics are the global batch's.
 Rank 0 makes ``expN`` and writes every file and print; the checkpoints
 hold the model's own keys (no DDP ``module.`` prefix).
 
+The mesh's ``space`` axis (``--mesh-space S``, ``parallel/halo.py``):
+each image's H is split over S ranks, each holding H/S contiguous rows of
+its data rows' images; results equal one process's. ``--mesh-data N
+--mesh-space S`` starts N*S local workers, or joins ``torchrun`` with
+WORLD_SIZE = N*S; on ``cuda`` the default N is the cards over S, as the
+JAX CLI's ``len(devices) // n_space``. The batch must divide N.
+unet_resnet50 with the binary task only (other families and tasks raise,
+ROADMAP.md Queue 1 item 10c), at an ``--input-size`` that is a multiple of
+32*S (ResNet-50's deepest stride times S; JAX pads uneven shards
+implicitly, the port raises).
+
 ``--profile`` traces a post-warm-up window of epoch 0 with
 ``torch.profiler`` (``utils/profiling.py``), JAX's windows: on the resident
 path the second chunk (chunk 1), on the host path steps [1, 1 +
@@ -60,9 +71,6 @@ path the second chunk (chunk 1), on the host path steps [1, 1 +
 operators, the kernels as ``unet_seg::<op>``, and on the card every CUDA
 kernel); under ``--mesh-data`` rank 0 traces. Each epoch starts with an
 ``HBM: used/limit MB`` line on the card.
-
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-``--mesh-space`` above 1 (the spatial axis).
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ from unet_embroidery_seg_torch.engine import checkpoint, resident, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.ops import metrics as M
 from unet_embroidery_seg_torch.ops import schedules
+from unet_embroidery_seg_torch.parallel import halo
 from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
 from unet_embroidery_seg_torch.predict import resolve_amp_default
 from unet_embroidery_seg_torch.utils import profiling
@@ -96,7 +105,8 @@ from unet_embroidery_seg_torch.utils.plotting import plot_training_curves
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 from unet_embroidery_seg_torch.utils.vis_export import export_binary_visuals
 
-NOT_PORTED = {"mesh_space": mesh_lib.SPACE_NOT_PORTED}
+SPACE_NOT_PORTED = "ROADMAP.md Queue 1 item 10c (the space axis for other families and tasks)"
+SPACE_STRIDE = 32  # unet_resnet50's deepest stride: every level's band splits evenly
 
 
 class LogColor:
@@ -117,23 +127,33 @@ def check_supported(args) -> None:
             "multitask training requires the two-headed multitask_unet "
             "(and multitask_unet only trains under --task multitask)"
         )
-    if args.mesh_space != 1:
-        raise NotImplementedError(f"--mesh-space > 1: {NOT_PORTED['mesh_space']}")
+    if args.mesh_space < 1:
+        raise ValueError(f"--mesh-space must be at least 1, got {args.mesh_space}")
+    if args.mesh_space > 1:
+        if args.model != "unet_resnet50" or args.task != "binary":
+            raise NotImplementedError(f"--mesh-space > 1 with --model {args.model} --task "
+                                      f"{args.task}: {SPACE_NOT_PORTED}")
+        if args.input_size % (SPACE_STRIDE * args.mesh_space):
+            raise ValueError(f"--input-size {args.input_size} must be a multiple of "
+                             f"{SPACE_STRIDE} x --mesh-space {args.mesh_space} = "
+                             f"{SPACE_STRIDE * args.mesh_space}: every level's rows split "
+                             "evenly over the space axis")
 
 
 def resolve_mesh_data(args, device: torch.device) -> int:
-    """The data axis's size: ``--mesh-data``, else as the JAX CLI (all devices).
+    """The data axis's size: ``--mesh-data``, else as the JAX CLI (all devices over the space axis).
 
-    Under ``torchrun``, the job's processes; on ``cuda`` (no card index
-    given), every visible card; on the CPU, 1. Raises, as the JAX CLI, for
-    more cards than there are and for a batch that does not divide the axis.
+    Under ``torchrun``, the job's processes over ``--mesh-space``; on
+    ``cuda`` (no card index given), every visible card over it; on the
+    CPU, 1. Raises, as the JAX CLI, for more cards than there are and for a
+    batch that does not divide the data axis.
     """
     if args.mesh_data is not None:
         n = args.mesh_data
     elif mesh_lib.in_job():
-        n = int(os.environ.get("WORLD_SIZE", "1"))
+        n = int(os.environ.get("WORLD_SIZE", "1")) // args.mesh_space
     elif device.type == "cuda" and device.index is None:
-        n = torch.cuda.device_count()
+        n = torch.cuda.device_count() // args.mesh_space
     else:
         n = 1
     if device.type == "cuda" and not mesh_lib.in_job():
@@ -316,13 +336,16 @@ def run_eval_resident(eval_chunk, data: resident.ResidentData, batch_size: int, 
 
 
 def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | None,
-               group: mesh_lib.Group = None):
-    """(train_step, eval_step) for ``args.task``, as the JAX CLI picks them."""
+               group: mesh_lib.Group = None, space: halo.SpaceAxis | None = None):
+    """(train_step, eval_step) for ``args.task``, as the JAX CLI picks them.
+
+    ``space`` (the binary task only): the mesh's space axis.
+    """
     if args.task == "binary":
         return (steps.make_binary_train_step(model, optimizer, args.loss, pos_weight,
-                                             amp=args.amp, group=group),
+                                             amp=args.amp, group=group, space=space),
                 steps.make_binary_eval_step(model, args.loss, pos_weight, amp=args.amp,
-                                            group=group))
+                                            group=group, space=space))
     if args.task == "multitask":
         kw = {"seg_loss_name": args.loss, "cls_loss_weight": args.cls_loss_weight,
               "pos_weight": pos_weight, "amp": args.amp, "group": group}
@@ -363,7 +386,7 @@ def train(args) -> str:
     device = resolve_device(args.device)
     set_float32_precision()
     n_data = resolve_mesh_data(args, device)
-    if n_data > 1 and not mesh_lib.in_job():
+    if n_data * args.mesh_space > 1 and not mesh_lib.in_job():
         return train_local_ranks(args, n_data, device)
     return train_rank(args, device, n_data)
 
@@ -376,13 +399,16 @@ def _rank_main(rank: int, args, results) -> None:
 
 
 def train_local_ranks(args, n_data: int, device: torch.device) -> str:
-    """``train`` on ``n_data`` local worker processes, one per rank; returns rank 0's ``expN``."""
+    """``train`` on n_data x ``--mesh-space`` local worker processes, one per rank.
+
+    Returns rank 0's ``expN``.
+    """
     import torch.multiprocessing as mp
 
     args = copy.copy(args)
     args.mesh_data = n_data
     results = mp.get_context("spawn").SimpleQueue()
-    mesh_lib.launch_local(_rank_main, n_data, (args, results),
+    mesh_lib.launch_local(_rank_main, n_data * args.mesh_space, (args, results),
                           backend=mesh_lib.backend_for(device))
     return results.get()
 
@@ -393,7 +419,8 @@ def train_rank(args, device: torch.device, n_data: int) -> str:
     Joins ``torchrun``'s job if there is one. Ranks other than 0 print nothing.
     """
     mesh_lib.init_multihost(backend=mesh_lib.backend_for(device))
-    devices = None if device.type == "cuda" and device.index is None else [device] * n_data
+    devices = (None if device.type == "cuda" and device.index is None
+               else [device] * (n_data * args.mesh_space))
     mesh = mesh_lib.make_mesh(n_data, args.mesh_space, devices)
     with contextlib.ExitStack() as stack:
         if not mesh.is_main:
@@ -433,6 +460,9 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
                                    augmentation=augmentation, task=ds_task,
                                    return_cls_label=multitask, seed=args.seed)
 
+    # The host loaders' rows: by data index, and over the space axis a band of image rows.
+    shard = {"rank": mesh.d, "world_size": mesh.n_data,
+             "band": mesh.band(args.input_size) if mesh.n_space > 1 else None}
     # The device-resident path is the default on the card, as the JAX CLI
     # takes it on an accelerator; on the CPU only when asked.
     use_device_aug = args.device_augment
@@ -450,7 +480,6 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
     else:
         val_dataset = make_ds("validation", False)
         print(f"Train samples: {len(train_dataset)}, Val samples: {len(val_dataset)}")
-        shard = {"rank": mesh.rank, "world_size": mesh.world_size}
         train_loader = DataLoader(train_dataset, batch_size, shuffle=True, seed=args.seed,
                                   prefetch=args.workers, **shard)
         val_loader = DataLoader(val_dataset, batch_size, shuffle=False, seed=args.seed,
@@ -486,7 +515,7 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
     max_val_batches = args.max_val_batches or None
     max_test_batches = args.max_test_batches or None
     train_step, eval_step = make_steps(args, model, optimizer, num_classes, pos_weight,
-                                       group=mesh.group)
+                                       group=mesh.group, space=halo.space_axis(mesh))
 
     if use_device_aug:
         train_res = resident.upload(train_cache, device)
@@ -684,8 +713,7 @@ def _train(args, device: torch.device, mesh: mesh_lib.Mesh) -> str:
                 CanvasCache(test_source, input_shape, return_cls_label=multitask), device)
         else:
             test_data = DataLoader(make_ds("test", False), batch_size, shuffle=False,
-                                   seed=args.seed, prefetch=2, rank=mesh.rank,
-                                   world_size=mesh.world_size)
+                                   seed=args.seed, prefetch=2, **shard)
         checkpoint.load_weights(best_model_path, model)
         test_metrics = evaluate(test_data, max_test_batches)
         if main:
@@ -797,7 +825,8 @@ def parse_args(argv=None):
                              "each (default: every visible card on cuda, 1 on cpu; under "
                              "torchrun, its processes)")
     parser.add_argument("--mesh-space", default=1, type=int,
-                        help="Spatial-parallel axis size over image H: not ported, 1 only")
+                        help="Spatial-parallel axis size over image H (unet_resnet50, binary; "
+                             "--input-size a multiple of 32 x it)")
     args = parser.parse_args(argv)
     if args.pos_weight == "":
         args.pos_weight = None

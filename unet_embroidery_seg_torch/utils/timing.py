@@ -65,6 +65,8 @@ KERNEL_GROUPS = [
     ("port conv3x3 f32 tf32x3 (forward and dgrad)", ("conv3x3_wgmma_kernel<float",)),
     ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("memcpy", ("Memcpy", "memcpy")),
+    # NCCL's kernels, waits for the other ranks included
+    ("collectives (NCCL)", ("nccl", "Nccl")),
     ("Adam (foreach)", ("multi_tensor", "foreach", "Adam", "adam")),
     ("sort (Lovasz)", ("sort", "Sort", "radix", "Radix")),
     ("cuDNN/cuBLAS conv and GEMM", ("conv", "gemm", "xmma", "sm90", "cutlass", "implicit",
