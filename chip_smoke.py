@@ -234,6 +234,20 @@ process's. 16c (``--multi-card-only``, four
 cards): the train CLI with ``--mesh-data 2 --mesh-space 2`` over NCCL
 writes ``expN``, and the 1x2 steps run over NCCL on two cards; with fewer
 cards it prints why it did not run.
+17. The space axis for the other families and tasks, a 1x2 mesh. 17a: 16a
+at the families' sites (512^2, batch 8, bf16 and f32): the bias-free conv's
+halo mode at its 5 DoubleConv shapes (9 sites), forward and dgrad, and the
+align_corners=False band upsample at its 4 sites, forward and backward,
+each shard against its plain version and the shards against the unsplit
+kernel, timed beside bound and library. 17b: two gloo ranks on the one card
+(one job) against one process for unet_plain, attention_unet and
+dualdense_unet (binary BCE), unet_plain multiclass (K = 5, CE + Dice) and
+multitask_unet: one f32 SGD step to 12b's rule, the f32 eval results
+exactly, 3 bf16 steps per rank with every launch in its halo or band mode
+(4 + 4 + 9 + 9, dualdense 4 + 4 + 0 + 0, multitask 5 + 5 + 6 + 6 per step),
+ms/step and peak memory per rank beside one process's. 17c
+(``--multi-card-only``, four cards): the train CLI on a 2x2 mesh for
+unet_plain multiclass and multitask_unet, one ``expN`` each.
 
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
@@ -243,7 +257,9 @@ Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
 families' under names of their own, then the f32 conv's, ``[f32]``, with
 phase 9's launches, then the f32 entries at unet_resnet50's sites,
 ``[...,f32]``, with phase 10b's multitask launches, then phase 16's halo
-and band entries, ``[...,halo]`` and ``[band...]``, with 16b's launches),
+and band entries, ``[...,halo]`` and ``[band...]``, with 16b's launches,
+then phase 17's, ``[align_corners=False,band...]`` and ``[...,halo...]``,
+with 17b's launches of the three families),
 the card line, and the result line.
 
 Imports nothing of JAX, PIL or cv2. Exits non-zero, printing no result,
@@ -1853,6 +1869,29 @@ def _update_rel(state: dict, ref: dict, init: dict, stats: bool) -> dict:
     return out
 
 
+def _update_rule(state: dict, ref: dict, up: dict, down: dict, init: dict) -> tuple[dict, bool]:
+    """12b's rule for one f32 step: ``state``'s update against ``ref``'s, per tensor, within 4x
+    the floor of ``up`` and ``down`` (``ref``'s step with its input moved one ulp) plus 1e-4.
+
+    Returns ({"parameter_updates", "bn_statistics"}: median and worst share and floor), ok).
+    """
+    entries, ok = {}, True
+    for stats in (False, True):
+        two = _update_rel(state, ref, init, stats)
+        noise = {k: max(a, b) for (k, a), b in zip(_update_rel(up, ref, init, stats).items(),
+                                                   _update_rel(down, ref, init, stats).values())}
+        worst = max(two, key=two.get)
+        entry = {"median_rel_diff": statistics.median(two.values()),
+                 "median_rel_noise": statistics.median(noise.values()),
+                 "worst_rel_diff": two[worst], "worst": worst,
+                 "worst_rel_noise": max(noise.values())}
+        entries["bn_statistics" if stats else "parameter_updates"] = entry
+        floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
+        ok = ok and (entry["median_rel_diff"] <= floor(entry["median_rel_noise"])
+                     and entry["worst_rel_diff"] <= floor(entry["worst_rel_noise"]))
+    return entries, ok
+
+
 def two_ranks_one_card(one_process: dict, bf16_floor: float) -> dict:
     """12b: two gloo ranks on the one card against the 1-process step and chunk.
 
@@ -1883,21 +1922,9 @@ def two_ranks_one_card(one_process: dict, bf16_floor: float) -> dict:
                       "loss_rel_diff": abs(ranks[0]["sgd_loss"] - one["one"][0])
                       / abs(one["one"][0]),
                       "ranks_bit_equal": bit_equal}}
-    ok = bit_equal and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
-    for stats in (False, True):
-        two = _update_rel(states[0], ref, init, stats)
-        noise = {k: max(a, b) for (k, a), b in zip(
-            _update_rel(one["one_up"][1], ref, init, stats).items(),
-            _update_rel(one["one_down"][1], ref, init, stats).values())}
-        worst = max(two, key=two.get)
-        entry = {"median_rel_diff": statistics.median(two.values()),
-                 "median_rel_noise": statistics.median(noise.values()),
-                 "worst_rel_diff": two[worst], "worst": worst,
-                 "worst_rel_noise": max(noise.values())}
-        result["sgd"]["bn_statistics" if stats else "parameter_updates"] = entry
-        floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
-        ok = ok and (entry["median_rel_diff"] <= floor(entry["median_rel_noise"])
-                     and entry["worst_rel_diff"] <= floor(entry["worst_rel_noise"]))
+    entries, ok = _update_rule(states[0], ref, one["one_up"][1], one["one_down"][1], init)
+    result["sgd"].update(entries)
+    ok = ok and bit_equal and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
     want = one_process["losses"]
     got = [r["chunk"]["losses"] for r in ranks]
     rel = [abs(a - b) / abs(b) for a, b in zip(got[0], want)]
@@ -2594,23 +2621,29 @@ def _space_shards(h: int):
             (1, slice(b, h), slice(b - 1, h), (0, 1))]
 
 
-def _space_row(kernel, site, s, path, dtype, run, plain, library, nbytes, flops, shape):
-    """One timed 16a row; shard 0's counts in the pass of one rank, shard 1's are held only."""
-    return measure_site("space_site", kernel, f"{site}.shard{s}", path, dtype, run, plain,
+def _space_row(prefix, kernel, site, s, path, dtype, run, plain, library, nbytes, flops, shape,
+               count, sites_of):
+    """One timed row of a shard; shard 0's counts in the pass of one rank, shard 1's are held only."""
+    return measure_site(prefix, kernel, f"{site}.shard{s}", path, dtype, run, plain,
                         library, nbytes, flops,
-                        {"shape": shape, "count": int(s == 0), "sites_of": "unet_resnet50, 1x2",
+                        {"shape": shape, "count": count if s == 0 else 0, "sites_of": sites_of,
                          "shard": s})
 
 
 @torch.no_grad()
-def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
-    """16a: the halo and band modes at the 11 sites, 512^2, batch 8, bf16 and f32, split in two.
+def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: bool,
+                align_corners: bool, sites_of: str) -> tuple[list[dict], dict]:
+    """The conv's halo-padded and the upsample's band modes at 512^2, batch 8, bf16 and f32,
+    each site's rows split in two (phases 16a and 17a).
 
-    Returns (the timed rows, the shards-against-unsplit differences by site).
-    The conv's library yardstick is ``F.conv2d`` with padding (0, 1) on the
-    same halo-padded input (TF32 off), dgrad's cuDNN's on the band's own
-    rows, the upsample's ``F.interpolate`` of the band's input and its
-    backward on the band's rows.
+    ``conv_sites``: (site, C, H, sites of that shape per step); the conv is the
+    fused one (bias, ReLU) with ``fused``, else the bias-free ``conv3x3_same``;
+    its dgrad is the same kernel either way. ``up_sites``: (site, C, H_in,
+    skip channels before its output in the cat). Returns (the timed rows, the
+    shards-against-unsplit differences by site). The conv's library yardstick
+    is ``F.conv2d`` with padding (0, 1) on the same halo-padded input (TF32
+    off), dgrad's cuDNN's on the band's own rows, the upsample's
+    ``F.interpolate`` of the band's input and its backward on the band's rows.
     """
     from unet_embroidery_seg_torch.ops import conv3x3 as C
     from unet_embroidery_seg_torch.ops import upsample as U
@@ -2619,9 +2652,13 @@ def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
     dev, cl = torch.device("cuda"), torch.channels_last
     rows, unsplit = [], {}
     torch.backends.cudnn.allow_tf32 = False
+
+    def row(*args):
+        rows.append(_space_row(prefix, *args, sites_of))
+
     for dtype in (torch.bfloat16, torch.float32):
         tag = "" if dtype == torch.bfloat16 else ".f32"
-        for site, c, h in DGRAD_SITES:
+        for site, c, h, count in conv_sites:
             x = torch.relu(torch.randn(BATCH, c, h, h, generator=gen)).to(dev, dtype)
             x = x.contiguous(memory_format=cl)
             g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(
@@ -2630,38 +2667,46 @@ def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
             b = (0.1 * torch.randn(c, generator=gen)).to(dev)
             wd, bd = w.to(dtype).contiguous(memory_format=cl), b.to(dtype)
             path, es = C.conv3x3_path(c, dtype), x.element_size()
-            want_y, want_dx = C.conv3x3_bias_relu(x, w, b), C.conv3x3_dgrad(g, w)
+            if fused:
+                conv = lambda xs, pad=(1, 1): C.conv3x3_bias_relu(xs, w, b, pad)  # noqa: E731
+                conv_plain = lambda xs, pad: C.conv3x3_bias_relu_plain(xs, w, b, pad)  # noqa: E731
+                library = lambda xs: F.conv2d(xs, wd, bd, padding=(0, 1))  # noqa: E731
+            else:
+                conv = lambda xs, pad=(1, 1): C.conv3x3_same(xs, w, pad)  # noqa: E731
+                conv_plain = lambda xs, pad: C.conv3x3_same_plain(xs, w, pad)  # noqa: E731
+                library = lambda xs: F.conv2d(xs, wd, padding=(0, 1))  # noqa: E731
+            want_y, want_dx = conv(x), C.conv3x3_dgrad(g, w)
             got_y, got_dx = [], torch.zeros(want_dx.shape, device=dev)
             for s, own, halo_rows, pad in _space_shards(h):
                 xs = x[:, :, halo_rows].contiguous(memory_format=cl)
                 gs = g[:, :, own].contiguous(memory_format=cl)
                 flops = 2.0 * 9 * c * c * BATCH * (h // 2) * h
-                rows.append(_space_row(
-                    "conv3x3_same", site + tag, s, path, dtype,
-                    lambda xs=xs, pad=pad: C.conv3x3_bias_relu(xs, w, b, pad),
-                    lambda xs=xs, pad=pad: C.conv3x3_bias_relu_plain(xs, w, b, pad),
-                    lambda xs=xs: F.conv2d(xs, wd, bd, padding=(0, 1)),
-                    (xs.numel() + gs.numel() + 9 * c * c) * es + 4 * c, flops, list(xs.shape)))
+                row("conv3x3_same", site + tag, s, path, dtype,
+                    lambda xs=xs, pad=pad: conv(xs, pad),
+                    lambda xs=xs, pad=pad: conv_plain(xs, pad),
+                    lambda xs=xs: library(xs),
+                    (xs.numel() + gs.numel() + 9 * c * c) * es + (4 * c if fused else 0), flops,
+                    list(xs.shape), count)
                 dp = C.dgrad_pad(pad)
-                rows.append(_space_row(
-                    "conv3x3_dgrad", site + tag, s, path, dtype,
+                row("conv3x3_dgrad", site + tag, s, path, dtype,
                     lambda gs=gs, dp=dp: C.conv3x3_dgrad(gs, w, dp),
                     lambda gs=gs, dp=dp: C.conv3x3_dgrad_plain(gs, w, dp),
                     lambda gs=gs: torch.nn.grad.conv2d_input(gs.shape, wd, gs, padding=1),
-                    (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape)))
-                got_y.append(C.conv3x3_bias_relu(xs, w, b, pad))
+                    (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape), count)
+                got_y.append(conv(xs, pad))
                 got_dx[:, :, halo_rows] += C.conv3x3_dgrad(gs, w, dp).float()
             unsplit[f"conv3x3_same:{site}{tag}"] = (torch.cat(got_y, 2).float()
                                                      - want_y.float()).abs().max().item()
             unsplit[f"conv3x3_dgrad:{site}{tag}"] = ((got_dx - want_dx.float()).abs().max().item()
                                                       / want_dx.float().abs().max().item())
-        for site, c, h, skip in UPSAMPLE_BWD_SITES:
+        ac = align_corners
+        for site, c, h, skip in up_sites:
             x = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(
                 memory_format=cl)
             full_g = torch.randn(BATCH, skip + c, 2 * h, 2 * h, generator=gen)
             g = full_g.to(dev, dtype).contiguous(memory_format=cl)[:, skip:]
             es = x.element_size()
-            want_y, want_dx = U.upsample2x(x, True), U.upsample2x_backward(g, True)
+            want_y, want_dx = U.upsample2x(x, ac), U.upsample2x_backward(g, ac)
             got_y, got_dx = [], torch.zeros(want_dx.shape, device=dev)
             for s, own, _, _ in _space_shards(h):
                 band = (h, own.start, own.stop)
@@ -2669,30 +2714,28 @@ def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
                 xs = x[:, :, first:first + n].contiguous(memory_format=cl)
                 gs = g[:, :, 2 * own.start:2 * own.stop]  # the cat slice's rows, read in place
                 out_elems = BATCH * c * 2 * (h // 2) * 2 * h
-                rows.append(_space_row(
-                    "upsample2x", site + tag, s, "staged, band", dtype,
-                    lambda xs=xs, band=band: U.upsample2x(xs, True, band),
-                    lambda xs=xs, band=band: U.upsample2x_plain(xs, True, band),
+                row("upsample2x", site + tag, s, "staged, band", dtype,
+                    lambda xs=xs, band=band: U.upsample2x(xs, ac, band),
+                    lambda xs=xs, band=band: U.upsample2x_plain(xs, ac, band),
                     lambda xs=xs: F.interpolate(xs, scale_factor=2, mode="bilinear",
-                                                align_corners=True),
-                    (xs.numel() + out_elems) * es, 9.0 * out_elems, list(xs.shape)))
-                rows.append(_space_row(
-                    "upsample2x_backward", site + tag, s,
+                                                align_corners=ac),
+                    (xs.numel() + out_elems) * es, 9.0 * out_elems, list(xs.shape), 1)
+                row("upsample2x_backward", site + tag, s,
                     "staged, band, cat slice" if skip else "staged, band", dtype,
-                    lambda gs=gs, band=band: U.upsample2x_backward(gs, True, band),
-                    lambda gs=gs, band=band: U.upsample2x_backward_plain(gs, True, band),
+                    lambda gs=gs, band=band: U.upsample2x_backward(gs, ac, band),
+                    lambda gs=gs, band=band: U.upsample2x_backward_plain(gs, ac, band),
                     lambda gs=gs: torch.ops.aten.upsample_bilinear2d_backward(
-                        gs, [gs.shape[2], 2 * h], [BATCH, c, gs.shape[2] // 2, h], True),
-                    (xs.numel() + out_elems) * es, 8.0 * out_elems, list(gs.shape)))
-                got_y.append(U.upsample2x(xs, True, band))
-                got_dx[:, :, first:first + n] += U.upsample2x_backward(gs, True, band).float()
+                        gs, [gs.shape[2], 2 * h], [BATCH, c, gs.shape[2] // 2, h], ac),
+                    (xs.numel() + out_elems) * es, 8.0 * out_elems, list(gs.shape), 1)
+                got_y.append(U.upsample2x(xs, ac, band))
+                got_dx[:, :, first:first + n] += U.upsample2x_backward(gs, ac, band).float()
             unsplit[f"upsample2x:{site}{tag}"] = (torch.cat(got_y, 2).float()
                                                    - want_y.float()).abs().max().item()
             unsplit[f"upsample2x_backward:{site}{tag}"] = (
                 (got_dx - want_dx.float()).abs().max().item()
                 / want_dx.float().abs().max().item())
         torch.cuda.empty_cache()
-    print("space_unsplit " + json.dumps(unsplit), flush=True)
+    print(f"{prefix}_unsplit " + json.dumps(unsplit), flush=True)
     for key, err in unsplit.items():
         kernel = key.split(":")[0]
         tol = 0.0 if kernel in ("conv3x3_same", "upsample2x") else (
@@ -2701,6 +2744,13 @@ def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
             raise AssertionError(f"space axis: {key} shards against the unsplit kernel: "
                                  f"{err} > {tol}")
     return rows, unsplit
+
+
+def check_space_sites(gen: torch.Generator) -> tuple[list[dict], dict]:
+    """16a: the halo and band modes at unet_resnet50's 11 sites (``space_sites``)."""
+    return space_sites(gen, "space_site", [(n, c, h, 1) for n, c, h in DGRAD_SITES],
+                       UPSAMPLE_BWD_SITES, fused=True, align_corners=True,
+                       sites_of="unet_resnet50, 1x2")
 
 
 def _space_step_run(mesh, counters, amp: bool, steps: int, profile: bool = False) -> dict:
@@ -2919,22 +2969,11 @@ def space_one_card(counters) -> dict:
                        "eval_logit_rel_diff": logit_diff,
                        "eval_floor_flipped_pixels": floor_flips,
                        "eval_floor_logit_rel_diff": floor_diff}}
-    ref = one["one"][1]
-    ok = result["sgd"]["ranks_bit_equal"] and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
-    for stats in (False, True):
-        two = _update_rel(states[0], ref, init, stats)
-        noise = {k: max(a, b) for (k, a), b in zip(
-            _update_rel(one["one_up"][1], ref, init, stats).items(),
-            _update_rel(one["one_down"][1], ref, init, stats).values())}
-        worst = max(two, key=two.get)
-        entry = {"median_rel_diff": statistics.median(two.values()),
-                 "median_rel_noise": statistics.median(noise.values()),
-                 "worst_rel_diff": two[worst], "worst": worst,
-                 "worst_rel_noise": max(noise.values())}
-        result["sgd"]["bn_statistics" if stats else "parameter_updates"] = entry
-        floor = lambda v: TOL_TRAIN_NOISE_FACTOR * v + TOL_F32_GRAD  # noqa: E731
-        ok = ok and (entry["median_rel_diff"] <= floor(entry["median_rel_noise"])
-                     and entry["worst_rel_diff"] <= floor(entry["worst_rel_noise"]))
+    entries, ok = _update_rule(states[0], one["one"][1], one["one_up"][1], one["one_down"][1],
+                               init)
+    result["sgd"].update(entries)
+    ok = (ok and result["sgd"]["ranks_bit_equal"]
+          and result["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32)
     want = {k: v * SPACE_STEPS for k, v in RESNET_PER_STEP.items() if k in bf16[0]["launches"]}
     print("space_one_card " + json.dumps(result), flush=True)
     ok = (ok and all(r["launches"] == want and r["halo_launches"] == want for r in bf16)
@@ -2951,26 +2990,19 @@ def space_one_card(counters) -> dict:
     return result
 
 
-def space_four_cards(one_card: dict | None = None) -> dict:
-    """16c: the train CLI with --mesh-data 2 --mesh-space 2 over NCCL, and a 1x2 step on two cards.
+def space_cli(extra: list[str]) -> dict:
+    """The train CLI on a 2x2 mesh of four cards over NCCL (16c, 17c), in a subprocess.
 
-    With fewer than four cards it says why it did not run. ``one_card``:
-    16b's result, for the one-process bf16 losses the 1x2 step is held to.
+    512^2, batch 8, one epoch of 4 steps on ``synthetic:16``, plus ``extra``
+    flags; ``ok`` when it exits 0 having written one ``expN`` with its
+    ``summary.json``.
     """
-    n = torch.cuda.device_count()
-    if n < 4:
-        reason = (f"phase 16c not run: this machine has {n} CUDA card(s), and a 2x2 mesh over "
-                  "NCCL needs four")
-        print(reason, flush=True)
-        return {"ran": False, "reason": reason}
-    ranks, _, seconds = _run_space_ranks([torch.device("cuda", i) for i in range(SPACE_SPLIT)],
-                                         "nccl")
     workdir = tempfile.mkdtemp(prefix="space-cli-")
     cmd = [sys.executable, "-m", "unet_embroidery_seg_torch.train", "--data-path",
            "synthetic:16", "--input-size", str(TRAIN_SIZE), "--batch-size", str(BATCH),
            "--epochs", "1", "--max-train-batches", "4", "--max-val-batches", "1",
            "--max-test-batches", "1", "--mesh-data", "2", "--mesh-space", "2",
-           "--no-export-vis", "--ckpt-every", "0"]
+           "--no-export-vis", "--ckpt-every", "0", *extra]
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=subprocess.PIPE,
@@ -2985,6 +3017,26 @@ def space_four_cards(one_card: dict | None = None) -> dict:
         else []
     files = sorted(os.listdir(os.path.join(workdir, "run", "train", "exp"))) if runs else []
     shutil.rmtree(workdir, ignore_errors=True)
+    return {"flags": extra, "returncode": proc.returncode, "seconds": cli_s, "runs": runs,
+            "files": files, "stderr_tail": stderr[-4000:],
+            "ok": proc.returncode == 0 and runs == ["exp"] and "summary.json" in files}
+
+
+def space_four_cards(one_card: dict | None = None) -> dict:
+    """16c: the train CLI with --mesh-data 2 --mesh-space 2 over NCCL, and a 1x2 step on two cards.
+
+    With fewer than four cards it says why it did not run. ``one_card``:
+    16b's result, for the one-process bf16 losses the 1x2 step is held to.
+    """
+    n = torch.cuda.device_count()
+    if n < 4:
+        reason = (f"phase 16c not run: this machine has {n} CUDA card(s), and a 2x2 mesh over "
+                  "NCCL needs four")
+        print(reason, flush=True)
+        return {"ran": False, "reason": reason}
+    ranks, _, seconds = _run_space_ranks([torch.device("cuda", i) for i in range(SPACE_SPLIT)],
+                                         "nccl")
+    cli = space_cli([])
     bf16 = [r["bf16"] for r in ranks]
     for r in bf16:
         del r["logits"]
@@ -3000,15 +3052,13 @@ def space_four_cards(one_card: dict | None = None) -> dict:
                                                          for r in bf16],
                            "device_ms_by_group_rank0": bf16[0]["device_ms_by_group"],
                            "eval_counts_per_rank": [r["eval_counts"] for r in bf16]},
-              "cli": {"returncode": proc.returncode, "seconds": cli_s, "runs": runs,
-                      "files": files, "stderr_tail": stderr[-4000:]}}
+              "cli": cli}
     if one_card is not None:
         want = one_card["bf16"]["losses_one_process"]
         result["step_1x2"]["first_loss_rel_diff"] = abs(bf16[0]["losses"][0] - want[0]) / abs(
             want[0])
     print("space_four_cards " + json.dumps(result), flush=True)
-    if (proc.returncode != 0 or runs != ["exp"] or "summary.json" not in files
-            or not np.isfinite(bf16[0]["losses"]).all()
+    if (not cli["ok"] or not np.isfinite(bf16[0]["losses"]).all()
             or result["step_1x2"].get("first_loss_rel_diff", 0.0) > TOL_RESIDENT_LOSS):
         raise AssertionError(f"space axis on four cards: {result}")
     return result
@@ -3021,6 +3071,298 @@ def space_phase(counters) -> dict:
     out = {"sites": rows, "unsplit": unsplit, "one_card": space_one_card(counters)}
     out["four_cards"] = space_four_cards(out["one_card"])
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# Phase 17, the space axis for the other families and tasks, a 1x2 mesh as
+# phase 16. 17a: phase 16a at the families' sites (512^2, batch 8): the
+# bias-free conv's halo mode at its 5 DoubleConv shapes (9 sites) and the
+# align_corners=False band upsample at its 4 sites, forward and backward,
+# bf16 and f32, with 16a's tolerances. 17b: two gloo ranks on the one card
+# against one process, for each run of ``FAMILY_SPACE_RUNS``: one f32 SGD step
+# (TF32 off) to 12b's rule (the loss to 1e-5, each update to 4x the one-ulp
+# floor), the f32 eval results exactly (seeded weights: a one-process
+# prediction and its band's agree), then a few bf16 Adam steps with every
+# launch in its halo or band mode, ms/step and peak memory per rank beside
+# one process's. multitask_unet's dropout is on: one data index draws one
+# process's mask. 17c (``--multi-card-only``, four cards): the train CLI on
+# a 2x2 mesh for unet_plain multiclass and multitask_unet.
+FAMILY_SPACE_RUNS = (("unet_plain", "binary", "bce"), ("attention_unet", "binary", "bce"),
+                     ("dualdense_unet", "binary", "bce"), ("unet_plain", "multiclass", "ce"),
+                     ("multitask_unet", "multitask", "bce"))
+FAMILY_SPACE_BF16_STEPS = 3  # after one warm-up step
+FAMILY_SPACE_SEED = 17
+FAMILY_SPACE_CLI = (["--task", "multiclass", "--model", "unet_plain", "--loss", "ce"],
+                    ["--task", "multitask", "--model", "multitask_unet", "--loss", "bce"])
+
+
+def family_per_step(name: str) -> dict:
+    """A family's kernel launches per train step: its forward's, each with its backward."""
+    f = FAMILY_FORWARD_LAUNCHES[name]
+    return {**f, "upsample2x_backward": f["upsample2x"], "conv3x3_dgrad": f["conv3x3_same"]}
+
+
+def _family_space_model(spec: tuple, device):
+    """17b's run ``spec``'s full-width model, seeded (``FAMILY_SPACE_SEED``), on ``device``."""
+    from unet_embroidery_seg_torch.models import build_model
+
+    name, task, _ = spec
+    gen = torch.Generator().manual_seed(FAMILY_SPACE_SEED)
+    if task == "multitask":
+        return build_model("multitask_unet", 1, generator=gen, device=device)
+    return build_model(name, 2 if task == "binary" else MC_CLASSES, diff_head=task == "binary",
+                       generator=gen, device=device)
+
+
+def _family_space_step(model, task: str, loss: str, opt, amp: bool, group, space):
+    """The task's train step, returning the (total) loss tensor."""
+    from unet_embroidery_seg_torch.engine import steps
+
+    kw = {"amp": amp, "group": group, "space": space}
+    if task == "binary":
+        return steps.make_binary_train_step(model, opt, loss, None, **kw)
+    if task == "multiclass":
+        return steps.make_multiclass_train_step(model, opt, MC_CLASSES, use_dice=True, **kw)
+    step = steps.make_multitask_train_step(model, opt, loss, 1.0, None, **kw)
+    return lambda *batch: step(*batch)[0][0]
+
+
+def _family_space_eval(model, task: str, loss: str, batch, group, space) -> dict:
+    """The task's f32 eval results: binary counts; multiclass per-batch metrics (from integer
+    tables) and per-sample sums; multitask seg counts and class confusion."""
+    from unet_embroidery_seg_torch.engine import steps
+
+    kw = {"amp": False, "group": group, "space": space}
+    if task == "binary":
+        return {"counts": steps.make_binary_eval_step(model, loss, None, **kw)(*batch)[1].tolist()}
+    if task == "multiclass":
+        _, m = steps.make_multiclass_eval_step(model, MC_CLASSES, **kw)(*batch)
+        _, sums, n_valid = steps.make_multiclass_persample_eval_step(model, MC_CLASSES, **kw)(
+            *batch)
+        return {"metrics": {k: float(v) for k, v in m.items()},
+                "per_sample": {"n_valid": float(n_valid), **{k: float(v) for k, v in sums.items()}}}
+    _, seg_counts, confusion = steps.make_multitask_eval_step(model, loss, **kw)(*batch)
+    return {"seg_counts": seg_counts.tolist(), "confusion": confusion.tolist()}
+
+
+def _family_space_case(spec: tuple, mesh, counters, floors: bool) -> tuple[dict, list[dict]]:
+    """17b's run ``spec`` on ``mesh`` (None: one process): (results, f32 SGD states on the CPU).
+
+    The f32 eval and SGD step from the seeded weights (``floors``: the SGD
+    step again with the input moved one ulp up and down), then
+    ``FAMILY_SPACE_BF16_STEPS`` timed bf16 Adam steps after a warm-up one,
+    the counters zeroed just before them and read just after.
+    """
+    from unet_embroidery_seg_torch.data.synthetic import seeded_task_batch
+    from unet_embroidery_seg_torch.engine.resident import rank_seed, seed_default_generator
+    from unet_embroidery_seg_torch.ops import schedules
+    from unet_embroidery_seg_torch.parallel import halo
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    name, task, loss = spec
+    device = torch.device("cuda") if mesh is None else mesh.device
+    group, space = (None, None) if mesh is None else (mesh.group, halo.space_axis(mesh))
+    model = _family_space_model(spec, device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = seeded_task_batch(BATCH, TRAIN_SIZE, FAMILY_SPACE_SEED, task, MC_CLASSES)
+    if mesh is not None:
+        batch = mesh_lib.shard_batch_arrays(mesh, *batch)
+
+    def run_steps(step, n, seed0):
+        out = []
+        for k in range(n):  # multitask's dropout: the train CLI's seeding
+            seed_default_generator(device, rank_seed(seed0 + k, mesh))
+            out.append(step(*batch))
+        return out
+
+    result = {"f32_eval": _family_space_eval(model, task, loss, batch, group, space)}
+    states = []
+    for scale in ((1.0, 1 + 2.0 ** -23, 1 - 2.0 ** -23) if floors else (1.0,)):
+        model.load_state_dict(init)
+        for c in counters:
+            c.halo_launches = 0
+        step = _family_space_step(model, task, loss, torch.optim.SGD(model.parameters(),
+                                                                     lr=DDP_LR_SGD),
+                                  False, group, space)
+        images, *rest = batch
+        seed_default_generator(device, rank_seed(0, mesh))
+        value = float(step(images * np.float32(scale), *rest))
+        states.append({k: v.to("cpu", copy=True) for k, v in model.state_dict().items()})
+        if scale == 1.0:
+            result["sgd_loss"] = value
+            result["sgd_halo_launches"] = {c.__name__: c.halo_launches for c in counters}
+    model.load_state_dict(init)
+    step = _family_space_step(model, task, loss, schedules.make_train_optimizer(
+        model.parameters(), TRAIN_LR), True, group, space)
+    losses = [float(v) for v in run_steps(step, 1, 100)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for c in counters:
+        c.launches = c.halo_launches = 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(FAMILY_SPACE_BF16_STEPS + 1)]
+    marks[0].record()
+    out = []
+    for k in range(FAMILY_SPACE_BF16_STEPS):
+        out += run_steps(step, 1, 101 + k)
+        marks[k + 1].record()
+    losses += [float(v) for v in out]
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    result["bf16"] = {"losses": losses, "step_ms": step_ms,
+                      "step_ms_median": statistics.median(step_ms),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                      "launches": {c.__name__: c.launches for c in counters},
+                      "halo_launches": {c.__name__: c.halo_launches for c in counters}}
+    del model, step
+    torch.cuda.empty_cache()
+    return result, states
+
+
+def _family_space_key(spec: tuple) -> str:
+    return f"{spec[0]}.{spec[1]}"
+
+
+def _family_counters() -> list:
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad, conv3x3_same
+    from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
+
+    return [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_same, conv3x3_dgrad]
+
+
+def _family_space_rank(rank: int, devices: list, out_dir: str) -> None:
+    """One rank of 17b: every run of ``FAMILY_SPACE_RUNS`` on the 1x2 mesh, to ``out_dir``."""
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(1, SPACE_SPLIT, devices)
+    counters = _family_counters()
+    results = {}
+    for spec in FAMILY_SPACE_RUNS:
+        t0 = time.perf_counter()
+        key = _family_space_key(spec)
+        results[key], states = _family_space_case(spec, mesh, counters, floors=False)
+        results[key]["seconds"] = time.perf_counter() - t0
+        torch.save(states[0], os.path.join(out_dir, f"{key}.rank{rank}.pt"))
+    with open(os.path.join(out_dir, f"families_rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def family_space_one_card() -> dict:
+    """17b: each run of ``FAMILY_SPACE_RUNS`` on two gloo ranks on the one card against one process.
+
+    One process first (with its f32 floors), then the two ranks in one job,
+    every run in turn; then each run's checks (the block comment above).
+    """
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _family_counters()
+    one, one_states = {}, {}
+    for spec in FAMILY_SPACE_RUNS:
+        key = _family_space_key(spec)
+        one[key], one_states[key] = _family_space_case(spec, None, counters, floors=True)
+    out_dir = tempfile.mkdtemp(prefix="family-space-ranks-")
+    t0 = time.perf_counter()
+    try:
+        mesh_lib.launch_local(_family_space_rank, SPACE_SPLIT,
+                              ([torch.device("cuda", 0)] * SPACE_SPLIT, out_dir), backend="gloo",
+                              timeout_s=900)
+        seconds = time.perf_counter() - t0
+        ranks, states = [], {}
+        for r in range(SPACE_SPLIT):
+            with open(os.path.join(out_dir, f"families_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for spec in FAMILY_SPACE_RUNS:
+            key = _family_space_key(spec)
+            states[key] = [torch.load(os.path.join(out_dir, f"{key}.rank{r}.pt"),
+                                      weights_only=True) for r in range(SPACE_SPLIT)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    result, failed = {"mesh": "1x2", "backend": "gloo", "devices": "cuda:0 x2",
+                      "ranks_seconds": seconds, "runs": {}}, []
+    for spec in FAMILY_SPACE_RUNS:
+        key, (name, task, _) = _family_space_key(spec), spec
+        mine, ref = [r[key] for r in ranks], one[key]
+        ref_state, up, down = one_states[key]
+        per_step = RESNET_PER_STEP if task == "multitask" else family_per_step(name)
+        want = {k: v * FAMILY_SPACE_BF16_STEPS for k, v in per_step.items()}
+        run = {"sgd": {"lr": DDP_LR_SGD, "loss_space": mine[0]["sgd_loss"],
+                       "loss_one_process": ref["sgd_loss"],
+                       "loss_rel_diff": abs(mine[0]["sgd_loss"] - ref["sgd_loss"])
+                       / abs(ref["sgd_loss"]),
+                       "ranks_bit_equal": all(torch.equal(states[key][0][k], states[key][1][k])
+                                              for k in states[key][0]),
+                       "halo_launches_per_rank": [m["sgd_halo_launches"] for m in mine]},
+               "f32_eval_space": [m["f32_eval"] for m in mine],
+               "f32_eval_one_process": ref["f32_eval"],
+               "bf16": {"steps": FAMILY_SPACE_BF16_STEPS,
+                        "losses_space": mine[0]["bf16"]["losses"],
+                        "losses_one_process": ref["bf16"]["losses"],
+                        "launches_per_rank": [m["bf16"]["launches"] for m in mine],
+                        "halo_launches_per_rank": [m["bf16"]["halo_launches"] for m in mine],
+                        "step_ms_median_per_rank": [m["bf16"]["step_ms_median"] for m in mine],
+                        "step_ms_per_rank": [m["bf16"]["step_ms"] for m in mine],
+                        "peak_mem_gb_per_rank": [m["bf16"]["peak_mem_gb"] for m in mine],
+                        "one_process_step_ms_median": ref["bf16"]["step_ms_median"],
+                        "one_process_step_ms": ref["bf16"]["step_ms"],
+                        "one_process_peak_mem_gb": ref["bf16"]["peak_mem_gb"],
+                        "one_process_launches": ref["bf16"]["launches"]},
+               "rank_seconds": [m["seconds"] for m in mine]}
+        entries, ok = _update_rule(states[key][0], ref_state, up, down,
+                                   _family_space_model(spec, "cpu").state_dict())
+        run["sgd"].update(entries)
+        ok = (ok and run["sgd"]["ranks_bit_equal"]
+              and run["sgd"]["loss_rel_diff"] <= TOL_DDP_LOSS_F32
+              and all(e == ref["f32_eval"] for e in run["f32_eval_space"])
+              and all(m["bf16"]["launches"] == want and m["bf16"]["halo_launches"] == want
+                      for m in mine)
+              and ref["bf16"]["launches"] == want
+              and not any(ref["bf16"]["halo_launches"].values())
+              and mine[0]["bf16"]["losses"] == mine[1]["bf16"]["losses"]
+              and np.isfinite(mine[0]["bf16"]["losses"]).all()
+              and all(m["sgd_halo_launches"] == {k: v for k, v in per_step.items()}
+                      for m in mine))
+        run["ok"] = ok
+        result["runs"][key] = run
+        if not ok:
+            failed.append(key)
+    print("family_space_one_card " + json.dumps(result), flush=True)
+    if failed:
+        raise AssertionError(f"space axis, families on two ranks of one card: {failed} failed")
+    return result
+
+
+def family_space_four_cards() -> dict:
+    """17c: the train CLI on a 2x2 mesh of four cards for unet_plain multiclass and multitask_unet.
+
+    With fewer than four cards it says why it did not run.
+    """
+    n = torch.cuda.device_count()
+    if n < 4:
+        reason = (f"phase 17c not run: this machine has {n} CUDA card(s), and a 2x2 mesh over "
+                  "NCCL needs four")
+        print(reason, flush=True)
+        return {"ran": False, "reason": reason}
+    result = {"ran": True, "cards": n, "cli": [space_cli(flags) for flags in FAMILY_SPACE_CLI]}
+    print("family_space_four_cards " + json.dumps(result), flush=True)
+    if not all(c["ok"] for c in result["cli"]):
+        raise AssertionError(f"space axis, families' CLI on four cards: {result}")
+    return result
+
+
+def family_space_phase() -> dict:
+    """Phase 17: 17a's kernel modes at the families' sites, 17b, 17c."""
+    t0 = time.perf_counter()
+    rows, unsplit = space_sites(torch.Generator().manual_seed(17), "family_space_site",
+                                FAMILY_DGRAD_SITES, FAMILY_UPSAMPLE_BWD_SITES, fused=False,
+                                align_corners=False,
+                                sites_of="unet_plain, attention_unet, dualdense_unet, 1x2")
+    out = {"sites": rows, "unsplit": unsplit, "sites_seconds": time.perf_counter() - t0}
+    out["one_card"] = family_space_one_card()
+    out["four_cards"] = family_space_four_cards()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3110,15 +3452,34 @@ SPACE_KERNELS = {
 }
 
 
+# Phase 17's entries: the bias-free conv's halo mode and the align_corners=False
+# band upsample at the families' sites over a 1x2 mesh, one rank's pass;
+# launches: rank 0's halo launches summed over 17b's runs of the three
+# families (bf16 steps; the f32 SGD step for the f32 entries).
+FAMILY_SPACE_KERNELS = {
+    "upsample2x[align_corners=False,band]": ("upsample2x", "upsample2x", "torch.bfloat16"),
+    "upsample2x_backward[align_corners=False,band]": ("upsample2x_backward",
+                                                      "upsample2x_backward", "torch.bfloat16"),
+    "conv3x3_same[no epilogue,halo]": ("conv3x3_same", "conv3x3_same", "torch.bfloat16"),
+    "conv3x3_dgrad[DoubleConv,halo]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.bfloat16"),
+    "upsample2x[align_corners=False,band,f32]": ("upsample2x", "upsample2x", "torch.float32"),
+    "upsample2x_backward[align_corners=False,band,f32]": ("upsample2x_backward",
+                                                          "upsample2x_backward", "torch.float32"),
+    "conv3x3_same[no epilogue,halo,f32]": ("conv3x3_same", "conv3x3_same", "torch.float32"),
+    "conv3x3_dgrad[DoubleConv,halo,f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
+}
+
+
 def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
                    family_launches: dict, f32_launches: dict, f32_resnet_rows: list[dict],
-                   f32_resnet_launches: dict, space: dict) -> list[dict]:
+                   f32_resnet_launches: dict, space: dict, family_space: dict) -> list[dict]:
     """Every kernel entry: unet_resnet50's sites, the families' sites, the f32 ones, the halo ones.
 
     ``launches`` are unet_resnet50's train path's counts; ``family_launches``
     the three families' train paths' counts summed; ``f32_launches`` phase
     9's f32 train path's counts; ``f32_resnet_launches`` phase 10b's f32
-    steps of multitask_unet; ``space`` phase 16's result.
+    steps of multitask_unet; ``space`` phase 16's result, ``family_space``
+    phase 17's.
     """
     out = []
     for kernel, (_, _, counter) in KERNEL_META.items():
@@ -3147,6 +3508,18 @@ def kernel_summary(rows: list[dict], launches: dict, family_rows: list[dict],
         out.append(_summary_entry(name, kernel, space["sites"], launches,
                                   f"unet_resnet50 on a 1x2 mesh, one rank's band of 512^2, "
                                   f"{where}", dtype))
+    runs = family_space["one_card"]["runs"]
+    for name, (kernel, counter, dtype) in FAMILY_SPACE_KERNELS.items():
+        where = "forward" if kernel in ("upsample2x", "conv3x3_same") else "backward"
+        if dtype == "torch.bfloat16":
+            launches = sum(r["bf16"]["halo_launches_per_rank"][0][counter]
+                           for key, r in runs.items() if not key.startswith("multitask"))
+        else:
+            launches = sum(r["sgd"]["halo_launches_per_rank"][0][counter]
+                           for key, r in runs.items() if not key.startswith("multitask"))
+        out.append(_summary_entry(name, kernel, family_space["sites"], launches,
+                                  "unet_plain, attention_unet, dualdense_unet on a 1x2 mesh, "
+                                  f"one rank's band of 512^2, {where}", dtype))
     return out
 
 
@@ -3154,8 +3527,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the full report as JSON here")
     parser.add_argument("--multi-card-only", action="store_true",
-                        help="build the kernels and run phases 12d (two cards) and 16c (four "
-                             "cards) alone")
+                        help="build the kernels and run phases 12d (two cards), 16c and 17c "
+                             "(four cards) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3181,10 +3554,12 @@ def main(argv=None) -> int:
         del data
         torch.cuda.empty_cache()
         space = space_four_cards()
+        family_space = family_space_four_cards()
         print(json.dumps({"two_cards": result, "space_four_cards": space,
+                          "family_space_four_cards": family_space,
                           "seconds": time.perf_counter() - t_start}))
         print(card)
-        return 0 if result["ran"] and space["ran"] else 1
+        return 0 if result["ran"] and space["ran"] and family_space["ran"] else 1
 
     rows = check_sites(torch.Generator().manual_seed(0))
     update = weight_update_check(torch.Generator().manual_seed(2))
@@ -3204,12 +3579,10 @@ def main(argv=None) -> int:
     packing = packing_cost()
     families = {}
     for name in FAMILIES:
-        per_forward = FAMILY_FORWARD_LAUNCHES[name]
-        per_step = {**per_forward, "upsample2x_backward": per_forward["upsample2x"],
-                    "conv3x3_dgrad": per_forward["conv3x3_same"]}
         families[name] = {
-            "predict": main_path(forward_counters, name, per_forward),
-            "train": train_path(train_counters, name, "bce", FAMILY_TRAIN_STEPS, per_step),
+            "predict": main_path(forward_counters, name, FAMILY_FORWARD_LAUNCHES[name]),
+            "train": train_path(train_counters, name, "bce", FAMILY_TRAIN_STEPS,
+                                family_per_step(name)),
         }
         torch.cuda.empty_cache()
     for name in ("unet_plain", "attention_unet"):
@@ -3266,15 +3639,16 @@ def main(argv=None) -> int:
     paper = {"pipeline": pipeline_phase(train_counters), "study": study_phase(train_counters)}
     torch.backends.cudnn.allow_tf32 = False
 
-    # Phase 16: the mesh's space axis.
+    # Phase 16: the mesh's space axis; phase 17: for the other families and tasks.
     space = space_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad])
+    family_space = family_space_phase()
 
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
     kernels = kernel_summary(rows + bwd_rows, train["launches"], family_rows, family_launches,
                              f32_full["launches"], f32_resnet_rows,
-                             tasks["multitask_f32"]["launches"], space)
+                             tasks["multitask_f32"]["launches"], space, family_space)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "sites": rows,
@@ -3285,7 +3659,8 @@ def main(argv=None) -> int:
                        "packing_cost": packing, "families": families,
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
                        "tasks": tasks, "resident": res, "data_parallel": ddp,
-                       "tooling": tooling, "paper": paper, "space": space, "kernels": kernels,
+                       "tooling": tooling, "paper": paper, "space": space,
+                       "family_space": family_space, "kernels": kernels,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -218,11 +218,12 @@ def test_init_is_the_reference_normal_scheme_and_seeded():
 
 @pytest.mark.parametrize("name", [m for m in SUPPORTED_MODELS if m == "multitask_unet"])
 def test_unported_families_raise_naming_the_roadmap(name):
-    # multitask_unet, the last family, is ported: it builds, and what its
-    # task still lacks (--mesh-space, the space axis for it) raises naming the ROADMAP item.
+    # multitask_unet, the last family, is ported: it builds, and takes the
+    # space axis; what the CLI refuses is an input whose bands would not
+    # split evenly (its ResNet-50 encoder: a multiple of 32 x --mesh-space).
     model = build_model(name, 2, device="cpu")
     assert {k.split(".")[0] for k in model.state_dict()} >= {"encoder", "cls_head", "seg_head"}
     args = port_train.parse_args(["--task", "multitask", "--model", name, "--device", "cpu",
-                                  "--profile", "--mesh-space", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
+                                  "--profile", "--mesh-space", "2", "--input-size", "96"])
+    with pytest.raises(ValueError, match="multiple of 32 x --mesh-space 2 = 64"):
         port_train.train(args)

@@ -510,5 +510,6 @@ def test_task_model_mismatch_raises(workdir, task, model):
 
 @pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2"], ["--mesh-space", "2"]])
 def test_unported_flags_still_raise_for_multitask(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
+    # multitask takes --mesh-space; at 32^2 its bands would not split evenly
+    with pytest.raises(ValueError, match="multiple of 32 x --mesh-space 2 = 64 for multitask_unet"):
         port_train.train(port_train.parse_args(CLI_ARGS + flag))

@@ -379,7 +379,8 @@ def test_mesh_shards_are_the_jax_2x2_shards(rank):
 @pytest.mark.parametrize("argv,error,match", [
     (["--mesh-space", "2", "--input-size", "96"], ValueError, "multiple of 32 x --mesh-space 2"),
     (["--mesh-space", "4", "--input-size", "64"], ValueError, "= 128"),
-    (["--mesh-space", "2", "--task", "multiclass"], NotImplementedError, "item 10c"),
+    (["--mesh-space", "2", "--model", "unet_plain", "--input-size", "48"], ValueError,
+     "multiple of 16 x --mesh-space 2 = 32 for unet_plain"),
     (["--mesh-space", "0"], ValueError, "at least 1"),
 ])
 def test_what_the_space_axis_does_not_take_raises(argv, error, match):
@@ -391,7 +392,7 @@ def test_what_the_space_axis_does_not_take_raises(argv, error, match):
 
 def test_a_model_without_the_space_axis_refuses_it():
     model = torch.nn.Sequential(blocks.conv3x3(3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
+    with pytest.raises(NotImplementedError, match="takes_space_axis"):
         blocks.set_space_axis(model, object())
 
 

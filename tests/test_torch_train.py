@@ -432,6 +432,7 @@ def test_train_cli_resume_continues_the_run(workdir):
 @pytest.mark.parametrize("flag", [["--profile", "--mesh-space", "2", "--model", "unet_plain"],
                                   ["--mesh-space", "2", "--model", "unet_plain"]])
 def test_train_cli_raises_on_what_is_not_ported(flag):
-    # unet_resnet50 binary takes --mesh-space; another family over it is item 10c's.
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
-        port_train.train(port_train.parse_args(CLI_ARGS + flag))
+    # Every family takes --mesh-space; what the CLI still refuses is an input
+    # whose bands would not split evenly (unet_plain: a multiple of 16 x S).
+    with pytest.raises(ValueError, match="multiple of 16 x --mesh-space 2 = 32 for unet_plain"):
+        port_train.train(port_train.parse_args(CLI_ARGS + flag + ["--input-size", "48"]))

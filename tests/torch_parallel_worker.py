@@ -10,7 +10,10 @@ saves the results for the test to read. Imports torch and the port only
 
 ``run_space`` is the worker of ``tests/test_torch_space.py``'s 4-rank job:
 the mesh's space axis on 1x4, 1x2 and 2x2 meshes (``space_cases``), and
-``space_one_process`` the same cases in one process.
+``space_one_process`` the same cases in one process. ``run_space_families``
+is ``tests/test_torch_space_families.py``'s: every other family and task
+over 1x2 and 2x2 meshes (``family_cases``), ``families_one_process`` the
+same in one process.
 """
 
 from __future__ import annotations
@@ -264,22 +267,173 @@ def space_one_process(cases: dict) -> dict:
             "sgd": {loss: _space_sgd(cases, loss, None) for loss in SPACE_LOSSES}}
 
 
-def run_space(rank: int, inputs_path: str, out_dir: str) -> None:
-    """Worker of the 4-rank space job: a 2x2 mesh, its space groups as two 1x2 meshes, a 1x4 mesh.
+def _space_meshes(rank: int) -> dict:
+    """This rank's 2x2 mesh, its space group as a 1x2 mesh, and the 1x4 mesh, of a 4-rank job.
 
     Each 1x2 mesh is one space group of the 2x2 mesh taken as a whole job
-    (both compute the same step); the 1x4 mesh runs the exchange case.
+    (both compute the same step).
     """
-    torch.set_num_threads(1)
     cpu = torch.device("cpu")
     mesh22 = mesh_lib.make_mesh(2, 2, [cpu] * 4)
     pair = mesh22.space_group
-    mesh12 = mesh_lib.Mesh(rank % 2, 2, cpu, pair, n_space=2, space_group=pair)
     world = torch.distributed.group.WORLD
-    mesh14 = mesh_lib.Mesh(rank, 4, cpu, world, n_space=4, space_group=world)
+    return {"2x2": mesh22, "1x2": mesh_lib.Mesh(rank % 2, 2, cpu, pair, n_space=2,
+                                                space_group=pair),
+            "1x4": mesh_lib.Mesh(rank, 4, cpu, world, n_space=4, space_group=world)}
+
+
+def run_space(rank: int, inputs_path: str, out_dir: str) -> None:
+    """Worker of the 4-rank space job: the steps on 2x2 and 1x2 meshes, the exchange on 1x4."""
+    torch.set_num_threads(1)
+    meshes = _space_meshes(rank)
     cases = torch.load(inputs_path, weights_only=False)
-    results = {"exchange": _space_exchange(cases["exchange"], mesh14),
-               "eval": _space_eval(cases, mesh22),
-               "sgd": {name: {loss: _space_sgd(cases, loss, m) for loss in SPACE_LOSSES}
-                       for name, m in (("1x2", mesh12), ("2x2", mesh22))}}
+    results = {"exchange": _space_exchange(cases["exchange"], meshes["1x4"]),
+               "eval": _space_eval(cases, meshes["2x2"]),
+               "sgd": {name: {loss: _space_sgd(cases, loss, meshes[name])
+                              for loss in SPACE_LOSSES} for name in ("1x2", "2x2")}}
     torch.save(results, os.path.join(out_dir, f"space_rank{rank}.pt"))
+
+
+# --- the space axis for every family and task (tests/test_torch_space_families.py) -----------
+
+FAMILY_K = 4  # multiclass outputs (3 classes + the ignore class index K)
+FAMILY_MESHES = ("1x2", "2x2")
+FAMILY_DROPOUT_SEED = 7
+NARROW = {"unet_plain": {"base_channels": 8}, "attention_unet": {"base_channels": 8},
+          "dualdense_unet": {"base_channels": 8, "growth_rate": 8}}
+
+
+def task_batch(seed: int, sample_mask, task: str):
+    """A global batch at 64^2 for ``task``: ``space_batch``'s images and disc masks, or
+    blocky K-class maps with ignore pixels (multiclass); multitask adds class labels."""
+    images, pngs, sm = space_batch(seed, sample_mask)
+    rng = np.random.RandomState(seed + 1000)
+    if task == "multiclass":
+        coarse = rng.randint(0, FAMILY_K, (len(sm), 4, 4))
+        pngs = np.kron(coarse, np.ones((16, 16), np.int64)).astype(np.int32)
+        pngs[rng.rand(*pngs.shape) < 0.02] = FAMILY_K
+    if task == "multitask":
+        return images, pngs, rng.randint(0, 3, len(sm)).astype(np.int32), sm
+    return images, pngs, sm
+
+
+def narrow_model(name: str, num_classes: int, diff_head: bool = False) -> torch.nn.Module:
+    """One of the three families at ``NARROW`` widths (weights as constructed)."""
+    from unet_embroidery_seg_torch.models.unet_attention import AttentionUNet
+    from unet_embroidery_seg_torch.models.unet_dualdense import DualDenseUNet
+    from unet_embroidery_seg_torch.models.unet_plain import UNetPlain
+
+    cls = {"unet_plain": UNetPlain, "attention_unet": AttentionUNet,
+           "dualdense_unet": DualDenseUNet}[name]
+    model = cls(num_classes=num_classes, diff_head=diff_head, **NARROW[name])
+    return model.to(memory_format=torch.channels_last)
+
+
+def family_model(name: str, num_classes: int, state: dict, diff_head: bool = False,
+                 dropout: bool = False):
+    """The port's model with ``state``: the three families at ``NARROW`` widths, the ResNet-50
+    ones full width (multitask_unet's dropout the identity unless ``dropout``)."""
+    if name not in NARROW:
+        model = port_model(name, num_classes, state, diff_head)
+        if dropout:
+            model.cls_head[4].p = 0.5
+        return model
+    model = narrow_model(name, num_classes, diff_head)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _floats(d: dict) -> dict:
+    return {k: float(v) for k, v in d.items()}
+
+
+def family_eval(case: dict, mesh) -> dict:
+    """The case's f32 eval step(s) on its eval batch: losses, counts, tables, per-sample sums."""
+    group, space = _group(mesh), halo.space_axis(mesh)
+    task, k = case["task"], case["num_classes"]
+    model = family_model(case["model"], k, case["state"], diff_head=task == "binary")
+    batch = _rows(mesh, *case["eval_batch"])
+    if task == "binary":
+        loss, counts = steps.make_binary_eval_step(model, "bce", case["pos_weight"], amp=False,
+                                                   group=group, space=space)(*batch)
+        return {"loss": float(loss), "counts": counts.tolist()}
+    if task == "multiclass":
+        loss, m = steps.make_multiclass_eval_step(model, k, amp=False, group=group,
+                                                  space=space)(*batch)
+        loss_sum, sums, n_valid = steps.make_multiclass_persample_eval_step(
+            model, k, amp=False, group=group, space=space)(*batch)
+        return {"loss": float(loss), "metrics": _floats(m),
+                "per_sample": {"loss_sum": float(loss_sum), "n_valid": float(n_valid),
+                               **_floats(sums)}}
+    (loss, seg_l, cls_l), seg_counts, confusion = steps.make_multitask_eval_step(
+        model, pos_weight=case["pos_weight"], amp=False, group=group, space=space)(*batch)
+    return {"loss": float(loss), "seg_loss": float(seg_l), "cls_loss": float(cls_l),
+            "seg_counts": seg_counts.tolist(), "confusion": confusion.tolist()}
+
+
+def family_sgd(case: dict, mesh) -> dict:
+    """One f32 SGD train step of the case's task: the loss and the state dict after it."""
+    torch.manual_seed(0)
+    group, space = _group(mesh), halo.space_axis(mesh)
+    task, k = case["task"], case["num_classes"]
+    model = family_model(case["model"], k, case["state"], diff_head=task == "binary")
+    opt = torch.optim.SGD(model.parameters(), lr=case["lr"])
+    batch = _rows(mesh, *case["sgd_batch"])
+    out = {}
+    if task == "binary":
+        loss = steps.make_binary_train_step(model, opt, "bce", case["pos_weight"], amp=False,
+                                            group=group, space=space)(*batch)
+    elif task == "multiclass":
+        loss = steps.make_multiclass_train_step(model, opt, k, amp=False, group=group,
+                                                space=space)(*batch)
+    else:
+        (loss, _, _), correct = steps.make_multitask_train_step(
+            model, opt, pos_weight=case["pos_weight"], amp=False, group=group,
+            space=space)(*batch)
+        out["correct"] = int(correct)
+    return {"loss": float(loss), "state": _snapshot(model), **out}
+
+
+def multitask_dropout(case: dict, mesh) -> dict:
+    """A multitask train step with its dropout on, seeded as the train CLI seeds it.
+
+    Returns the class head's logits and the share of the dropout's nonzero
+    inputs it zeroed, both read by forward hooks during the step.
+    """
+    group, space = _group(mesh), halo.space_axis(mesh)
+    model = family_model("multitask_unet", 1, case["state"], dropout=True)
+    opt = torch.optim.SGD(model.parameters(), lr=case["lr"])
+    step = steps.make_multitask_train_step(model, opt, pos_weight=case["pos_weight"], amp=False,
+                                           group=group, space=space)
+    seen = {}
+
+    def dropped(module, inputs, output):
+        kept = inputs[0] != 0
+        seen["dropped"] = float(((output == 0) & kept).sum() / kept.sum())
+
+    model.cls_head[4].register_forward_hook(dropped)
+    model.cls_head.register_forward_hook(
+        lambda module, inputs, output: seen.setdefault("logits", output.detach().clone()))
+    resident.seed_default_generator(torch.device("cpu"),
+                                    resident.rank_seed(FAMILY_DROPOUT_SEED, mesh))
+    step(*_rows(mesh, *case["sgd_batch"]))
+    return seen
+
+
+def families_one_process(cases: dict) -> dict:
+    """Every family case's eval and SGD step in one process on whole images."""
+    return {name: {"eval": family_eval(case, None), "sgd": family_sgd(case, None)}
+            for name, case in cases.items()}
+
+
+def run_space_families(rank: int, inputs_path: str, out_dir: str) -> None:
+    """Worker of the families' 4-rank space job: every case on the 1x2 and 2x2 meshes."""
+    torch.set_num_threads(1)
+    meshes = _space_meshes(rank)
+    cases = torch.load(inputs_path, weights_only=False)
+    results = {name: {kind: {m: fn(case, meshes[m]) for m in FAMILY_MESHES}
+                      for kind, fn in (("eval", family_eval), ("sgd", family_sgd))}
+               for name, case in cases.items()}
+    results["dropout"] = {m: multitask_dropout(cases["multitask_unet/multitask"], meshes[m])
+                          for m in FAMILY_MESHES}
+    torch.save(results, os.path.join(out_dir, f"families_rank{rank}.pt"))

@@ -26,7 +26,9 @@ them, so the images do not depend on how the batch is split. Multitask's
 dropout draws from ``(dropout seed, data index)`` on each rank
 (``rank_seed``): no two data rows share a mask, and no split equals JAX's
 one global mask. Over the space axis the ranks of one data index draw
-alike and each computes its band of the output rows (``Mesh.band``): the
+alike (with one data index, the seed itself: the mask of one process), so
+each image's class logits are the same on every rank of its space group,
+and each rank computes its band of the output rows (``Mesh.band``): the
 resample gathers from the replicated canvas, so no exchange is needed.
 """
 
@@ -129,8 +131,9 @@ def seed_default_generator(device: torch.device, seed: int) -> None:
 
 
 def rank_seed(seed: int, mesh: Mesh | None) -> int:
-    """``seed`` for one process; else a seed of its own per data index, from ``(seed, d)``."""
-    if mesh is None or mesh.world_size == 1:
+    """``seed`` for one data index (one process, or one split over space); else one per data
+    index, from ``(seed, d)``."""
+    if mesh is None or mesh.n_data == 1:
         return seed
     return int(np.random.SeedSequence((seed, mesh.d)).generate_state(1)[0])
 

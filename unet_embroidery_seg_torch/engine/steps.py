@@ -21,11 +21,15 @@ group, and the losses and counts are the global batch's (``ops/losses.py``,
 step per model, as DDP hooks the parameters. Eval steps run the model
 itself (running statistics, no wrapper) and return global counts.
 
-The mesh's space axis (the binary steps; ``space``: ``parallel/halo.SpaceAxis``):
-each rank's images are a band of every image's rows, ``group`` is the
-whole job (BN, the losses, the counts and DDP span data x space), and the
-model's row-reading modules take their halos over ``space``
-(``blocks.set_space_axis``); the Lovasz hinge gathers whole images.
+The mesh's space axis (every train and eval step; ``space``:
+``parallel/halo.SpaceAxis``): each rank's images are a band of every
+image's rows, ``group`` is the whole job (BN, the losses, the counts and
+DDP span data x space), and the model's row-reading modules take their
+halos over ``space`` (``blocks.set_space_axis``); the Lovasz hinge gathers
+whole images. What is per image (multitask's class CE, correct count and
+confusion; the per-sample eval's losses and metrics) is summed over the
+image's space group where it is a sum of bands, and counted by space
+index 0 only.
 """
 
 from __future__ import annotations
@@ -92,6 +96,11 @@ def _replica(model: nn.Module, group: Group) -> nn.Module:
     keep_buckets = dist.get_world_size(group) > 2
     return DistributedDataParallel(model, process_group=group,
                                    find_unused_parameters=keep_buckets, **{off: False})
+
+
+def _once(sample_mask: torch.Tensor, space) -> torch.Tensor:
+    """The sample mask of what is counted per image: over the space axis, by space index 0 only."""
+    return sample_mask if space is None else sample_mask * float(space.first)
 
 
 def _backward_and_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
@@ -199,6 +208,7 @@ def make_multiclass_train_step(
     use_dice: bool = True,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """train_step(images, pngs, sample_mask) -> loss: CE or focal (+ Dice) on K-class logits."""
     device = _device(model)
@@ -206,6 +216,7 @@ def make_multiclass_train_step(
 
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
         model.train()
+        set_space_axis(model, space)
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             outputs = net(x)
@@ -224,6 +235,7 @@ def make_multiclass_eval_step(
     use_dice: bool = True,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss, {Pixel Accuracy, Mean Accuracy, Mean IoU,
     Frequency Weighted IoU}): the per-batch values the train CLI averages over batches."""
@@ -231,6 +243,7 @@ def make_multiclass_eval_step(
 
     def eval_step(images, pngs, sample_mask):
         model.eval()
+        set_space_axis(model, space)
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
@@ -250,26 +263,33 @@ def make_multiclass_persample_eval_step(
     use_dice: bool = True,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """eval_step(images, pngs, sample_mask) -> (loss_sum, metric_sums, n_valid), per SAMPLE.
 
     The reference val CLI's statistic (batch size 1) at any batch size: the
     caller divides the summed metrics and losses by the summed ``n_valid``.
+    ``space``: each image's loss sums its numerators and normalisers over
+    its space group, as its metrics sum their tables, and space index 0
+    counts it.
     """
     device = _device(model)
+    band_group = None if space is None else space.group
 
     def eval_step(images, pngs, sample_mask):
         model.eval()
+        set_space_axis(model, space)
         x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
                 outputs = _nhwc(model(x))
             per_sample = torch.stack([
-                losses.multiclass_loss(lg[None], tg[None], num_classes, focal, use_dice)
+                losses.multiclass_loss(lg[None], tg[None], num_classes, focal, use_dice,
+                                       group=band_group)
                 for lg, tg in zip(outputs, t)])
             sums, n_valid = metrics.multiclass_per_sample_sums(outputs, t, num_classes, sm,
-                                                               group=group)
-            return global_count((per_sample * sm).sum(), group), sums, n_valid
+                                                               group=group, space=space)
+            return global_count((per_sample * _once(sm, space)).sum(), group), sums, n_valid
 
     return eval_step
 
@@ -282,26 +302,30 @@ def make_multitask_train_step(
     pos_weight: float | None = None,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """train_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), n_cls_correct).
 
     Train mode: BN batch statistics and the class head's dropout. ``pos_weight``
     weights the seg BCE's positive term; None (the default) is the
-    reference's unweighted loss.
+    reference's unweighted loss. ``space``: the caller seeds the dropout by
+    data index, so an image's space ranks draw the same mask.
     """
     device = _device(model)
     net = _replica(model, group)
 
     def train_step(images, pngs, cls_targets, sample_mask):
         model.train()
+        set_space_axis(model, space)
         x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             seg, logits = _nhwc(net(x))
         total, seg_l, cls_l = losses.multitask_loss(
             seg, logits, t, cls, seg_loss_name=seg_loss_name, cls_loss_weight=cls_loss_weight,
-            sample_mask=sm, pos_weight=pos_weight, group=group)
+            sample_mask=sm, pos_weight=pos_weight, group=group, space=space)
         _backward_and_step(optimizer, total)
-        correct = global_count(((logits.detach().argmax(-1) == cls) & sm.bool()).sum(), group)
+        hits = (logits.detach().argmax(-1) == cls).float() * _once(sm, space)
+        correct = global_count(hits.sum().long(), group)
         return (total.detach(), seg_l.detach(), cls_l.detach()), correct
 
     return train_step
@@ -314,14 +338,16 @@ def make_multitask_eval_step(
     pos_weight: float | None = None,
     amp: bool = True,
     group: Group = None,
+    space=None,
 ) -> Callable:
     """eval_step(images, pngs, cls_targets, sample_mask) -> ((total, seg, cls), seg_counts[4],
     confusion[K, K]) for K classes: the confusion (rows: target, columns: prediction) counts
-    valid samples only."""
+    valid samples only (over the space axis, each once)."""
     device = _device(model)
 
     def eval_step(images, pngs, cls_targets, sample_mask):
         model.eval()
+        set_space_axis(model, space)
         x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
         with torch.inference_mode():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
@@ -329,11 +355,11 @@ def make_multitask_eval_step(
             loss_triple = losses.multitask_loss(
                 seg, logits, t, cls, seg_loss_name=seg_loss_name,
                 cls_loss_weight=cls_loss_weight, sample_mask=sm, pos_weight=pos_weight,
-                group=group)
+                group=group, space=space)
             seg_counts = metrics.multitask_seg_counts(seg, t, sample_mask=sm, group=group)
             # one-hot products in f32 (exact for counts below 2^24), as JAX's einsum
             k = logits.shape[-1]
-            onehot_tgt = F.one_hot(cls, k).float() * sm[:, None]
+            onehot_tgt = F.one_hot(cls, k).float() * _once(sm, space)[:, None]
             onehot_pred = F.one_hot(logits.argmax(-1), k).float()
             confusion = global_count((onehot_tgt.T @ onehot_pred).round().long(), group)
             return loss_triple, seg_counts, confusion

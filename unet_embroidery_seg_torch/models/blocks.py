@@ -28,11 +28,16 @@ rows it reads from the ranks above and below, and never reads a zero where
 the unsplit model reads a neighbour's row: ``Conv2d`` (every stock conv:
 its padding rows inside the image, zero rows at the image's edge, H
 padding 0), ``MaxPool2d`` (the stem's ceil-mode pool: the row below, and at
-the image's bottom the window clipped as ceil mode clips it),
+the image's bottom the window clipped as ceil mode clips it; the families'
+2x2 pools: no halo, a band of an even number of rows),
 ``Upsample2x`` (one row each side, the kernels' band mode),
 ``SquareConv3x3`` and ``Conv3x3Same`` (one row each side, the kernels'
-halo-padded mode). Pointwise modules (BN, ReLU, the 1x1 head, the concat
-of a skip and an upsample, which hold the same band) need nothing.
+halo-padded mode), ``GlobalAvgPool`` (the band's sums over the space
+group). Pointwise modules (BN, ReLU, the 1x1 head, the concat of a skip
+and an upsample, which hold the same band) need nothing. A decoder stage
+that would resize or pad its upsampled band to its skip's raises
+(``AttentionGate`` and the stages' ``_to_size_of``): at the sizes the train
+CLI takes (every level's rows split evenly) the two always agree.
 """
 
 from __future__ import annotations
@@ -78,15 +83,22 @@ class Conv2d(nn.Conv2d):
 class MaxPool2d(nn.MaxPool2d):
     """``nn.MaxPool2d`` that takes the rows below its band when ``space`` is set.
 
-    A window of k rows at stride st with no padding (the stem's pool) reads
-    k - st rows below a band. At the image's bottom nothing is added: a
-    ceil-mode pool clips its last window there, as the unsplit pool does.
+    A window of k rows at stride st with no padding reads k - st rows below
+    a band (the stem's 3x3 pool: one; the families' 2x2 pools: none). At the
+    image's bottom nothing is added: a ceil-mode pool clips its last window
+    there, as the unsplit pool does. A band's windows start at its first
+    row, so its row count must be a multiple of st, or it raises.
     """
 
     space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.space is not None:
+            if x.shape[2] % self.stride:
+                raise ValueError(f"max pool over the space axis: a band of {x.shape[2]} rows "
+                                 f"is not a multiple of the stride {self.stride}; "
+                                 "--input-size must be a multiple of the model's deepest "
+                                 "stride x --mesh-space")
             x = self.space.exchange(x, 0, self.kernel_size - self.stride)
         return super().forward(x)
 
@@ -319,23 +331,20 @@ class Conv3x3Same(nn.Module):
         return conv3x3_same(self.space.exchange(x, 1, 1), self.weight, _band_pad(self.space))
 
 
-SPACE_MODULES = (Conv2d, MaxPool2d, Upsample2x, SquareConv3x3, Conv3x3Same)
-
-
 def set_space_axis(model: nn.Module, space) -> nn.Module:
     """Set the ``space`` axis (``parallel/halo.SpaceAxis`` or None) of each row-reading module.
 
     A model takes one only where every op of it is split right: its class
-    says so with ``takes_space_axis`` (unet_resnet50); any other raises
-    (ROADMAP.md Queue 1 item 10c). The model keeps the axis it was given as
-    ``space_axis``, so setting it again is one comparison (the binary steps
-    set theirs on every call, predict sets None: one model may serve both).
+    says so with ``takes_space_axis`` (every family of the registry); any
+    other raises. The model keeps the axis it was given as ``space_axis``,
+    so setting it again is one comparison (the steps set theirs on every
+    call, predict sets None: one model may serve both).
     """
     if getattr(model, "space_axis", None) is space:
         return model  # already set: the steps call this every step
     if space is not None and not getattr(model, "takes_space_axis", False):
-        raise NotImplementedError(f"{type(model).__name__} over the space axis: "
-                                  "ROADMAP.md Queue 1 item 10c")
+        raise NotImplementedError(f"{type(model).__name__} does not take the space axis "
+                                  "(its class sets no takes_space_axis)")
     for m in model.modules():
         if isinstance(m, SPACE_MODULES):
             m.space = space
@@ -422,7 +431,7 @@ class DoubleConv(nn.Module):
 
 def down(block: nn.Module) -> nn.Sequential:
     """MaxPool(2, 2) -> ``block`` as ``Sequential[pool, block]`` (JAX ``blocks.Down``; keys ``.1.``)."""
-    return nn.Sequential(nn.MaxPool2d(2, 2), block)
+    return nn.Sequential(MaxPool2d(2, 2), block)
 
 
 class Down(nn.Module):
@@ -436,9 +445,16 @@ class Down(nn.Module):
         return self.net(x)
 
 
-def _to_size_of(x: torch.Tensor, skip: torch.Tensor, resize) -> torch.Tensor:
+def _to_size_of(x: torch.Tensor, skip: torch.Tensor, resize, space=None) -> torch.Tensor:
+    """``x`` resized (or padded) to ``skip``'s H and W; over the space axis never: it raises."""
     hw = tuple(skip.shape[-2:])
-    return x if tuple(x.shape[-2:]) == hw else resize(x, hw)
+    if tuple(x.shape[-2:]) == hw:
+        return x
+    if space is not None:
+        raise ValueError(f"over the space axis a decoder stage's {tuple(x.shape[-2:])} band "
+                         f"meets a {hw} skip band: --input-size must be a multiple of the "
+                         "model's deepest stride x --mesh-space")
+    return resize(x, hw)
 
 
 class UpPlain(nn.Module):
@@ -450,7 +466,7 @@ class UpPlain(nn.Module):
         self.conv = DoubleConv(skip_channels + in_channels, features)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = _to_size_of(self.up(x), skip, center_pad_to)
+        x = _to_size_of(self.up(x), skip, center_pad_to, self.up.space)
         return self.conv(torch.cat([skip, x], dim=1))
 
 
@@ -460,8 +476,10 @@ class AttentionGate(nn.Module):
     alpha = sigmoid(BN(psi(relu(BN(theta(skip)) + BN(phi(gate)))))), returns
     skip * alpha. ``theta``, ``phi`` and ``psi`` are ``Sequential[conv1x1,
     BN]``; only ``psi`` has a bias. A gate of another size than the skip is
-    resized to it first.
+    resized to it first (with ``space``: raises instead).
     """
+
+    space = None
 
     def __init__(self, skip_channels: int, gate_channels: int, inter_channels: int):
         super().__init__()
@@ -470,7 +488,7 @@ class AttentionGate(nn.Module):
         self.psi = nn.Sequential(conv1x1(inter_channels, 1, bias=True), BatchNorm(1))
 
     def forward(self, skip: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-        gate = _to_size_of(gate, skip, resize_bilinear)
+        gate = _to_size_of(gate, skip, resize_bilinear, self.space)
         f = F.relu(self.theta(skip) + self.phi(gate))
         return skip * torch.sigmoid(self.psi(f))
 
@@ -491,7 +509,7 @@ class UpAttn(nn.Module):
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = self.up(x)
         skip = self.attn(skip, x)
-        x = _to_size_of(x, skip, resize_bilinear)
+        x = _to_size_of(x, skip, resize_bilinear, self.up.space)
         return self.conv(torch.cat([skip, x], dim=1))
 
 
@@ -552,15 +570,29 @@ class UpDense(nn.Module):
         self.conv = DenseConvBlock(skip_channels + in_channels, features, growth_rate, num_layers)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = _to_size_of(self.up(x), skip, resize_bilinear)
+        x = _to_size_of(self.up(x), skip, resize_bilinear, self.up.space)
         return self.conv(torch.cat([skip, x], dim=1))
 
 
 class GlobalAvgPool(nn.Module):
-    """NCHW -> NC mean over H and W (``ops/resize.adaptive_avg_pool_1x1``)."""
+    """NCHW -> NC mean over H and W (``ops/resize.adaptive_avg_pool_1x1``).
+
+    With ``space``: the band's f32 sums, summed over the space group
+    (``SpaceAxis.sum``, with autograd), over the whole image's H * W; every
+    rank of the group then holds the image's mean.
+    """
+
+    space = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return adaptive_avg_pool_1x1(x)
+        if self.space is None:
+            return adaptive_avg_pool_1x1(x)
+        n_pixels = x.shape[2] * self.space.size * x.shape[3]
+        return (self.space.sum(x.float().sum(dim=(2, 3))) / n_pixels).to(x.dtype)
+
+
+SPACE_MODULES = (Conv2d, MaxPool2d, Upsample2x, SquareConv3x3, Conv3x3Same, AttentionGate,
+                 GlobalAvgPool)
 
 
 @torch.no_grad()

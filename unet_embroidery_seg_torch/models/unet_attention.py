@@ -3,7 +3,8 @@
 The UNetPlain topology with additive attention gates scaling the skip
 paths; a decoder stage of another size than its skip resizes (bilinear)
 instead of padding. The down stages are ``Sequential[pool, DoubleConv]``
-(keys ``down{i}.1.``), as in the reference.
+(keys ``down{i}.1.``), as in the reference. It takes the mesh's space
+axis as unet_plain does (bands a multiple of 16 rows high, no resize).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from unet_embroidery_seg_torch.models.blocks import ClassHead, DoubleConv, UpAtt
 
 
 class AttentionUNet(nn.Module):
+    takes_space_axis = True
+
     def __init__(self, num_classes: int = 2, base_channels: int = 64, diff_head: bool = False):
         super().__init__()
         self.base_channels = c = base_channels

@@ -4,7 +4,8 @@ Every stage is a DenseNet-style block (``growth_rate`` 32, ``num_layers``
 3, concat-everything) followed by a 1x1 transition, in the same 5-down /
 4-up topology as UNetPlain. Its 3x3 convs change the width (to
 ``growth_rate``), so none runs through the square conv kernel; its 2x
-upsamples (align_corners=False) run through the upsample kernel.
+upsamples (align_corners=False) run through the upsample kernel. It takes
+the mesh's space axis as unet_plain does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from unet_embroidery_seg_torch.models.blocks import ClassHead, DenseConvBlock, U
 
 
 class DualDenseUNet(nn.Module):
+    takes_space_axis = True
+
     def __init__(self, num_classes: int = 2, base_channels: int = 64, growth_rate: int = 32,
                  num_layers: int = 3, diff_head: bool = False):
         super().__init__()

@@ -10,6 +10,11 @@ reference keys ``cls_head.2.*`` and ``cls_head.5.*``.
 ``forward`` returns ``(seg_logits (N, num_seg, H, W), cls_logits (N,
 num_cls))``, both float32. Dropout is active in train mode; its random
 draws cannot match JAX's, so the tests compare with ``cls_head[4].p = 0``.
+
+It takes the mesh's space axis as unet_resnet50 does (bands a multiple of
+32 rows high); the class head's pool sums its band over the space group,
+so every rank of an image's group computes the image's class logits, and
+its dropout, drawn from a seed of the data index, is the same on each.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from unet_embroidery_seg_torch.models.resnet_backbone import ResNet50Backbone
 
 
 class MultiTaskUNet(nn.Module):
+    takes_space_axis = True
+
     def __init__(self, num_seg_classes: int = 1, num_cls_classes: int = 3):
         super().__init__()
         self.encoder = ResNet50Backbone()

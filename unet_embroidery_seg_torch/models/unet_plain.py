@@ -5,6 +5,11 @@ Five encoder levels of DoubleConv (64 -> 1024 channels at
 (align_corners=False), center pad and skip concat, and a 1x1 class head.
 ``diff_head=True`` (binary training) returns the (N, H, W) logit difference
 instead of (N, 2, H, W) logits, with the same parameters.
+
+It takes the mesh's space axis (``blocks.set_space_axis``): a band of rows
+whose height is a multiple of 16, the deepest stride, computes the
+unsplit model's rows (no center pad: every skip band has its upsample's
+height).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from unet_embroidery_seg_torch.models.blocks import ClassHead, DoubleConv, Down,
 
 
 class UNetPlain(nn.Module):
+    takes_space_axis = True
+
     def __init__(self, num_classes: int = 2, base_channels: int = 64, diff_head: bool = False):
         super().__init__()
         self.base_channels = c = base_channels

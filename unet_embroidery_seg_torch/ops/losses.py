@@ -34,6 +34,10 @@ group computes the per-image losses, only space index 0 counts them (the
 others add zeros, and their gradients, zeros, still run the gather's
 backward), and the gather's backward gives each rank its slice of the
 coefficient: neither the loss nor its gradient is counted once per band.
+CE, focal and Dice sum their numerators and normalisers over ``group``,
+which holds every band: they need nothing more. multitask's class CE is
+per image, and every rank of an image's group holds its class logits
+(``blocks.GlobalAvgPool``): space index 0 counts it, the others count zero.
 """
 
 from __future__ import annotations
@@ -323,6 +327,7 @@ def multitask_loss(
     sample_mask: torch.Tensor | None = None,
     pos_weight: float | torch.Tensor | None = None,
     group: Group = None,
+    space=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, seg, cls) multitask loss (JAX ``multitask_loss``).
 
@@ -331,11 +336,13 @@ def multitask_loss(
     reference), with the opt-in ``pos_weight`` (off by default: the
     reference never weights it) and the padded samples' pixels masked.
     Cls: per-sample CE, averaged over the valid samples. total = seg +
-    ``cls_loss_weight`` * cls.
+    ``cls_loss_weight`` * cls. ``space``: the seg maps are bands, and each
+    image's class CE is counted by space index 0 only (module docstring).
     """
     seg_flat = seg_logits[..., 0]
     if seg_loss_name == "lovasz_hinge":
-        seg_l = lovasz_hinge(seg_flat, seg_targets.float(), sample_mask=sample_mask, group=group)
+        seg_l = lovasz_hinge(seg_flat, seg_targets.float(), sample_mask=sample_mask, group=group,
+                             space=space)
     else:
         pix_mask = None
         if sample_mask is not None:
@@ -344,8 +351,10 @@ def multitask_loss(
                                 mask=pix_mask, group=group)
     log_probs = torch.log_softmax(cls_logits.float(), dim=-1)
     per_sample_nll = -log_probs.gather(1, cls_targets.long()[:, None])[:, 0]
-    if sample_mask is not None:
-        m = sample_mask.float()
+    m = None if sample_mask is None else sample_mask.float()
+    if space is not None:
+        m = (per_sample_nll.new_ones(per_sample_nll.shape) if m is None else m) * float(space.first)
+    if m is not None:
         if group is not None:
             cls_l = _global_ratio((per_sample_nll * m).sum(), m.sum(), group, 1.0)
         else:

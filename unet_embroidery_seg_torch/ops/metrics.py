@@ -9,7 +9,10 @@ Data parallelism: each counting function takes an optional process
 ``group`` (None: the single-device code) and sums its counts, tables and
 sums over the group before any finalisation, so every rank returns the
 global batch's numbers (``multiclass_batch_metrics`` is a per-global-batch
-metric, as in JAX).
+metric, as in JAX). Over the mesh's space axis (each rank holds a band of
+every image's rows, ``group`` spans every band) the pixel counts and
+tables need nothing more; the per-sample metrics take ``space`` and sum
+each image's tables over its space group first.
 """
 
 from __future__ import annotations
@@ -117,17 +120,24 @@ def multiclass_per_sample_sums(
     num_classes: int,
     sample_mask: torch.Tensor | None = None,
     group: Group = None,
+    space=None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """Per-SAMPLE multiclass metrics summed over the valid samples, and their count.
 
     The reference val CLI evaluates at batch size 1, so its number is a mean
     of per-sample metrics (class presence per sample). This gives that
     statistic at any batch size: metric = sum of sums / sum of counts.
+    ``space``: ``logits`` and ``target`` are bands; each image's tables are
+    summed over its space group (class presence is the image's), and space
+    index 0 counts the image.
     """
-    per_sample = [multiclass_batch_metrics(lg[None], tg[None], num_classes)
+    band_group = None if space is None else space.group
+    per_sample = [multiclass_batch_metrics(lg[None], tg[None], num_classes, group=band_group)
                   for lg, tg in zip(logits, target)]
     sm = (torch.ones(target.shape[0], device=target.device) if sample_mask is None
           else sample_mask.float())
+    if space is not None:
+        sm = sm * float(space.first)
     sums = {k: (torch.stack([m[k] for m in per_sample]) * sm).sum() for k in per_sample[0]}
     if group is None:
         return sums, sm.sum()

@@ -24,6 +24,13 @@ for bit.
 the space group (the Lovasz hinge sorts whole images); its backward sums
 the ranks' gradients of each slice into its owner.
 
+``sum`` sums a per-rank tensor over the space group (a band's share of a
+per-image value: multitask_unet's pooled features), and its backward sums
+the ranks' gradients of the total, as ``mesh.global_sum`` does over the
+whole job. What is computed from the total is each image's, held by every
+rank of its group, so it is counted once: a loss of it by space index 0
+only (the others count zero and still run the backward's collective).
+
 ``SpaceAxis.collectives`` counts the collectives, forward and backward.
 Every collective goes through ``SpaceAxis.all_reduce``, so a test can run
 the module's logic on shards in one process by giving it another.
@@ -65,6 +72,10 @@ class SpaceAxis:
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """(B, P) on each rank -> (B, size * P): the ranks' tensors side by side, in order."""
         return _GatherRows.apply(t, self)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the space group, with autograd (module docstring)."""
+        return _SpaceSum.apply(t, self)
 
     def all_reduce(self, t: torch.Tensor) -> None:
         """Sum ``t`` over the space group, in place: the one collective of this module."""
@@ -128,6 +139,21 @@ class _Exchange(torch.autograd.Function):
         if not space.last:  # the rank below's top halo: my last `top` rows
             dx[:, :, h - top:] += slots[space.index + 1][:, :, :top]
         return dx, None, None, None, None
+
+
+class _SpaceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, space: SpaceAxis):
+        ctx.space = space
+        total = t.clone(memory_format=torch.contiguous_format)
+        space.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.clone(memory_format=torch.contiguous_format)
+        ctx.space.all_reduce(total)
+        return total, None
 
 
 class _GatherRows(torch.autograd.Function):

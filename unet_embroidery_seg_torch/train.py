@@ -59,10 +59,10 @@ its data rows' images; results equal one process's. ``--mesh-data N
 --mesh-space S`` starts N*S local workers, or joins ``torchrun`` with
 WORLD_SIZE = N*S; on ``cuda`` the default N is the cards over S, as the
 JAX CLI's ``len(devices) // n_space``. The batch must divide N.
-unet_resnet50 with the binary task only (other families and tasks raise,
-ROADMAP.md Queue 1 item 10c), at an ``--input-size`` that is a multiple of
-32*S (ResNet-50's deepest stride times S; JAX pads uneven shards
-implicitly, the port raises).
+Every model and task, at an ``--input-size`` that is a multiple of the
+model's deepest stride times S (32 for the ResNet-50 encoder of
+unet_resnet50 and multitask_unet, 16 for the other three; JAX pads uneven
+shards implicitly, the port raises).
 
 ``--profile`` traces a post-warm-up window of epoch 0 with
 ``torch.profiler`` (``utils/profiling.py``), JAX's windows: on the resident
@@ -105,8 +105,10 @@ from unet_embroidery_seg_torch.utils.plotting import plot_training_curves
 from unet_embroidery_seg_torch.utils.seeding import seed_everything
 from unet_embroidery_seg_torch.utils.vis_export import export_binary_visuals
 
-SPACE_NOT_PORTED = "ROADMAP.md Queue 1 item 10c (the space axis for other families and tasks)"
-SPACE_STRIDE = 32  # unet_resnet50's deepest stride: every level's band splits evenly
+# Each model's deepest stride: at an input size that is a multiple of it
+# times --mesh-space, every level's band splits evenly.
+SPACE_STRIDE = {"unet_resnet50": 32, "multitask_unet": 32, "unet_plain": 16,
+                "attention_unet": 16, "dualdense_unet": 16}
 
 
 class LogColor:
@@ -118,7 +120,7 @@ class LogColor:
 
 
 def check_supported(args) -> None:
-    """Refuse a task/model mismatch; raise ``NotImplementedError`` for what is not ported yet."""
+    """Refuse a task/model mismatch, and a space axis whose bands would not split evenly."""
     # The reference only surfaces a mismatch as an unpack error deep in its
     # epoch loop; the JAX CLI refuses it up front, and so does this one.
     if (args.task == "multitask") != (args.model == "multitask_unet"):
@@ -129,15 +131,11 @@ def check_supported(args) -> None:
         )
     if args.mesh_space < 1:
         raise ValueError(f"--mesh-space must be at least 1, got {args.mesh_space}")
-    if args.mesh_space > 1:
-        if args.model != "unet_resnet50" or args.task != "binary":
-            raise NotImplementedError(f"--mesh-space > 1 with --model {args.model} --task "
-                                      f"{args.task}: {SPACE_NOT_PORTED}")
-        if args.input_size % (SPACE_STRIDE * args.mesh_space):
-            raise ValueError(f"--input-size {args.input_size} must be a multiple of "
-                             f"{SPACE_STRIDE} x --mesh-space {args.mesh_space} = "
-                             f"{SPACE_STRIDE * args.mesh_space}: every level's rows split "
-                             "evenly over the space axis")
+    stride = SPACE_STRIDE[args.model]
+    if args.mesh_space > 1 and args.input_size % (stride * args.mesh_space):
+        raise ValueError(f"--input-size {args.input_size} must be a multiple of {stride} x "
+                         f"--mesh-space {args.mesh_space} = {stride * args.mesh_space} for "
+                         f"{args.model}: every level's rows split evenly over the space axis")
 
 
 def resolve_mesh_data(args, device: torch.device) -> int:
@@ -339,7 +337,7 @@ def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | Non
                group: mesh_lib.Group = None, space: halo.SpaceAxis | None = None):
     """(train_step, eval_step) for ``args.task``, as the JAX CLI picks them.
 
-    ``space`` (the binary task only): the mesh's space axis.
+    ``space``: the mesh's space axis, which every task's steps take.
     """
     if args.task == "binary":
         return (steps.make_binary_train_step(model, optimizer, args.loss, pos_weight,
@@ -348,7 +346,7 @@ def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | Non
                                             group=group, space=space))
     if args.task == "multitask":
         kw = {"seg_loss_name": args.loss, "cls_loss_weight": args.cls_loss_weight,
-              "pos_weight": pos_weight, "amp": args.amp, "group": group}
+              "pos_weight": pos_weight, "amp": args.amp, "group": group, "space": space}
         return (steps.make_multitask_train_step(model, optimizer, **kw),
                 steps.make_multitask_eval_step(model, **kw))
     if args.loss in ("bce", "lovasz_hinge"):
@@ -357,7 +355,7 @@ def make_steps(args, model, optimizer, num_classes: int, pos_weight: float | Non
         print(f"[WARN] --loss {args.loss} is binary-only; multiclass training "
               f"uses ce (+dice) instead")
     kw = {"focal": args.loss == "focal", "use_dice": args.use_dice, "amp": args.amp,
-          "group": group}
+          "group": group, "space": space}
     return (steps.make_multiclass_train_step(model, optimizer, num_classes, **kw),
             steps.make_multiclass_eval_step(model, num_classes, **kw))
 
@@ -825,8 +823,9 @@ def parse_args(argv=None):
                              "each (default: every visible card on cuda, 1 on cpu; under "
                              "torchrun, its processes)")
     parser.add_argument("--mesh-space", default=1, type=int,
-                        help="Spatial-parallel axis size over image H (unet_resnet50, binary; "
-                             "--input-size a multiple of 32 x it)")
+                        help="Spatial-parallel axis size over image H (--input-size a "
+                             "multiple of the model's deepest stride x it: 32 for "
+                             "unet_resnet50 and multitask_unet, 16 for the others)")
     args = parser.parse_args(argv)
     if args.pos_weight == "":
         args.pos_weight = None
