@@ -248,6 +248,37 @@ exactly, 3 bf16 steps per rank with every launch in its halo or band mode
 ms/step and peak memory per rank beside one process's. 17c
 (``--multi-card-only``, four cards): the train CLI on a 2x2 mesh for
 unet_plain multiclass and multitask_unet, one ``expN`` each.
+18. The JAX package's alternates (``tests/torch_alternates.py``: none is an
+option of the port), each against the port's default, at full width.
+18a: unet_resnet50's final stage (``up_conv``: 64 channels at 256^2
+upsampled to 512^2, two fused 3x3 convs, the 1x1 head; batch 8) packed
+(cuDNN's 2x2 convs over 256 packed channels) against unpacked (the
+upsample and conv kernels, the head), f32 (TF32 off) within 1e-4 of the
+largest logit (the first conv's dW: its distance from the stage in
+float64 within 4x the unpacked dW's, plus 1e-4) and bf16 within
+``TOL_PACKED_BF16_FACTOR`` x the unpacked bf16 tail's own distance from
+its f32 tail (measured in the run; its dW alike by the largest element,
+and by the norm within ``TOL_PACKED_BF16_DW_NORM_FACTOR`` x); forward
+and forward + backward ms of each, graph replay (a capture invalidated
+once is tried again) and eager. 18b:
+the ResNet stem at 512^2, batch 8, in each ``StemConv7x7`` mode, bf16 and
+f32: forward against ``direct`` (f32: 1e-4; bf16: one bf16 ulp) and dW
+(f32: phase 6's rule, 4x the floor of ``direct``'s dW with its input moved
+one ulp, plus 1e-4; bf16: the larger of 2%, phase 3's rule for the
+Functions' gradients, and 4x that floor), ms of forward + backward. 18c:
+unet_resnet50 binary Lovasz resident bf16 steps (phase 11's set-up) with
+JAX's ``variant="tree"`` (the port's Adam) and ``"flat"`` (``FlatAdam``)
+from one state: with cuDNN deterministic, one step each, the loss
+bit-equal; FlatAdam from the initial state on the tree run's first
+gradients, every parameter within 4 f32 ulps of the tree step's (ulps of
+the largest of its value before, after and the update); a grad-off eval
+after the flat step sees it as a fresh model does (phase 5's rule); then
+chunks of 8 steps (cuDNN as configured), the variants alternating tree,
+flat, flat, tree, ms/step, launches 5 + 5 + 6 + 6 per step, and the
+optimizer's own ms per call: busy (kernel time in a profiler window),
+stream (CUDA events, launch gaps included) and host; and a 1x2 space-axis
+f32 step with ``flat`` on two gloo ranks on the one card, held to 12b's
+rule as 16b holds its SGD step.
 
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
@@ -269,6 +300,7 @@ without a CUDA card or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -1493,10 +1525,12 @@ def resident_augment_check(cache, data) -> dict:
     return result
 
 
-def _resident_binary_model(group=None):
+def _resident_binary_model(group=None, variant: str | None = None):
     """unet_resnet50 (diff head, seed 0) and its bf16 Lovasz train step, as phase 5 builds them.
 
     ``group``: the step's process group (phase 12), None for one process.
+    ``variant`` (phase 18): JAX's optimizer variant (``tests/torch_alternates.py``), and the
+    optimizer is returned too.
     """
     from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
     from unet_embroidery_seg_torch.models import build_model
@@ -1504,8 +1538,10 @@ def _resident_binary_model(group=None):
 
     model = build_model("unet_resnet50", 2, diff_head=True,
                         generator=torch.Generator().manual_seed(0))
-    opt = schedules.make_train_optimizer(model.parameters(), TRAIN_LR)
-    return model, make_binary_train_step(model, opt, "lovasz_hinge", None, amp=True, group=group)
+    opt = (schedules.make_train_optimizer(model.parameters(), TRAIN_LR) if variant is None
+           else _alternates().make_optimizer(variant, model.parameters(), TRAIN_LR))
+    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=True, group=group)
+    return (model, step) if variant is None else (model, step, opt)
 
 
 def _plan(data, epoch: int, steps: int, shuffle: bool = True):
@@ -3366,6 +3402,493 @@ def family_space_phase() -> dict:
     return out
 
 
+# Phase 18, the alternates against their defaults. 18a's bf16 rule: the
+# packed tail's distance from the unpacked one, within this factor of the
+# unpacked bf16 tail's distance from its own f32 run (both round at every
+# op, in other places; measured in the run). 18c: the flat and tree steps'
+# parameters after one step on the same gradients within 4 f32 ulps of the
+# largest of the value before, after and the update (the update goes
+# through seven rounded ops, which the foreach kernels and the arena's
+# contract otherwise: measured 2.5 ulps of the update on the H100; an
+# update that cancels its value leaves a tiny result with the update's
+# rounding; tests/test_torch_flat_adam.py).
+TOL_PACKED_BF16_FACTOR = 4.0
+# 18a's bf16 dW by norm: two bf16 stages each about the floor (the unpacked
+# bf16 dW's distance from its f32 run) from the exact dW lie at most twice
+# that apart (the triangle inequality); measured 0.73x the floor.
+TOL_PACKED_BF16_DW_NORM_FACTOR = 2.0
+TAIL_C, TAIL_H, TAIL_CLASSES = 64, 256, 2
+STEM_FEATURES = 64
+FLAT_STEP_ULPS = 4
+OPT_TIMED_CALLS = 20
+
+
+def _alternates():
+    """``tests/torch_alternates.py``: the JAX package's alternates, kept beside the tests that
+    hold them to JAX (none is an option of the port)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_alternates
+
+    return torch_alternates
+
+
+def _ms_pair(fn) -> dict:
+    """Eager ms and graph-replay ms of ``fn``, the capture tried twice (graph: None, with the
+    reason, where both captures are invalidated; any other error is raised).
+
+    Once an f32 autograd backward has been captured in a process, the first
+    bf16 one captured after it is invalidated, whatever the op (the port's
+    upsample alone too), and the same call warmed up and captured again
+    holds (``scripts/torch_capture_probe.py``).
+    """
+    from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
+
+    eager = event_ms(fn)
+    reasons = []
+    for attempt in (1, 2):
+        if attempt == 2:
+            event_ms(fn)  # the warm-up the probe's second capture had
+        try:
+            return {"ms": graph_ms(fn, eager), "eager_ms": eager, "ms_method": MS_METHOD,
+                    "capture_attempts": attempt}
+        except RuntimeError as e:
+            if "StreamCaptureInvalidated" not in str(e):
+                raise
+            torch.cuda.synchronize()
+            reasons.append(str(e)[:120])
+    return {"ms": None, "eager_ms": eager, "ms_method": f"eager only: {reasons[-1]}",
+            "capture_attempts": 2}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| over ||b|| (2-norms over every element)."""
+    return (torch.linalg.vector_norm(a.float() - b.float())
+            / torch.linalg.vector_norm(b.float())).item()
+
+
+def packed_tail_check(gen: torch.Generator) -> dict:
+    """18a: the packed decoder tail against the unpacked one at unet_resnet50's ``up_conv``."""
+    pt = _alternates()
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu
+    from unet_embroidery_seg_torch.ops.upsample import upsample2x
+
+    dev, c = torch.device("cuda"), TAIL_C
+    x0 = torch.relu(torch.randn(BATCH, c, TAIL_H, TAIL_H, generator=gen)).to(dev)
+    x0 = x0.contiguous(memory_format=torch.channels_last)
+    params = {"w1": torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5),
+              "b1": 0.1 * torch.randn(c, generator=gen),
+              "w2": torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5),
+              "b2": 0.1 * torch.randn(c, generator=gen),
+              "wh": torch.randn(TAIL_CLASSES, c, 1, 1, generator=gen) / c ** 0.5,
+              "bh": 0.1 * torch.randn(TAIL_CLASSES, generator=gen)}
+    params = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+    gy = torch.randn(BATCH, TAIL_CLASSES, 2 * TAIL_H, 2 * TAIL_H, generator=gen).to(dev)
+
+    def unpacked(x):
+        y = conv3x3_bias_relu(upsample2x(x, True), params["w1"], params["b1"])
+        y = conv3x3_bias_relu(y, params["w2"], params["b2"])
+        return F.conv2d(y, params["wh"], params["bh"])
+
+    def packed(x):
+        y = F.relu(pt.packed_conv3x3(pt.packed_upsample2x(x, True), params["w1"], params["b1"]))
+        y = F.relu(pt.packed_conv3x3(y, params["w2"], params["b2"]))
+        return pt.depth_to_space2(pt.packed_conv1x1(y, params["wh"], params["bh"]))
+
+    def exact(x):  # the same stage in float64 with stock ops: the f32 rule's reference
+        p64 = {k: v.double() for k, v in params.items()}
+        y = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+        y = F.relu(F.conv2d(y, p64["w1"], p64["b1"], padding=1))
+        y = F.relu(F.conv2d(y, p64["w2"], p64["b2"], padding=1))
+        return F.conv2d(y, p64["wh"], p64["bh"])
+
+    def run(tail, x, amp: bool):
+        """(forward, forward + backward) of ``tail`` on ``x``; autocast's cast cache off, so a
+        CUDA graph can hold the backward's casts."""
+        def fwd():
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp, cache_enabled=False):
+                return tail(x)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), [x, *params.values()], gy.to(x.dtype))
+
+        return fwd, fwd_bwd
+
+    out, logits = {"shape": [BATCH, c, TAIL_H, TAIL_H], "classes": TAIL_CLASSES}, {}
+    # bf16 first: a bf16 backward captured after an f32 one loses its capture
+    # (``_ms_pair``); the other order held in every probe.
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        x = x0.to(dtype).requires_grad_(True)
+        for name, tail in (("packed", packed), ("unpacked", unpacked)):
+            fwd, fwd_bwd = run(tail, x, dtype == torch.bfloat16)
+            with torch.no_grad():
+                logits[key, name] = fwd().float()
+                forward = _ms_pair(fwd)
+            logits[key, name, "dw1"] = fwd_bwd()[1].float()
+            out[f"{key}_{name}"] = {"forward": forward, "forward_backward": _ms_pair(fwd_bwd)}
+        out[f"{key}_max_rel_diff"] = _rel(logits[key, "packed"], logits[key, "unpacked"])
+        out[f"{key}_dw1_max_rel_diff"] = _rel(logits[key, "packed", "dw1"],
+                                              logits[key, "unpacked", "dw1"])
+    # The rules' references. f32 dW (2M products a weight, with cancellation,
+    # through two ReLU masks): each path's distance from the float64 stage;
+    # the packed one within 4x the unpacked one's, plus 1e-4. bf16: the
+    # unpacked bf16 tail's distance from its f32 run.
+    x64 = x0.double().requires_grad_(True)
+    dw1_exact = torch.autograd.grad(exact(x64), [x64, *params.values()], gy.double())[1]
+    for name in ("packed", "unpacked"):
+        out[f"f32_{name}_dw1_rel_err"] = _rel(logits["f32", name, "dw1"], dw1_exact)
+    del x64, dw1_exact
+    out["bf16_floor"] = _rel(logits["bf16", "unpacked"], logits["f32", "unpacked"])
+    out["bf16_dw1_floor"] = _rel(logits["bf16", "unpacked", "dw1"],
+                                 logits["f32", "unpacked", "dw1"])
+    # bf16 dW by norm as well, to a factor of 2 (not 4): the max rule's limit,
+    # 4x a ~6% floor, is near a typical element's size.
+    out["bf16_dw1_norm_rel_diff"] = _rel_norm(logits["bf16", "packed", "dw1"],
+                                              logits["bf16", "unpacked", "dw1"])
+    out["bf16_dw1_norm_floor"] = _rel_norm(logits["bf16", "unpacked", "dw1"],
+                                           logits["f32", "unpacked", "dw1"])
+    out["tol_f32"] = TOL_F32["conv3x3_same"]
+    out["tol_f32_dw1_err"] = TOL_TRAIN_NOISE_FACTOR * out["f32_unpacked_dw1_rel_err"] + TOL_F32_GRAD
+    out["tol_bf16"] = TOL_PACKED_BF16_FACTOR * out["bf16_floor"]
+    out["tol_bf16_dw1"] = TOL_PACKED_BF16_FACTOR * out["bf16_dw1_floor"]
+    out["tol_bf16_dw1_norm"] = TOL_PACKED_BF16_DW_NORM_FACTOR * out["bf16_dw1_norm_floor"]
+    print("alternates_packed_tail " + json.dumps(out), flush=True)
+    ok = (out["f32_max_rel_diff"] <= out["tol_f32"]
+          and out["f32_packed_dw1_rel_err"] <= out["tol_f32_dw1_err"]
+          and out["bf16_max_rel_diff"] <= out["tol_bf16"]
+          and out["bf16_dw1_max_rel_diff"] <= out["tol_bf16_dw1"]
+          and out["bf16_dw1_norm_rel_diff"] <= out["tol_bf16_dw1_norm"])
+    if not ok:
+        raise AssertionError(f"packed tail against unpacked: {out}")
+    return out
+
+
+def stem_modes_check(gen: torch.Generator) -> dict:
+    """18b: each ``StemConv7x7`` mode against ``direct`` at 512^2, batch 8, bf16 and f32."""
+    alt = _alternates()
+
+    dev = torch.device("cuda")
+    x = torch.rand(BATCH, 3, TRAIN_SIZE, TRAIN_SIZE, generator=gen).to(dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(STEM_FEATURES, 3, 7, 7, generator=gen) * 0.02
+    gy = torch.randn(BATCH, STEM_FEATURES, TRAIN_SIZE // 2, TRAIN_SIZE // 2, generator=gen)
+    gy = gy.to(dev).contiguous(memory_format=torch.channels_last)
+    out = {"shape": [BATCH, 3, TRAIN_SIZE, TRAIN_SIZE], "features": STEM_FEATURES}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        amp = dtype == torch.bfloat16
+        ref = None
+        for mode in alt.STEM_MODES:
+            stem = alt.StemConv7x7(STEM_FEATURES, mode=mode).to(dev)
+            with torch.no_grad():
+                stem.weight.copy_(weight)
+            stem = stem.to(memory_format=torch.channels_last)
+
+            def fwd(stem=stem, xin=x):  # autocast's cast cache off: a graph holds the backward
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp,
+                                    cache_enabled=False):
+                    return stem(xin)
+
+            def fwd_bwd(stem=stem, fwd=fwd):
+                return torch.autograd.grad(fwd(), stem.weight, gy.to(dtype))[0]
+
+            with torch.no_grad():
+                y = fwd().float()
+            dw = fwd_bwd().float()
+            row = {"forward_backward": _ms_pair(fwd_bwd)}
+            if mode == "direct":
+                ref = (y, dw)
+                # dW's floor: the direct conv's with its input moved one ulp of its dtype
+                ulp = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -8
+                moved = functools.partial(fwd, xin=x * (1 + ulp))
+                row["dw_floor"] = _rel(fwd_bwd(fwd=moved).float(), dw)
+                row["dw_tol"] = (TOL_TRAIN_NOISE_FACTOR * row["dw_floor"] + TOL_F32_GRAD
+                                 if dtype == torch.float32
+                                 else max(TOL_FUNCTION, TOL_TRAIN_NOISE_FACTOR * row["dw_floor"]))
+            else:
+                row["max_rel_diff"] = _rel(y, ref[0])
+                row["dw_max_rel_diff"] = _rel(dw, ref[1])
+            out[f"{key}_{mode}"] = row
+            del stem
+    out["tol"] = {"f32": TOL_F32["conv3x3_same"], "bf16": TOL_BF16}
+    print("alternates_stem " + json.dumps(out), flush=True)
+    ok = all(out[f"{k}_{m}"]["max_rel_diff"] <= out["tol"][k]
+             and out[f"{k}_{m}"]["dw_max_rel_diff"] <= out[f"{k}_direct"]["dw_tol"]
+             for k in ("f32", "bf16") for m in alt.STEM_MODES if m != "direct")
+    if not ok:
+        raise AssertionError(f"stem modes against direct: {out}")
+    return out
+
+
+def _ulps_apart(a: dict, b: dict, init: dict) -> tuple[float, dict]:
+    """The largest difference of two state dicts' float tensors after a step from ``init``, in
+    f32 ulps of the largest of the value before, the values after and the update there (the
+    update carries its ops' roundings, whatever the result); where (key, flat index, the
+    values) and how many elements are more than one ulp apart."""
+    worst, where, over = 0.0, {}, 0
+    for k, v in b.items():
+        if not torch.is_floating_point(v):
+            continue
+        top = torch.stack([a[k].abs(), v.abs(), init[k].abs(), (v - init[k]).abs()]).amax(0)
+        top = top.float()
+        ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+        d = ((a[k].double() - v.double()).abs() / ulp.double()).flatten()
+        over += int((d > 1).sum())
+        i = int(d.argmax())
+        if d[i].item() > worst:
+            worst = d[i].item()
+            where = {"key": k, "index": i, "values": [a[k].flatten()[i].item(),
+                                                      v.flatten()[i].item(),
+                                                      init[k].flatten()[i].item()]}
+    return worst, {**where, "elements_over_one_ulp": over}
+
+
+def _optimizer_ms(opt) -> dict:
+    """The optimizer's own step, its gradients as the last backward left them, per call:
+    ``busy_ms``, the card's kernel time in a profiler window over ``OPT_TIMED_CALLS`` calls
+    (``utils/timing.device_ms_by_group``, as the profile scripts read a step); ``stream_ms``,
+    CUDA events around the same calls back to back, launch gaps included (the foreach
+    update's ~10 launches a tensor group keep the card waiting on the host); ``host_ms``, the
+    host's time to issue one call, the card idle before it."""
+    from unet_embroidery_seg_torch.utils.timing import device_ms_by_group
+
+    host = []
+    for _ in range(OPT_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(OPT_TIMED_CALLS):
+        opt.step()
+    end.record()
+    end.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(OPT_TIMED_CALLS):
+            opt.step()
+        torch.cuda.synchronize()
+    by_group, top = device_ms_by_group(prof, OPT_TIMED_CALLS)
+    if not by_group:
+        raise AssertionError("the optimizer's profiler window holds no card time")
+    return {"busy_ms": sum(by_group.values()), "busy_ms_by_group": by_group,
+            "kernels_per_call": sum(e.count for e in prof.key_averages()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA
+                                    and not e.key.startswith("Optimizer."))
+            / OPT_TIMED_CALLS,
+            "stream_ms": start.elapsed_time(end) / OPT_TIMED_CALLS,
+            "host_ms": statistics.median(host)}
+
+
+def flat_adam_check(counters) -> dict:
+    """18c: FlatAdam against the foreach Adam on unet_resnet50's resident bf16 steps."""
+    from unet_embroidery_seg_torch.engine import resident
+
+    cache, data = resident_split()
+    del cache
+    out = {"model": "unet_resnet50", "task": "binary", "loss": "lovasz_hinge", "amp": True,
+           "size": TRAIN_SIZE, "batch": BATCH, "chunk": RESIDENT_CHUNK,
+           "timed_order": ["tree", "flat", "flat", "tree"]}
+    x = torch.rand(BATCH, 3, TRAIN_SIZE, TRAIN_SIZE,
+                   generator=torch.Generator().manual_seed(18)).to("cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+
+    def forward(m):  # an eval forward, grad off: packed weights from the cache
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return m.eval()(x).float()
+
+    runs, models, starts = {}, {}, []
+    deterministic = torch.backends.cudnn.deterministic
+    for variant in ("tree", "flat"):
+        model, step, opt = _resident_binary_model(variant=variant)
+        before = forward(model) if variant == "flat" else None  # fills the packing cache
+        chunk = resident.make_train_chunk_fn(step, (TRAIN_SIZE, TRAIN_SIZE), True, 2, seed=11)
+        _, (idx, mask) = _plan(data, 0, 1)
+        torch.backends.cudnn.deterministic = True
+        try:
+            first = chunk(data, idx, mask, 0, range(1)).cpu().tolist()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        runs[variant] = {"first_loss": first[0],
+                         "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+        if variant == "tree":  # the first step's gradients, for the same-gradient check
+            tree_grads = [p.grad.detach().clone() for p in model.parameters()]
+        else:  # phase 5's rule: the step seen, as a fresh model sees it
+            after = forward(model)
+            fresh, _ = _resident_binary_model()
+            fresh.load_state_dict(runs[variant]["state"])
+            runs[variant]["eval_after_step"] = {
+                "changed": (after - before).abs().max().item(),
+                "off_fresh": (after - forward(fresh)).abs().max().item()}
+            del fresh
+
+        def marked(*args, step=step):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            return step(*args)
+
+        timed = resident.make_train_chunk_fn(marked, (TRAIN_SIZE, TRAIN_SIZE), True, 2, seed=11)
+        _, plan = _plan(data, 1, RESIDENT_CHUNK)
+        timed(data, *plan, 1, range(RESIDENT_CHUNK)).cpu()  # warm-up
+        models[variant] = (model, opt, timed)
+        runs[variant].update(step_ms=[], losses=[])
+    # Timed chunks, the variants alternating (tree, flat, flat, tree), with the
+    # launch counters zeroed just before and read just after.
+    for c in counters:
+        c.launches = 0
+    for k, variant in enumerate(out["timed_order"]):
+        starts.clear()
+        _, plan = _plan(data, 2 + k, RESIDENT_CHUNK)
+        values = models[variant][2](data, *plan, 2 + k, range(RESIDENT_CHUNK))
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        runs[variant]["losses"] += values.cpu().tolist()
+        marks = starts + [end]
+        runs[variant]["step_ms"] += [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    for variant, (model, opt, _) in models.items():
+        runs[variant]["step_ms_median"] = statistics.median(runs[variant]["step_ms"])
+        runs[variant]["optimizer"] = _optimizer_ms(opt)
+    del models, model, opt
+    torch.cuda.empty_cache()
+    # The two runs' own first steps (their gradients may differ: a backward op
+    # that is not deterministic), then the optimizers on the same gradients:
+    # FlatAdam from the initial state with the tree run's first gradients.
+    model, _, opt = _resident_binary_model(variant="flat")
+    names = [n for n, _ in model.named_parameters()]  # the parameters, not BN's statistics
+    tree_params = {n: runs["tree"]["state"][n] for n in names}
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    own, own_at = _ulps_apart({n: runs["flat"]["state"][n] for n in names}, tree_params, init)
+    del runs["tree"]["state"], runs["flat"]["state"]
+    opt.zero_grad()
+    for p, g in zip(model.parameters(), tree_grads):
+        p.grad.copy_(g)
+    opt.step()
+    ulps, where = _ulps_apart({n: p.detach() for n, p in model.named_parameters()}, tree_params,
+                              init)
+    if where.get("key"):
+        g = tree_grads[names.index(where["key"])].flatten()[where["index"]].item()
+        where["gradient"] = g
+    del model, opt, tree_grads, tree_params, init
+    out.update(runs, first_loss_equal=runs["flat"]["first_loss"] == runs["tree"]["first_loss"],
+               own_steps_ulps_apart=own, own_steps_ulps_apart_at=own_at,
+               same_gradients_ulps_apart=ulps, same_gradients_ulps_apart_at=where,
+               flat_over_tree_step_ms=runs["flat"]["step_ms_median"]
+               / runs["tree"]["step_ms_median"])
+    want = {k: v * 4 * RESIDENT_CHUNK for k, v in RESNET_PER_STEP.items()
+            if k in out["launches"]}
+    print("alternates_flat_adam " + json.dumps(out), flush=True)
+    seen = runs["flat"]["eval_after_step"]
+    ok = (out["first_loss_equal"] and ulps <= FLAT_STEP_ULPS
+          and seen["changed"] > 0 and seen["off_fresh"] <= 0.1 * seen["changed"]
+          and out["launches"] == want
+          and all(np.isfinite(runs[v]["losses"]).all() for v in runs))
+    if not ok:
+        raise AssertionError(f"FlatAdam against the foreach Adam: {out}")
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flat_step(model, batch, group=None, space=None) -> float:
+    """One f32 Lovasz step of ``model`` with FlatAdam at the CLI's learning rate."""
+    from unet_embroidery_seg_torch.engine.steps import make_binary_train_step
+
+    opt = _alternates().make_optimizer("flat", model.parameters(), TRAIN_LR)
+    step = make_binary_train_step(model, opt, "lovasz_hinge", None, amp=False, group=group,
+                                  space=space)
+    return float(step(*batch))
+
+
+def _flat_space_rank(rank: int, devices: list, out_dir: str) -> None:
+    """One rank of 18c's 1x2 mesh (gloo, two ranks on one card): one f32 FlatAdam step."""
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad
+    from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
+    from unet_embroidery_seg_torch.parallel import halo
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_mesh(1, SPACE_SPLIT, devices)
+    counters = [upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad]
+    model, batch = _sgd_model_and_batch(mesh.device)
+    for c in counters:
+        c.halo_launches = 0
+    loss = _flat_step(model, mesh_lib.shard_batch_arrays(mesh, *batch), mesh.group,
+                      halo.space_axis(mesh))
+    torch.save({"loss": loss, "halo_launches": {c.__name__: c.halo_launches for c in counters},
+                "state": {k: v.cpu() for k, v in model.state_dict().items()}},
+               os.path.join(out_dir, f"flat_rank{rank}.pt"))
+
+
+def flat_space_one_card() -> dict:
+    """18c: a 1x2 mesh's FlatAdam step on two gloo ranks of the one card against one process."""
+    from unet_embroidery_seg_torch.parallel import mesh as mesh_lib
+
+    init, batch = _sgd_model_and_batch("cpu")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    one = {}
+    for run, scale in (("one", 1.0), ("one_up", 1 + 2.0 ** -23), ("one_down", 1 - 2.0 ** -23)):
+        model, _ = _sgd_model_and_batch("cuda")
+        images, pngs, sm = batch
+        one[run] = (_flat_step(model, (images * np.float32(scale), pngs, sm)),
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+        del model
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="flat-ranks-")
+    t0 = time.perf_counter()
+    try:
+        mesh_lib.launch_local(_flat_space_rank, SPACE_SPLIT,
+                              ([torch.device("cuda", 0)] * SPACE_SPLIT, out_dir),
+                              backend="gloo", timeout_s=600)
+        ranks = [torch.load(os.path.join(out_dir, f"flat_rank{r}.pt"), weights_only=True)
+                 for r in range(SPACE_SPLIT)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    states = [r.pop("state") for r in ranks]
+    result = {"mesh": "1x2", "backend": "gloo", "devices": "cuda:0 x2", "optimizer": "flat",
+              "lr": TRAIN_LR, "seconds": time.perf_counter() - t0,
+              "loss_space": ranks[0]["loss"], "loss_one_process": one["one"][0],
+              "loss_rel_diff": abs(ranks[0]["loss"] - one["one"][0]) / abs(one["one"][0]),
+              "ranks_bit_equal": all(torch.equal(states[0][k], states[1][k]) for k in states[0]),
+              "halo_launches_per_rank": [r["halo_launches"] for r in ranks]}
+    entries, ok = _update_rule(states[0], one["one"][1], one["one_up"][1], one["one_down"][1],
+                               init)
+    result.update(entries)
+    print("alternates_flat_space " + json.dumps(result), flush=True)
+    want = {"upsample2x": 5, "upsample2x_backward": 5, "conv3x3_bias_relu": 6,
+            "conv3x3_dgrad": 6}
+    if not (ok and result["ranks_bit_equal"] and result["loss_rel_diff"] <= TOL_DDP_LOSS_F32
+            and all(r["halo_launches"] == want for r in ranks)):
+        raise AssertionError(f"FlatAdam over the space axis: {result}")
+    return result
+
+
+def alternates_phase(counters) -> dict:
+    """Phase 18: the packed tail, the stem modes and FlatAdam, each against its default."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"packed_tail": packed_tail_check(torch.Generator().manual_seed(181)),
+           "stem": stem_modes_check(torch.Generator().manual_seed(182))}
+    torch.cuda.empty_cache()
+    out["flat_adam"] = flat_adam_check(counters)
+    out["flat_space"] = flat_space_one_card()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "upsample2x": ("unet_embroidery_seg_torch/csrc/upsample2x.cu",
                    "docs/negative-results/pallas_upsample.py:207", "upsample2x"),
@@ -3643,6 +4166,10 @@ def main(argv=None) -> int:
     space = space_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad])
     family_space = family_space_phase()
 
+    # Phase 18: the JAX package's alternates against their defaults.
+    alternates = alternates_phase([upsample2x, upsample2x_backward, conv3x3_bias_relu,
+                                   conv3x3_dgrad])
+
     family_launches = {c.__name__: sum(f["train"]["launches"][c.__name__]
                                        for f in families.values())
                        for c in train_counters}
@@ -3660,7 +4187,8 @@ def main(argv=None) -> int:
                        "f32_full_width_train": f32_full, "f32_resnet_sites": f32_resnet_rows,
                        "tasks": tasks, "resident": res, "data_parallel": ddp,
                        "tooling": tooling, "paper": paper, "space": space,
-                       "family_space": family_space, "kernels": kernels,
+                       "family_space": family_space, "alternates": alternates,
+                       "kernels": kernels,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,7 @@ weights go to both sides through the port's ``state_dict_from_jax`` with
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -51,6 +52,14 @@ def _seeded(variables: dict, seed: int) -> dict:
         return v.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, variables)
+
+
+@pytest.fixture(autouse=True)
+def delete_tmp_path(request):
+    """Delete the test's ``tmp_path`` when it ends, pass or fail (it holds checkpoints)."""
+    yield
+    if "tmp_path" in request.fixturenames:
+        shutil.rmtree(request.node.funcargs["tmp_path"], ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,7 @@ step test), Adam over a resident chunk.
 
 from __future__ import annotations
 
-import os
+import shutil
 import threading
 import time
 
@@ -206,39 +206,44 @@ def _jax_sgd_step(case: dict, mesh) -> tuple[float, dict]:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{"ranks": [rank 0's, rank 1's results], "port": 1-process results, "jax", "jax_mesh"}."""
+    """{"ranks": [rank 0's, rank 1's results], "port": 1-process results, "jax", "jax_mesh"}.
+
+    The ranks delete the inputs once read, the results are deleted as they
+    are read, and the module's directory goes whatever happens.
+    """
     tmp = tmp_path_factory.mktemp("parallel")
-    port_cases, jax_cases = _cases()
-    torch.save(port_cases, tmp / "inputs.pt")
-    failures: list[BaseException] = []
+    try:
+        port_cases, jax_cases = _cases()
+        torch.save(port_cases, tmp / "inputs.pt")
+        failures: list[BaseException] = []
 
-    def job():
-        try:
-            mesh_lib.launch_local(worker.run, 2, (str(tmp / "inputs.pt"), str(tmp)),
-                                  backend="gloo", timeout_s=JOB_TIMEOUT_S)
-        except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
-            failures.append(e)
+        def job():
+            try:
+                mesh_lib.launch_local(worker.run, 2, (str(tmp / "inputs.pt"), str(tmp)),
+                                      backend="gloo", timeout_s=JOB_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
+                failures.append(e)
 
-    thread = threading.Thread(target=job)
-    thread.start()
-    try:  # this process's references, while the ranks run
-        port = {name: worker.run_case(kind, case, None)
-                for name, (kind, case) in port_cases.items()}
-        jmesh = jax_make_mesh(n_data=2)
-        out = {"port": port, "flax_bn": _flax_bn(port_cases["bn"][1]),
-               "jax": {n: _jax_sgd_step(c, None) for n, c in jax_cases.items()},
-               "jax_mesh": {n: _jax_sgd_step(c, jmesh) for n, c in jax_cases.items()}}
+        thread = threading.Thread(target=job)
+        thread.start()
+        try:  # this process's references, while the ranks run
+            port = {name: worker.run_case(kind, case, None)
+                    for name, (kind, case) in port_cases.items()}
+            jmesh = jax_make_mesh(n_data=2)
+            out = {"port": port, "flax_bn": _flax_bn(port_cases["bn"][1]),
+                   "jax": {n: _jax_sgd_step(c, None) for n, c in jax_cases.items()},
+                   "jax_mesh": {n: _jax_sgd_step(c, jmesh) for n, c in jax_cases.items()}}
+        finally:
+            thread.join(JOB_TIMEOUT_S + 60)
+        assert not thread.is_alive(), "the 2-rank job did not end"
+        if failures:
+            raise failures[0]
+        out["ranks"] = worker.load_results([tmp / f"rank{r}.pt" for r in (0, 1)])
+        out["init"] = {name: case["state"] for name, (kind, case) in port_cases.items()
+                       if kind == "sgd"}
+        return out
     finally:
-        thread.join(JOB_TIMEOUT_S + 60)
-    assert not thread.is_alive(), "the 2-rank job did not end"
-    if failures:
-        raise failures[0]
-    out["ranks"] = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
-    out["init"] = {name: case["state"] for name, (kind, case) in port_cases.items()
-                   if kind == "sgd"}
-    for f in os.listdir(tmp):
-        os.remove(tmp / f)
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 HOST_CASES = ("bce_tail", "lovasz")  # bce_tail: ranks 2 and 3 hold only padded rows
@@ -252,25 +257,25 @@ def two_host_ranks(runs, tmp_path_factory):
     import torch.multiprocessing as mp
 
     tmp = tmp_path_factory.mktemp("two_hosts")
-    port_cases, _ = _cases()
-    torch.save({n: port_cases[n] for n in HOST_CASES}, tmp / "inputs.pt")
-    ctx = mp.start_processes(
-        worker.run_on_two_hosts,
-        args=(f"file://{tmp / 'store'}", HOST_RANKS, str(tmp / "inputs.pt"), str(tmp)),
-        nprocs=HOST_RANKS, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOB_TIMEOUT_S
     try:
-        while not ctx.join(timeout=1.0):
-            assert time.monotonic() < deadline, "the 4-rank job did not end"
+        port_cases, _ = _cases()
+        torch.save({n: port_cases[n] for n in HOST_CASES}, tmp / "inputs.pt")
+        ctx = mp.start_processes(
+            worker.run_on_two_hosts,
+            args=(f"file://{tmp / 'store'}", HOST_RANKS, str(tmp / "inputs.pt"), str(tmp)),
+            nprocs=HOST_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                assert time.monotonic() < deadline, "the 4-rank job did not end"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return worker.load_results([tmp / f"host_rank{r}.pt" for r in range(HOST_RANKS)])
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    out = [torch.load(tmp / f"host_rank{r}.pt", weights_only=False) for r in range(HOST_RANKS)]
-    for f in os.listdir(tmp):
-        os.remove(tmp / f)
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _cat(ranks: list, *path) -> torch.Tensor:

@@ -6,7 +6,10 @@ fresh working directory of one module directory: 1 process and 2 ranks on
 the host input path for two epochs; 2 ranks for one epoch and its
 ``--resume`` to two; 1 process and 2 ranks on the device-resident path
 (``--device-augment``). The ranks are worker processes the CLI starts
-itself (spawn, gloo).
+itself (spawn, gloo). Each run's checkpoints are deleted once read (the
+first run's once the resumed run has read them: it restores
+``resume.pth`` and copies ``best.pth`` and ``last.pth``), and the module's
+directory at its end, so the checkpoints do not pile up on disk.
 """
 
 import json
@@ -43,17 +46,30 @@ def _files(exp: str) -> set[str]:
     return {os.path.relpath(os.path.join(d, f), exp) for d, _, fs in os.walk(exp) for f in fs}
 
 
-def _read(exp: str) -> dict:
+# A first run's checkpoints, which its --resume run reads.
+FIRST_RUN_FILES = ("resume.pth", "best.pth", "last.pth")
+
+
+def _delete_checkpoints(weights: str, keep: tuple[str, ...] = ()) -> None:
+    for name in os.listdir(weights):
+        if name.endswith(".pth") and name not in keep:
+            os.remove(os.path.join(weights, name))
+
+
+def _read(exp: str, keep: tuple[str, ...] = ()) -> dict:
+    """What the tests read of a run; then its checkpoints are deleted, but those in ``keep``."""
     def js(name):
         with open(os.path.join(exp, name)) as f:
             return json.load(f)
 
     weights = os.path.join(exp, "weights")
-    return {"exp": exp, "files": _files(exp), "history": js("val_metrics_history.json"),
-            "test": js("test_metrics.json"), "config": js("config.json"),
-            "last": torch.load(os.path.join(weights, "last.pth"), weights_only=True),
-            "best": torch.load(os.path.join(weights, "best.pth"), weights_only=True),
-            "runs": sorted(os.listdir(os.path.dirname(exp)))}
+    out = {"exp": exp, "files": _files(exp), "history": js("val_metrics_history.json"),
+           "test": js("test_metrics.json"), "config": js("config.json"),
+           "last": torch.load(os.path.join(weights, "last.pth"), weights_only=True),
+           "best": torch.load(os.path.join(weights, "best.pth"), weights_only=True),
+           "runs": sorted(os.listdir(os.path.dirname(exp)))}
+    _delete_checkpoints(weights, keep)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -68,11 +84,14 @@ def runs(tmp_path_factory):
             os.chdir(root)
             os.makedirs(name)
             os.chdir(name)
-            out[name] = _read(port_train.train(port_train.parse_args(ARGS + flags)))
-        os.chdir(root / "two_first")
-        first = out["two_first"]["exp"]
-        out["two_resumed"] = _read(port_train.train(port_train.parse_args(
-            ARGS + RUNS["two"] + ["--resume", os.path.join(first, "weights", "resume.pth")])))
+            first = name == "two_first"
+            out[name] = _read(port_train.train(port_train.parse_args(ARGS + flags)),
+                              keep=FIRST_RUN_FILES if first else ())
+            if first:  # its --resume run at once, so that its checkpoints go at once
+                weights = os.path.join(out[name]["exp"], "weights")
+                out["two_resumed"] = _read(port_train.train(port_train.parse_args(
+                    ARGS + RUNS["two"] + ["--resume", os.path.join(weights, "resume.pth")])))
+                _delete_checkpoints(weights)
         yield out
     finally:
         os.chdir(cwd)
@@ -128,9 +147,12 @@ def test_checkpoints_hold_the_model_keys_and_load_strictly(runs, tmp_path):
     # and the val CLI (one process) loads it, printing the test split's metrics
     path = str(tmp_path / "best.pth")
     torch.save(best, path)
-    metrics = port_val.val(port_val.parse_args([
-        "--data-path", "synthetic:4", "--input-size", "64", "--device", "cpu", "--no-amp",
-        "--loss", "bce", "--weights", path]))
+    try:
+        metrics = port_val.val(port_val.parse_args([
+            "--data-path", "synthetic:4", "--input-size", "64", "--device", "cpu", "--no-amp",
+            "--loss", "bce", "--weights", path]))
+    finally:
+        os.remove(path)
     assert set(metrics) >= {"Dice", "IoU", "Precision", "Recall", "Accuracy"}
 
 

@@ -16,6 +16,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -49,6 +50,14 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def delete_tmp_path(request):
+    """Delete the test's ``tmp_path`` when it ends, pass or fail (it holds checkpoints)."""
+    yield
+    if "tmp_path" in request.fixturenames:
+        shutil.rmtree(request.node.funcargs["tmp_path"], ignore_errors=True)
+
+
 def _decoded(source) -> list[tuple[np.ndarray, np.ndarray]]:
     return [(np.asarray(source[i]["image"]), np.asarray(source[i]["mask"]))
             for i in range(len(source))]
@@ -65,7 +74,8 @@ def trees(tmp_path_factory):
     export.export(export.parse_args(["--out", str(root / "jax")]))
     out["jax"] = root / "jax"
     out["cache"] = root / "cache"
-    return out
+    yield out
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("split", list(study.SPLITS))

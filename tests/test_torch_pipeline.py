@@ -18,6 +18,7 @@ import csv
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -36,6 +37,14 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def delete_tmp_path(request):
+    """Delete the test's ``tmp_path`` when it ends, pass or fail (it holds checkpoints)."""
+    yield
+    if "tmp_path" in request.fixturenames:
+        shutil.rmtree(request.node.funcargs["tmp_path"], ignore_errors=True)
 
 STUB = """#!{python}
 import json, os, sys
@@ -118,9 +127,10 @@ def _tables(cwd) -> dict:
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Each case through run.sh with the stub interpreter."""
-    out = {}
+    out, dirs = {}, []
     for name, flags, scores in CASES:
         tmp = tmp_path_factory.mktemp(name)
+        dirs.append(tmp)
         stub = _stub(tmp)
         sh_dir = tmp / "run_sh"
         sh_dir.mkdir()
@@ -131,7 +141,9 @@ def runs(tmp_path_factory):
         out[name] = {"flags": flags, "scores": scores, "sh_stdout": res.stdout,
                      "sh_argvs": _read_argvs(tmp / "sh.log"), "sh_tables": _tables(sh_dir),
                      "stub": stub, "env": _env(tmp, tmp / "pipeline.log", scores)}
-    return out
+    yield out
+    for tmp in dirs:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _drive(case: dict, cwd, monkeypatch, capsys) -> tuple[list[dict], list[list[str]], str]:

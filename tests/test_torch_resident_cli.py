@@ -6,6 +6,11 @@ weights and histories equal the uninterrupted run's exactly (every random
 draw comes from (seed, epoch, step)), whatever ``--scan-chunk`` splits the
 epoch into. ``val.py --device-resident --batch-size 4`` prints what the
 host path (batch 1) prints for the same checkpoint.
+
+The module fixture reads the checkpoints the tests compare as soon as each
+run ends and then deletes them (the first epoch's once its resumed run has
+read them); the val test writes its checkpoint to its own directory and
+deletes it. So the checkpoints do not pile up on disk.
 """
 
 import json
@@ -28,9 +33,23 @@ TASKS = {
 }
 
 
+def _load(exp: str, name: str) -> dict:
+    return torch.load(os.path.join(exp, "weights", name), weights_only=True)
+
+
+def _delete_checkpoints(exp: str) -> None:
+    weights = os.path.join(exp, "weights")
+    for name in os.listdir(weights):
+        if name.endswith(".pth"):
+            os.remove(os.path.join(weights, name))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """task -> (full run, resumed run) exp folders, trained once in a module working dir."""
+    """task -> the full and resumed runs' exp folders, the full run's file names, both
+    runs' ``last.pth`` and the full run's ``best.pth``; trained once in a module working dir,
+    each run's checkpoints deleted once read (the first epoch's once its resumed run
+    has read them)."""
     threads, cwd = torch.get_num_threads(), os.getcwd()
     workdir = tmp_path_factory.mktemp("resident_cli")
     torch.set_num_threads(1)
@@ -39,12 +58,20 @@ def runs(tmp_path_factory):
         out = {}
         for task, flags in TASKS.items():
             base = ARGS + flags + ["--device-augment"]
-            full = port_train.train(port_train.parse_args(base + ["--epochs", "2"]))
+            full = os.path.abspath(port_train.train(port_train.parse_args(base + ["--epochs",
+                                                                                  "2"])))
+            out[task] = {"full": full, "names": {os.path.relpath(os.path.join(d, f), full)
+                                                 for d, _, fs in os.walk(full) for f in fs},
+                         "last": _load(full, "last.pth"), "best": _load(full, "best.pth")}
+            _delete_checkpoints(full)
             first = port_train.train(port_train.parse_args(base + ["--epochs", "1"]))
-            resumed = port_train.train(port_train.parse_args(
+            resumed = os.path.abspath(port_train.train(port_train.parse_args(
                 base + ["--epochs", "2", "--scan-chunk", "1",
-                        "--resume", os.path.join(first, "weights", "resume.pth")]))
-            out[task] = (os.path.abspath(full), os.path.abspath(resumed))
+                        "--resume", os.path.join(first, "weights", "resume.pth")])))
+            out[task].update(resumed=resumed,
+                             last=(out[task]["last"], _load(resumed, "last.pth")))
+            _delete_checkpoints(first)  # the resumed run has read them
+            _delete_checkpoints(resumed)
         yield out
     finally:
         os.chdir(cwd)
@@ -54,9 +81,8 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("task", list(TASKS))
 def test_resident_resume_equals_an_uninterrupted_run(runs, task):
-    full, resumed = runs[task]
-    a = torch.load(os.path.join(full, "weights", "last.pth"), weights_only=True)
-    b = torch.load(os.path.join(resumed, "weights", "last.pth"), weights_only=True)
+    full, resumed = runs[task]["full"], runs[task]["resumed"]
+    a, b = runs[task]["last"]
     assert a.keys() == b.keys()
     for k in a:
         torch.testing.assert_close(b[k], a[k], rtol=0, atol=0, msg=k)
@@ -71,8 +97,7 @@ def test_resident_resume_equals_an_uninterrupted_run(runs, task):
 
 @pytest.mark.parametrize("task", list(TASKS))
 def test_resident_train_cli_writes_the_artifacts(runs, task):
-    full, _ = runs[task]
-    names = {os.path.relpath(os.path.join(d, f), full) for d, _, fs in os.walk(full) for f in fs}
+    full, names = runs[task]["full"], runs[task]["names"]
     want = {"config.json", "summary.json", "test_metrics.json", "val_metrics_history.json",
             "val_metrics_history.csv", "weights/best.pth", "weights/last.pth",
             "weights/resume.pth", "weights/loss_curve.png", "weights/metrics_curve.png"}
@@ -87,16 +112,20 @@ def test_resident_train_cli_writes_the_artifacts(runs, task):
 
 
 @pytest.mark.parametrize("task", list(TASKS))
-def test_val_device_resident_prints_the_host_paths_metrics(runs, task, capsys):
-    full, _ = runs[task]
-    weights = os.path.join(full, "weights", "best.pth")
+def test_val_device_resident_prints_the_host_paths_metrics(runs, task, capsys, tmp_path):
+    weights = str(tmp_path / "best.pth")
+    torch.save(runs[task]["best"], weights)
     common = ["--data-path", "synthetic:4", "--input-size", "32", "--device", "cpu", "--no-amp",
               "--weights", weights] + TASKS[task]
     capsys.readouterr()
-    host = port_val.val(port_val.parse_args(common))
-    host_out = capsys.readouterr().out
-    res = port_val.val(port_val.parse_args(common + ["--device-resident", "--batch-size", "4"]))
-    res_out = capsys.readouterr().out
+    try:
+        host = port_val.val(port_val.parse_args(common))
+        host_out = capsys.readouterr().out
+        res = port_val.val(port_val.parse_args(common + ["--device-resident", "--batch-size",
+                                                         "4"]))
+        res_out = capsys.readouterr().out
+    finally:
+        os.remove(weights)
     assert "[cache] 4 samples" in res_out and "[cache]" not in host_out
 
     def report(out):  # what follows the "Starting evaluation..." line
@@ -117,7 +146,10 @@ def test_the_cpu_default_is_the_host_path(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     args = port_train.parse_args(ARGS + TASKS["binary"] + ["--epochs", "1", "--no-export-vis"])
     assert args.device_augment is None and args.export_vis is False
-    port_train.train(args)
+    try:
+        port_train.train(args)
+    finally:
+        shutil.rmtree(tmp_path / "run", ignore_errors=True)
     out = capsys.readouterr().out
     assert "[input] device-resident path" not in out and "[cache]" not in out
     args = port_val.parse_args(["--device", "cpu"])

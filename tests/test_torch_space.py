@@ -25,7 +25,7 @@ Two kinds of case:
 from __future__ import annotations
 
 import copy
-import os
+import shutil
 import threading
 
 import numpy as np
@@ -435,48 +435,53 @@ def _jax_sgd_step(jmodel, variables, loss: str, batch, mesh) -> tuple[float, dic
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    """The 4 ranks' results, the 1-process port's, and JAX's, on the same variables and batches."""
+    """The 4 ranks' results, the 1-process port's, and JAX's, on the same variables and batches.
+
+    The ranks delete the inputs once read, the results are deleted as they
+    are read, and the module's directory goes whatever happens.
+    """
     tmp = tmp_path_factory.mktemp("space")
-    jmodel, variables = _jax_variables(0)
-    state = state_dict_from_jax("unet_resnet50", variables)
-    cases = worker.space_cases(state)
-    torch.save(cases, tmp / "inputs.pt")
-    failures: list[BaseException] = []
+    try:
+        jmodel, variables = _jax_variables(0)
+        state = state_dict_from_jax("unet_resnet50", variables)
+        cases = worker.space_cases(state)
+        torch.save(cases, tmp / "inputs.pt")
+        failures: list[BaseException] = []
 
-    def run():
-        try:
-            mesh_lib.launch_local(worker.run_space, 4, (str(tmp / "inputs.pt"), str(tmp)),
-                                  backend="gloo", timeout_s=JOB_TIMEOUT_S)
-        except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
-            failures.append(e)
+        def run():
+            try:
+                mesh_lib.launch_local(worker.run_space, 4, (str(tmp / "inputs.pt"), str(tmp)),
+                                      backend="gloo", timeout_s=JOB_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
+                failures.append(e)
 
-    thread = threading.Thread(target=run)
-    thread.start()
-    try:  # this process's references, while the ranks run
-        out = {"port": worker.space_one_process(cases)}
-        b = cases["eval"]["batch"]
-        evaluate = jax_steps.make_binary_eval_step(jmodel, "bce", cases["eval"]["pos_weight"])
-        jstate = TrainState.create(jax.tree.map(jnp.asarray, variables), optax.sgd(LR))
-        jl, jc = evaluate(jstate, *(jnp.asarray(a) for a in b))
-        out["jax_eval"] = {"loss": float(jl), "counts": np.asarray(jc).tolist()}
-        out["jax"] = {}
-        for loss in worker.SPACE_LOSSES:
-            batch = cases["sgd"][loss]
-            out["jax"][loss] = {
-                "single": _jax_sgd_step(jmodel, variables, loss, batch, None),
-                **{f"{nd}x{ns}": _jax_sgd_step(jmodel, variables, loss, batch,
-                                                 jax_make_mesh(n_data=nd, n_space=ns))
-                   for nd, ns in ((1, 2), (2, 2))}}
+        thread = threading.Thread(target=run)
+        thread.start()
+        try:  # this process's references, while the ranks run
+            out = {"port": worker.space_one_process(cases)}
+            b = cases["eval"]["batch"]
+            evaluate = jax_steps.make_binary_eval_step(jmodel, "bce", cases["eval"]["pos_weight"])
+            jstate = TrainState.create(jax.tree.map(jnp.asarray, variables), optax.sgd(LR))
+            jl, jc = evaluate(jstate, *(jnp.asarray(a) for a in b))
+            out["jax_eval"] = {"loss": float(jl), "counts": np.asarray(jc).tolist()}
+            out["jax"] = {}
+            for loss in worker.SPACE_LOSSES:
+                batch = cases["sgd"][loss]
+                out["jax"][loss] = {
+                    "single": _jax_sgd_step(jmodel, variables, loss, batch, None),
+                    **{f"{nd}x{ns}": _jax_sgd_step(jmodel, variables, loss, batch,
+                                                     jax_make_mesh(n_data=nd, n_space=ns))
+                       for nd, ns in ((1, 2), (2, 2))}}
+        finally:
+            thread.join(JOB_TIMEOUT_S + 60)
+        assert not thread.is_alive(), "the 4-rank job did not end"
+        if failures:
+            raise failures[0]
+        out["ranks"] = worker.load_results([tmp / f"space_rank{r}.pt" for r in range(4)])
+        out["init"] = state
+        return out
     finally:
-        thread.join(JOB_TIMEOUT_S + 60)
-    assert not thread.is_alive(), "the 4-rank job did not end"
-    if failures:
-        raise failures[0]
-    out["ranks"] = [torch.load(tmp / f"space_rank{r}.pt", weights_only=False) for r in range(4)]
-    out["init"] = state
-    for f in os.listdir(tmp):
-        os.remove(tmp / f)
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_exchange_over_a_process_group_gives_the_neighbours_rows(job):

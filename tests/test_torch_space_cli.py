@@ -20,6 +20,11 @@ next step's class CE by 2.7%, and the 1x2 split by 1.4%), so a few pixels
 and a class prediction of the barely trained model differ;
 ``tests/test_torch_space_families.py`` holds its update against a noise
 floor measured in the run.
+
+Each run's checkpoints are deleted once read (the first epoch's once the
+resumed run has read them: it restores ``resume.pth`` and copies
+``best.pth`` and ``last.pth``), and each module directory at its end, so
+the checkpoints do not pile up on disk.
 """
 
 import json
@@ -50,15 +55,43 @@ def _files(exp: str) -> set[str]:
     return {os.path.relpath(os.path.join(d, f), exp) for d, _, fs in os.walk(exp) for f in fs}
 
 
-def _read(exp: str) -> dict:
+# A first run's checkpoints, which its --resume run reads.
+FIRST_RUN_FILES = ("resume.pth", "best.pth", "last.pth")
+
+
+def _delete_checkpoints(weights: str, keep: tuple[str, ...] = ()) -> None:
+    for name in os.listdir(weights):
+        if name.endswith(".pth") and name not in keep:
+            os.remove(os.path.join(weights, name))
+
+
+def _read(exp: str, keep: tuple[str, ...] = ()) -> dict:
+    """What the tests read of a run; then its checkpoints are deleted, but those in ``keep``."""
     def js(name):
         with open(os.path.join(exp, name)) as f:
             return json.load(f)
 
-    return {"exp": exp, "files": _files(exp), "history": js("val_metrics_history.json"),
-            "test": js("test_metrics.json"), "config": js("config.json"),
-            "last": torch.load(os.path.join(exp, "weights", "last.pth"), weights_only=True),
-            "runs": sorted(os.listdir(os.path.dirname(exp)))}
+    weights = os.path.join(exp, "weights")
+    out = {"exp": exp, "files": _files(exp), "history": js("val_metrics_history.json"),
+           "test": js("test_metrics.json"), "config": js("config.json"),
+           "last": torch.load(os.path.join(weights, "last.pth"), weights_only=True),
+           "runs": sorted(os.listdir(os.path.dirname(exp)))}
+    _delete_checkpoints(weights, keep)
+    return out
+
+
+def _keep(name: str) -> tuple[str, ...]:
+    return FIRST_RUN_FILES if name == "space_first" else ()
+
+
+def _resume(first: str, argv: list[str]) -> dict:
+    """The ``--resume`` run of the run at ``first``, read back, run at once after it (from its
+    working directory) so that the first run's checkpoints go at once."""
+    weights = os.path.join(first, "weights")
+    out = _read(port_train.train(port_train.parse_args(
+        argv + ["--resume", os.path.join(weights, "resume.pth")])))
+    _delete_checkpoints(weights)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +106,10 @@ def runs(tmp_path_factory):
             os.chdir(root)
             os.makedirs(name)
             os.chdir(name)
-            out[name] = _read(port_train.train(port_train.parse_args(ARGS + flags)))
-        os.chdir(root / "space_first")
-        first = out["space_first"]["exp"]
-        out["space_resumed"] = _read(port_train.train(port_train.parse_args(
-            ARGS + RUNS["space"] + ["--resume", os.path.join(first, "weights", "resume.pth")])))
+            out[name] = _read(port_train.train(port_train.parse_args(ARGS + flags)),
+                              keep=_keep(name))
+            if name == "space_first":
+                out["space_resumed"] = _resume(out[name]["exp"], ARGS + RUNS["space"])
         yield out
     finally:
         os.chdir(cwd)
@@ -162,11 +194,10 @@ def task_runs(request, tmp_path_factory):
             os.chdir(root)
             os.makedirs(name)
             os.chdir(name)
-            out[name] = _read(port_train.train(port_train.parse_args(args + flags)))
-        os.chdir(root / "space_first")
-        out["space_resumed"] = _read(port_train.train(port_train.parse_args(
-            args + TASK_RUNS["space"]
-            + ["--resume", os.path.join(out["space_first"]["exp"], "weights", "resume.pth")])))
+            out[name] = _read(port_train.train(port_train.parse_args(args + flags)),
+                              keep=_keep(name))
+            if name == "space_first":
+                out["space_resumed"] = _resume(out[name]["exp"], args + TASK_RUNS["space"])
         yield out
     finally:
         os.chdir(cwd)

@@ -21,7 +21,7 @@ Two kinds of case, as ``tests/test_torch_space.py``:
 from __future__ import annotations
 
 import copy
-import os
+import shutil
 import threading
 
 import flax.linen as flax_nn
@@ -159,42 +159,46 @@ def _cases() -> tuple[dict, dict]:
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    """The 4 ranks' results, the 1-process port's, and JAX's 2x2 mesh's, by case."""
+    """The 4 ranks' results, the 1-process port's, and JAX's 2x2 mesh's, by case.
+
+    The ranks delete the inputs once read, the results are deleted as they
+    are read, and the module's directory goes whatever happens.
+    """
     tmp = tmp_path_factory.mktemp("space_families")
-    port_cases, jax_cases = _cases()
-    torch.save(port_cases, tmp / "inputs.pt")
-    failures: list[BaseException] = []
+    try:
+        port_cases, jax_cases = _cases()
+        torch.save(port_cases, tmp / "inputs.pt")
+        failures: list[BaseException] = []
 
-    def run():
-        try:
-            mesh_lib.launch_local(worker.run_space_families, 4,
-                                  (str(tmp / "inputs.pt"), str(tmp)), backend="gloo",
-                                  timeout_s=JOB_TIMEOUT_S)
-        except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
-            failures.append(e)
+        def run():
+            try:
+                mesh_lib.launch_local(worker.run_space_families, 4,
+                                      (str(tmp / "inputs.pt"), str(tmp)), backend="gloo",
+                                      timeout_s=JOB_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 - raised again below, in the test's thread
+                failures.append(e)
 
-    thread = threading.Thread(target=run)
-    thread.start()
-    try:  # this process's references, while the ranks run
-        out = {"port": worker.families_one_process(port_cases), "floor": {}}
-        for name in ILL_CONDITIONED:
-            case = port_cases[name]
-            images, *rest = case["sgd_batch"]
-            out["floor"][name] = [worker.family_sgd(
-                {**case, "sgd_batch": (images * np.float32(1 + e), *rest)}, None)
-                for e in (2.0 ** -23, -(2.0 ** -23))]
-        jmesh = jax_make_mesh(n_data=2, n_space=2)
-        out["jax"] = {name: _jax_on_mesh(case, jmesh) for name, case in jax_cases.items()}
+        thread = threading.Thread(target=run)
+        thread.start()
+        try:  # this process's references, while the ranks run
+            out = {"port": worker.families_one_process(port_cases), "floor": {}}
+            for name in ILL_CONDITIONED:
+                case = port_cases[name]
+                images, *rest = case["sgd_batch"]
+                out["floor"][name] = [worker.family_sgd(
+                    {**case, "sgd_batch": (images * np.float32(1 + e), *rest)}, None)
+                    for e in (2.0 ** -23, -(2.0 ** -23))]
+            jmesh = jax_make_mesh(n_data=2, n_space=2)
+            out["jax"] = {name: _jax_on_mesh(case, jmesh) for name, case in jax_cases.items()}
+        finally:
+            thread.join(JOB_TIMEOUT_S + 60)
+        assert not thread.is_alive(), "the 4-rank job did not end"
+        if failures:
+            raise failures[0]
+        out["ranks"] = worker.load_results([tmp / f"families_rank{r}.pt" for r in range(4)])
+        return out
     finally:
-        thread.join(JOB_TIMEOUT_S + 60)
-    assert not thread.is_alive(), "the 4-rank job did not end"
-    if failures:
-        raise failures[0]
-    out["ranks"] = [torch.load(tmp / f"families_rank{r}.pt", weights_only=False)
-                    for r in range(4)]
-    for f in os.listdir(tmp):
-        os.remove(tmp / f)
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --- the 4-rank job ---------------------------------------------------------------------------

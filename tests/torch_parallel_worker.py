@@ -14,15 +14,26 @@ the mesh's space axis on 1x4, 1x2 and 2x2 meshes (``space_cases``), and
 is ``tests/test_torch_space_families.py``'s: every other family and task
 over 1x2 and 2x2 meshes (``family_cases``), ``families_one_process`` the
 same in one process.
+
+The jobs keep little on disk: each rank deletes nothing it was given until
+every rank has read it (``load_inputs``: rank 0 removes the inputs file
+after a barrier), and ``save_results`` writes each tensor once per job:
+a tensor equal bit for bit to one a lower rank saves (the ranks end a step
+bit-equal) is written as a ``SameAs`` reference to it, which
+``load_results`` resolves, deleting each rank's file as it reads it. What
+the tests read is what the ranks computed, value for value.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import os
 
 import numpy as np
 import torch
 
+import torch_alternates
 from unet_embroidery_seg_torch.data.synthetic import resident_canvases
 from unet_embroidery_seg_torch.engine import resident, steps
 from unet_embroidery_seg_torch.models import blocks, build_model
@@ -43,6 +54,73 @@ def _group(mesh):
 
 def _snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def load_inputs(inputs_path: str, rank: int):
+    """The job's inputs; once every rank holds them, rank 0 deletes the file."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    torch.distributed.barrier()
+    if rank == 0:
+        os.remove(inputs_path)
+    return inputs
+
+
+@dataclasses.dataclass(frozen=True)
+class SameAs:
+    """In a rank's saved results: the tensor at ``path`` of rank ``rank``'s results."""
+
+    rank: int
+    path: tuple
+
+
+def _map_leaves(obj, fn, path=()):
+    """``obj`` with every tensor and ``SameAs`` in nested dicts, lists and tuples replaced by
+    ``fn(path, leaf)``."""
+    if isinstance(obj, (torch.Tensor, SameAs)):
+        return fn(path, obj)
+    if isinstance(obj, dict):
+        return {k: _map_leaves(v, fn, (*path, k)) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_leaves(v, fn, (*path, i)) for i, v in enumerate(obj))
+    return obj
+
+
+def _get(obj, path: tuple):
+    for p in path:
+        obj = obj[p]
+    return obj
+
+
+def _digest(t: torch.Tensor) -> tuple:
+    data = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+    return (str(t.dtype), tuple(t.shape), tuple(t.stride()), hashlib.sha256(data).hexdigest())
+
+
+def save_results(results, path: str, rank: int) -> None:
+    """Save this rank's ``results`` to ``path``, each tensor a lower rank saves bit-equal
+    as a ``SameAs`` (a collective: every rank of the job calls it)."""
+    digests = {}  # path -> digest of this rank's tensor there
+    _map_leaves(results, lambda p, t: digests.setdefault(p, _digest(t)))
+    everyone = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(everyone, {d: p for p, d in reversed(digests.items())})
+
+    def dedup(p, t):
+        earlier = next((r for r in range(rank) if digests[p] in everyone[r]), None)
+        return t if earlier is None else SameAs(earlier, everyone[earlier][digests[p]])
+
+    torch.save(_map_leaves(results, dedup), path)
+
+
+def load_results(paths: list) -> list:
+    """The ranks' ``save_results`` files, in rank order, each ``SameAs`` resolved; each
+    file is deleted once read."""
+    out = []
+    for path in paths:
+        results = torch.load(path, weights_only=False)
+        os.remove(path)
+        out.append(_map_leaves(results, lambda p, leaf: leaf if isinstance(leaf, torch.Tensor)
+                               else _get(out[leaf.rank], leaf.path)))
+    return out
 
 
 def port_model(name: str, num_classes: int, state: dict, diff_head: bool = False):
@@ -170,9 +248,9 @@ def run(rank: int, inputs_path: str, out_dir: str) -> None:
     """Worker of a gloo job: every case of ``inputs_path`` on this rank, saved to ``out_dir``."""
     torch.set_num_threads(1)
     mesh = mesh_lib.make_mesh(devices=[torch.device("cpu")] * 2)
-    inputs = torch.load(inputs_path, weights_only=False)
+    inputs = load_inputs(inputs_path, rank)
     results = {name: run_case(kind, case, mesh) for name, (kind, case) in inputs.items()}
-    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    save_results(results, os.path.join(out_dir, f"rank{rank}.pt"), rank)
 
 
 def run_on_two_hosts(rank: int, init_method: str, world: int, inputs_path: str,
@@ -189,12 +267,12 @@ def run_on_two_hosts(rank: int, init_method: str, world: int, inputs_path: str,
     socket.gethostname = lambda: f"host{rank // 2}"  # this worker process only
     mesh_lib.init_multihost(init_method, world, rank, backend="gloo")
     mesh = mesh_lib.make_mesh(devices=[torch.device("cpu")] * 2)
-    inputs = torch.load(inputs_path, weights_only=False)
+    inputs = load_inputs(inputs_path, rank)
     results = {name: run_case(kind, case, mesh) for name, (kind, case) in inputs.items()}
     results["mesh"] = {"rank": mesh.rank, "world_size": mesh.world_size,
                        "local_rank": int(os.environ["LOCAL_RANK"]),
                        "local_world_size": int(os.environ["LOCAL_WORLD_SIZE"])}
-    torch.save(results, os.path.join(out_dir, f"host_rank{rank}.pt"))
+    save_results(results, os.path.join(out_dir, f"host_rank{rank}.pt"), rank)
     torch.distributed.destroy_process_group()
 
 
@@ -286,12 +364,12 @@ def run_space(rank: int, inputs_path: str, out_dir: str) -> None:
     """Worker of the 4-rank space job: the steps on 2x2 and 1x2 meshes, the exchange on 1x4."""
     torch.set_num_threads(1)
     meshes = _space_meshes(rank)
-    cases = torch.load(inputs_path, weights_only=False)
+    cases = load_inputs(inputs_path, rank)
     results = {"exchange": _space_exchange(cases["exchange"], meshes["1x4"]),
                "eval": _space_eval(cases, meshes["2x2"]),
                "sgd": {name: {loss: _space_sgd(cases, loss, meshes[name])
                               for loss in SPACE_LOSSES} for name in ("1x2", "2x2")}}
-    torch.save(results, os.path.join(out_dir, f"space_rank{rank}.pt"))
+    save_results(results, os.path.join(out_dir, f"space_rank{rank}.pt"), rank)
 
 
 # --- the space axis for every family and task (tests/test_torch_space_families.py) -----------
@@ -430,10 +508,46 @@ def run_space_families(rank: int, inputs_path: str, out_dir: str) -> None:
     """Worker of the families' 4-rank space job: every case on the 1x2 and 2x2 meshes."""
     torch.set_num_threads(1)
     meshes = _space_meshes(rank)
-    cases = torch.load(inputs_path, weights_only=False)
+    cases = load_inputs(inputs_path, rank)
     results = {name: {kind: {m: fn(case, meshes[m]) for m in FAMILY_MESHES}
                       for kind, fn in (("eval", family_eval), ("sgd", family_sgd))}
                for name, case in cases.items()}
     results["dropout"] = {m: multitask_dropout(cases["multitask_unet/multitask"], meshes[m])
                           for m in FAMILY_MESHES}
-    torch.save(results, os.path.join(out_dir, f"families_rank{rank}.pt"))
+    save_results(results, os.path.join(out_dir, f"families_rank{rank}.pt"), rank)
+
+
+# --- the optimizer's variants over the mesh (tests/test_torch_flat_adam.py) -------------------
+
+FLAT_VARIANTS = ("tree", "flat")
+FLAT_MESHES = ("2x1", "1x2")  # the data axis, the space axis
+FLAT_STEPS, FLAT_LR = 2, 1e-3
+
+
+def flat_adam_case(case: dict, variant: str, mesh) -> dict:
+    """``FLAT_STEPS`` f32 Adam steps (``variant``) of narrow unet_plain, binary BCE, on the
+    case's batch: the losses, the state dict after the first and after the last, whether
+    every version moved."""
+    torch.manual_seed(0)
+    model = family_model("unet_plain", 2, case["state"], diff_head=True)
+    opt = torch_alternates.make_optimizer(variant, model.parameters(), FLAT_LR)
+    step = steps.make_binary_train_step(model, opt, "bce", case["pos_weight"], amp=False,
+                                        group=_group(mesh), space=halo.space_axis(mesh))
+    versions = [p._version for p in model.parameters()]
+    batch = _rows(mesh, *case["batch"])
+    losses = [float(step(*batch))]
+    first = _snapshot(model)
+    losses += [float(step(*batch)) for _ in range(FLAT_STEPS - 1)]
+    return {"losses": losses, "first": first, "state": _snapshot(model),
+            "versions_moved": all(p._version > v for p, v in zip(model.parameters(), versions))}
+
+
+def run_flat_adam(rank: int, inputs_path: str, out_dir: str) -> None:
+    """Worker of the 2-rank job: each variant on the data axis (2x1) and the space axis (1x2)."""
+    torch.set_num_threads(1)
+    cpu = [torch.device("cpu")] * 2
+    meshes = {"2x1": mesh_lib.make_mesh(2, 1, cpu), "1x2": mesh_lib.make_mesh(1, 2, cpu)}
+    case = load_inputs(inputs_path, rank)
+    results = {m: {v: flat_adam_case(case, v, meshes[m]) for v in FLAT_VARIANTS}
+               for m in FLAT_MESHES}
+    save_results(results, os.path.join(out_dir, f"flat_rank{rank}.pt"), rank)

@@ -10,7 +10,10 @@
 - Full state (``--resume``): model, optimizer, step and the training loop's
   ``extra`` (epoch, best tracking, histories, seed) in one file.
 
-Every write goes to a temporary file first and is renamed into place.
+Every write goes to a temporary file first and is renamed into place. A
+tensor that is a view of a larger storage (a parameter bound into an
+optimizer's flat arena) is copied out first, so each file holds each tensor
+alone: ``torch.save`` of a view writes its whole storage.
 """
 
 from __future__ import annotations
@@ -29,8 +32,14 @@ def _save(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
+def _alone(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU, copied if it views a storage larger than itself."""
+    t = t.detach().cpu()
+    return t.clone() if t.untyped_storage().nbytes() > t.numel() * t.element_size() else t
+
+
 def _cpu_state(state: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in state.items()}
+    return {k: _alone(v) for k, v in state.items()}
 
 
 def save_weights(path: str, model: nn.Module | dict) -> None:

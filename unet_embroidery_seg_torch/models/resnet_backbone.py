@@ -6,7 +6,10 @@ Returns 5 feature maps [feat1..feat5] with channels [64, 256, 512, 1024,
   - the stem maxpool is 3x3 stride 2 with padding 0 and ceil_mode=True;
   - feat1 is taken before that maxpool (after conv7x7 + BN + ReLU).
 
-Only the direct 7x7 stem is ported (the JAX default, ``stem_mode="direct"``).
+The stem is the direct 7x7 conv (the JAX default, ``stem_mode="direct"``).
+JAX's ``packed`` and ``im2col`` lowerings of it were measured slower on an
+H100 (f32 forward + backward 1.16x and 2.56x; ``im2col`` 4.38x in bf16)
+and are kept only as test references (``tests/torch_alternates.py``).
 Over the mesh's space axis (``blocks.set_space_axis``) the stem conv takes
 3 rows above its band and 2 below, the pool 1 below, each stride-2 3x3 1
 above; the stride-2 1x1 downsample needs none (a band starts on an even

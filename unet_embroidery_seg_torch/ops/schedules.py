@@ -9,7 +9,11 @@ semantics of the JAX package's ``TreeAdam`` (``ops/flat_adam.py``): coupled
 L2 weight decay added to the gradient before the moments, betas (momentum,
 0.999), eps 1e-8, bias correction from step 1. The float32 parameters are
 the masters; bf16 autocast casts them per op, which stands in for TreeAdam's
-bf16 parameter store.
+bf16 parameter store. JAX's other variants have no option here: its optax
+chain (``make_optimizer``) is this update to f32 rounding, and its
+``FlatAdam`` (one arena per state), measured on an H100, did not shorten
+the train step beyond the host's spread; ``tests/torch_alternates.py``
+holds both to this optimizer.
 """
 
 from __future__ import annotations
