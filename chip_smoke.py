@@ -26,10 +26,17 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    case per kernel (dgrad's on ``tf32x3``, ``fma`` beside it): upsample2x's backward at its 5 sites (the four decoder
    ones read their gradient as a channel slice of ``torch.cat``'s, in
    place) and conv3x3's dgrad at its 6, each against its plain version and
-   timed like phase 2 (dgrad's time includes packing the flipped weights).
-   Library yardsticks: ``aten.upsample_bilinear2d_backward`` and
+   timed like phase 2. dgrad reads the forward's grad-mode packing
+   (``pack_conv3x3_grad``), made once, so its ``ms`` is the kernel's
+   alone; each dgrad row also holds it bit for bit against the composition
+   that packed the flipped weights per call, and times that composition
+   (``flipped_ms``), its pack (``flipped_pack_ms``) and the grad-mode pack
+   (``grad_pack_ms``). Library yardsticks: ``aten.upsample_bilinear2d_backward`` and
    ``torch.nn.grad.conv2d_input``. Then, at one site of each kernel, the
    autograd Function's gradients against the plain version's autograd.
+   3c (run first, before any f32 capture): two bf16 train stages' forward +
+   dx captured in a CUDA graph, their weights changed in place, replayed:
+   dx equals eager's on the new weights (``dgrad_graph_check``).
 4. The predict path: full-width unet_resnet50 (2 classes, seeded random
    weights) predicting 16 seeded letterboxed 480^2 canvases in batches of
    8, bf16, through the port's batch-predict function. Launch counters are
@@ -65,8 +72,11 @@ epilogue off, at the conv2 of every DoubleConv):
    autograd: the bias-free conv's dx and dW; the upsample's dx where its
    output feeds both a concat and a 1x1 conv (attention_unet's gate), with
    the layout in which that summed gradient reaches the kernel. Then the
-   card and host cost of packing the 9 sites' weights (forward and dgrad)
-   in one train step, bf16 and f32.
+   packs of one train step, counted (unet_plain 9, unet_resnet50 6, all in
+   the forward, none in the backward), and their card and host cost at the
+   9 sites in bf16 and f32 beside the 18 packs of the flipped composition
+   (``packing_cost``); the f32 grad-mode pack kernel
+   (``conv3x3_pack_tf32x3``) at the 5 shapes, bit for bit.
 8. For each family, full width, seeded weights: predict as phase 4 (4
    upsample and 9 bias-free conv launches per forward; dualdense_unet 4
    and 0; no fused conv), and 20 train steps as phase 5 but with BCE
@@ -286,8 +296,10 @@ kernel: in f32 every site is ``tf32x3``.
 
 Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
 families' under names of their own, then the f32 conv's, ``[f32]``, with
-phase 9's launches, then the f32 entries at unet_resnet50's sites,
-``[...,f32]``, with phase 10b's multitask launches, then phase 16's halo
+phase 9's launches (the grad-mode pack kernel ``conv3x3_pack_tf32x3`` among
+them, ``library_ms`` null: no PyTorch call computes it), then the f32
+entries at unet_resnet50's sites, ``[...,f32]``, with phase 10b's
+multitask launches, then phase 16's halo
 and band entries, ``[...,halo]`` and ``[band...]``, with 16b's launches,
 then phase 17's, ``[align_corners=False,band...]`` and ``[...,halo...]``,
 with 17b's launches of the three families),
@@ -344,7 +356,7 @@ CONV_SITES = [
 # f32: summation order only (<= 4-term lerps; 9*C conv terms, C <= 1024).
 TOL_BF16 = 2.0 ** -7
 TOL_F32 = {"upsample2x": 1e-5, "conv3x3_same": 1e-4, "upsample2x_backward": 1e-5,
-           "conv3x3_dgrad": 1e-4}
+           "conv3x3_dgrad": 1e-4, "conv3x3_pack_tf32x3": 0.0}  # the pack: bit for bit
 # The autograd Functions on the card (bf16): dW and db sum over every pixel
 # (cuDNN's wgrad against f32 sums of the plain version), and the ReLU mask
 # can differ where y rounds differently: 2% of each gradient's largest value.
@@ -461,6 +473,9 @@ STUDY_ARM, STUDY_EPOCHS = "resnet_lovasz/bf16", 2
 # and replayed, so the host's dispatch (as long as the smallest sites' card
 # time) stays out; the eager time sits beside it as ``eager_ms``.
 MS_METHOD = "cuda_graph_replay"
+# The timing budget of a dgrad row's comparisons (the flipped composition,
+# its pack, the grad-mode pack): shorter than a row's own, to keep the run's length.
+EXTRA_BUDGET_MS = 60.0
 
 
 def bound(nbytes: float, flops: float, dtype, path: str = "") -> tuple[float, str]:
@@ -470,12 +485,18 @@ def bound(nbytes: float, flops: float, dtype, path: str = "") -> tuple[float, st
 
 
 def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, plain, library,
-                 nbytes: float, flops: float, shapes: dict, fma=None) -> dict:
+                 nbytes: float, flops: float, shapes: dict, fma=None, flipped=None) -> dict:
     """Hold ``run`` against ``plain`` and time it, ``plain`` and ``library``: one site row.
 
-    ``fma`` (the conv's f32 rows on ``tf32x3``): the CUDA-core kernel on the
-    same call, timed beside it as ``fma_ms``. Prints the row after
-    ``prefix``, then raises if the error is over the tolerance.
+    ``library`` None: no PyTorch call computes the function (``library_ms``
+    null). ``fma`` (the conv's f32 rows on ``tf32x3``): the CUDA-core kernel
+    on the same call, timed beside it as ``fma_ms``. ``flipped`` (dgrad
+    rows, ``_flipped_dgrad``): dgrad as composed before it read the
+    forward's packing, which must give ``run``'s result bit for bit, timed
+    beside it (``flipped_ms``) with its pack alone (``flipped_pack_ms``) and
+    the forward's grad-mode pack that ``run`` reads (``grad_pack_ms``), where
+    ``count`` > 0. Prints the row after ``prefix``, then raises if the error
+    is over the tolerance or the composition differs.
     """
     from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
 
@@ -484,39 +505,67 @@ def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, pla
     want = plain()
     err = (got.float() - want.float()).abs().max().item()
     tol = (TOL_BF16 if dtype == torch.bfloat16 else TOL_F32[kernel]) * want.float().abs().max().item()
+    equal_to_flipped = None if flipped is None else torch.equal(got, flipped["run"]())
     del got, want
     bound_ms, bound_by = bound(nbytes, flops, dtype, path)
-    eager_ms, library_eager_ms = event_ms(run), event_ms(library)
+    eager_ms = event_ms(run)
+    library_eager_ms = None if library is None else event_ms(library)
     ms = graph_ms(run, eager_ms)
     row = {
         "kernel": kernel, "site": site, "path": path, **shapes, "dtype": str(dtype),
         "max_abs_err": err, "tol": tol,
         "ms_method": MS_METHOD, "ms": ms, "eager_ms": eager_ms, "plain_ms": event_ms(plain),
-        "library_ms": graph_ms(library, library_eager_ms), "library_eager_ms": library_eager_ms,
+        "library_ms": None if library is None else graph_ms(library, library_eager_ms),
+        "library_eager_ms": library_eager_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
         "tflops": flops / ms / 1e9,
     }
     if fma is not None:
         row["fma_ms"] = graph_ms(fma, event_ms(fma))
         row["cuda_core_bound_ms"] = bound(nbytes, flops, dtype, "fma")[0]
+    if flipped is not None:
+        row["equal_to_flipped"] = equal_to_flipped
+        if shapes.get("count", 1) > 0:
+            for name, key in (("flipped_ms", "run"), ("flipped_pack_ms", "pack"),
+                              ("grad_pack_ms", "grad_pack")):
+                fn = flipped[key]
+                row[name] = graph_ms(fn, event_ms(fn, EXTRA_BUDGET_MS), EXTRA_BUDGET_MS)
     print(f"{prefix} " + json.dumps(row), flush=True)
     if not (np.isfinite(err) and err <= tol):
         raise AssertionError(f"{kernel} at {site}: max abs err {err} > tol {tol}")
+    if equal_to_flipped is False:
+        raise AssertionError(f"{kernel} at {site}: differs from the flipped-packing composition")
     return row
+
+
+def _flipped_dgrad(g, w, pad, packed) -> dict:
+    """dgrad as composed before it read the forward's packing, for a dgrad row.
+
+    ``run``: the forward kernel on the weights flipped in space, transposed
+    in channels and packed for the call; ``pack``: that pack alone;
+    ``grad_pack``: the forward's grad-mode packing (``pack_conv3x3_grad``),
+    which the new dgrad reads instead (``packed``, of the same weights).
+    """
+    from unet_embroidery_seg_torch.ops import conv3x3 as C
+
+    def pack():
+        return C.pack_conv3x3_weight(C._dgrad_weight(w), g.dtype)
+
+    return {"run": lambda: C._launch(g, pack(), None, "flipped dgrad", pad=tuple(pad)),
+            "pack": pack, "grad_pack": lambda: C.pack_conv3x3_grad(w, g.dtype)}
 
 
 def _fma_call(x, w, bias=None, dgrad: bool = False):
     """The CUDA-core (``fma``) kernel on the call ``x``'s f32 ``tf32x3`` site makes.
 
-    Forward: weights packed once, as the grad-off cache serves them. dgrad
-    packs the flipped weights on every call, as ``conv3x3_dgrad`` does.
+    Weights packed once in the ``fma`` layout; dgrad reads them flipped and
+    transposed in the kernel, as ``conv3x3_dgrad`` does on that path.
     """
-    from unet_embroidery_seg_torch.ops.conv3x3 import _dgrad_weight, _launch, pack_conv3x3_weight
+    from unet_embroidery_seg_torch.ops.conv3x3 import _launch, pack_conv3x3_weight
 
-    if dgrad:
-        return lambda: _launch(x, pack_conv3x3_weight(_dgrad_weight(w), x.dtype, "fma"), None,
-                               "fma dgrad", "fma")
     packed = pack_conv3x3_weight(w, x.dtype, "fma")
+    if dgrad:
+        return lambda: _launch(x, packed, None, "fma dgrad", "fma", dgrad=True)
     return lambda: _launch(x, packed, bias, "fma", "fma")
 
 
@@ -654,18 +703,22 @@ def weight_update_check(gen: torch.Generator) -> dict:
 
 def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Generator,
                    align_corners: bool = True):
-    """(run, plain, library, nbytes, flops, path, g, fma) of one backward site, batch 8.
+    """(run, plain, library, nbytes, flops, path, g, fma, flipped) of one backward site, batch 8.
 
     upsample2x_backward: the gradient of an upsample of (C, H, H), channels
     [skip:] of the ``torch.cat`` gradient when ``skip`` (read in place).
-    conv3x3_dgrad: a signed (C, H, H) gradient; its time includes packing
-    the flipped weights (``fma``, the CUDA-core kernel beside an f32
-    ``tf32x3`` site, likewise).
+    conv3x3_dgrad: a signed (C, H, H) gradient; the kernel reads the
+    forward's grad-mode packing, made once (its time is the kernel's
+    alone); ``flipped`` the composition that packed flipped weights per
+    call, for ``measure_site``; ``fma`` the CUDA-core kernel beside an f32
+    ``tf32x3`` site.
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import (
+        SAME,
         conv3x3_dgrad,
         conv3x3_dgrad_plain,
         conv3x3_path,
+        pack_conv3x3_grad,
     )
     from unet_embroidery_seg_torch.ops.upsample import (
         upsample2x_backward,
@@ -683,21 +736,23 @@ def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Gen
         nbytes = g.numel() * g.element_size() * 5 / 4  # read g once, write dx (a quarter of it)
         flops = 8.0 * g.numel()  # each g element feeds <= 4 dx elements, one FMA each
         path = "staged, cat slice" if skip else "staged"
-        return run, plain, library, nbytes, flops, path, g, None
+        return run, plain, library, nbytes, flops, path, g, None, None
     g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(memory_format=cl)
     es = g.element_size()
     w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
     # channels_last, as the model's convs hold their weights, so the
     # yardstick gets the layouts the model's own backward gives cuDNN
-    wd = w.to(dtype).contiguous(memory_format=cl)
-    run = lambda: conv3x3_dgrad(g, w)  # noqa: E731
+    w = w.contiguous(memory_format=cl)
+    wd = w.to(dtype)
+    packed = pack_conv3x3_grad(w, dtype)  # the forward's, with grad on
+    run = lambda: conv3x3_dgrad(g, w, SAME, packed)  # noqa: E731
     plain = lambda: conv3x3_dgrad_plain(g, w)  # noqa: E731
     library = lambda: torch.nn.grad.conv2d_input(g.shape, wd, g, padding=1)  # noqa: E731
     nbytes = 2 * g.numel() * es + 9 * c * c * es
     flops = 2.0 * 9 * c * c * BATCH * h * h
     path = conv3x3_path(c, dtype)
     fma = _fma_call(g, w, dgrad=True) if path == "tf32x3" else None
-    return run, plain, library, nbytes, flops, path, g, fma
+    return run, plain, library, nbytes, flops, path, g, fma, _flipped_dgrad(g, w, SAME, packed)
 
 
 def check_backward_sites(gen: torch.Generator) -> list[dict]:
@@ -709,12 +764,12 @@ def check_backward_sites(gen: torch.Generator) -> list[dict]:
     cases.append(("conv3x3_dgrad", "up_concat2.conv2.f32", 128, 128, 0, torch.float32))
     rows = []
     for kernel, site, c, h, skip, dtype in cases:
-        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
+        run, plain, library, nbytes, flops, path, g, fma, flipped = _backward_case(
             kernel, c, h, skip, dtype, gen)
         rows.append(measure_site("backward_site", kernel, site, path, dtype, run, plain, library,
                                  nbytes, flops,
                                  {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
-                                  "count": 1, "sites_of": "unet_resnet50"}, fma))
+                                  "count": 1, "sites_of": "unet_resnet50"}, fma, flipped))
     return rows
 
 
@@ -724,7 +779,8 @@ def check_family_backward_sites(gen: torch.Generator) -> list[dict]:
     The upsample backward at its 4 sites, each reading its channel slice of
     the cat gradient (skip widths 512, 256, 128, 64), bf16 plus one f32
     case, and dgrad at the 5 DoubleConv shapes (9 sites) in bf16 and in f32
-    (``tf32x3``, ``fma`` beside it).
+    (``tf32x3``, ``fma`` beside it), and the ``tf32x3`` grad-mode pack kernel
+    (``_pack_rows``) at the 5 shapes, whose dgrad planes the f32 rows read.
     """
     cases = [("upsample2x_backward", n, c, h, skip, 1, torch.bfloat16)
              for n, c, h, skip in FAMILY_UPSAMPLE_BWD_SITES]
@@ -732,15 +788,15 @@ def check_family_backward_sites(gen: torch.Generator) -> list[dict]:
     cases += [("conv3x3_dgrad", n, c, h, 0, k, torch.bfloat16) for n, c, h, k in FAMILY_DGRAD_SITES]
     cases += [("conv3x3_dgrad", f"{n}.f32", c, h, 0, k, torch.float32)
               for n, c, h, k in FAMILY_DGRAD_SITES]
-    rows = []
+    rows = _pack_rows("family_backward_site", FAMILY_DGRAD_SITES, gen, "families")
     for kernel, site, c, h, skip, count, dtype in cases:
-        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
+        run, plain, library, nbytes, flops, path, g, fma, flipped = _backward_case(
             kernel, c, h, skip, dtype, gen, align_corners=False)
         rows.append(measure_site("family_backward_site", kernel, site, path, dtype, run, plain,
                                  library, nbytes, flops,
                                  {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
                                   "count": count, "sites_of": "families",
-                                  "align_corners": False}, fma))
+                                  "align_corners": False}, fma, flipped))
     return rows
 
 
@@ -1177,45 +1233,218 @@ def f32_train_card_vs_cpu(name: str = "unet_resnet50") -> dict:
     return result
 
 
-def packing_cost() -> dict:
-    """Card and host cost of packing the families' conv weights in one train step.
+def dgrad_graph_check(gen: torch.Generator) -> dict:
+    """3c: a captured bf16 forward + backward sees weights changed in place before a replay.
 
-    With grad on, each of the 9 DoubleConv sites packs its weight for the
-    forward and its flipped, transposed weight for dgrad on every call:
-    float32 OIHW in; bf16 in the kernel's layout out (~31 MB written per
-    pass), or under ``--no-amp`` the two f32 tf32 planes (~126 MB). Per
-    type: ``card_ms`` by graph replay of all 18 packs; ``host_ms`` the time
-    the host takes to issue them (the card's queue not waited on).
+    With grad on the forward packs the weights each call and dgrad reads
+    that packing, so a CUDA graph of a train stage repacks at every replay.
+    Two stages at their 512^2 train shapes, batch 8, bf16 autocast (cast
+    cache off): unet_resnet50's ``up_concat2`` (upsample, concat, stock
+    conv, the fused conv) and unet_plain's ``down1`` ``DoubleConv`` (the
+    bias-free conv, BN). Each stage's forward and dx are captured after a
+    warm-up on a side stream, replayed, then every parameter is changed in
+    place under ``no_grad`` (each value scaled by its own factor in [0.5,
+    1.5): a sign flip alone leaves a BN stage's dx as it was) and the graph
+    replayed again: dx must equal an eager call's on the new weights (bf16
+    tolerance; the same kernels) and differ from the first replay's. Runs
+    before any f32 capture (a bf16 backward captured after an f32 one loses
+    its capture, ROADMAP.md).
     """
-    from unet_embroidery_seg_torch.ops.conv3x3 import _dgrad_weight, pack_conv3x3_weight
+    from unet_embroidery_seg_torch.models import blocks
+    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_dgrad
+
+    dev, cl = torch.device("cuda"), torch.channels_last
+    stages = {
+        "up_concat2": (blocks.UnetUpNoBN(256 + 256, 128),
+                       ((BATCH, 256, 128, 128), (BATCH, 256, 64, 64)), (BATCH, 128, 128, 128)),
+        "down1 DoubleConv": (blocks.DoubleConv(64, 128), ((BATCH, 64, 256, 256),),
+                             (BATCH, 128, 256, 256)),
+    }
+    result = {}
+    for name, (stage, in_shapes, out_shape) in stages.items():
+        stage = blocks.init_weights(stage, gen).to(dev, memory_format=cl)
+        inputs = [torch.randn(sh, generator=gen).to(dev).contiguous(memory_format=cl)
+                  for sh in in_shapes]
+        x = inputs[-1].requires_grad_()
+        gy = torch.randn(out_shape, generator=gen).to(dev, torch.bfloat16).contiguous(
+            memory_format=cl)
+
+        def step(stage=stage, inputs=inputs, x=x, gy=gy):
+            with torch.autocast("cuda", torch.bfloat16, cache_enabled=False):
+                y = stage(*inputs)
+            return torch.autograd.grad(y, (x,), gy)[0]
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        before = conv3x3_dgrad.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            dx_static = step()
+        captured = conv3x3_dgrad.launches - before
+        graph.replay()
+        first = dx_static.clone()
+        with torch.no_grad():
+            for p in stage.parameters():
+                p.mul_(0.5 + torch.rand(p.shape, generator=gen).to(dev))
+        graph.replay()
+        second = dx_static.clone()
+        eager = step()
+        torch.cuda.synchronize()
+        scale = eager.float().abs().max().item()
+        row = {"dgrad_launches_captured": captured,
+               "replay_vs_eager_max_abs_diff": (second.float() - eager.float()).abs().max().item(),
+               "replay_equal_to_eager": torch.equal(second, eager),
+               "changed_by": (second.float() - first.float()).abs().max().item(),
+               "tol": TOL_BF16 * scale}
+        result[name] = row
+        del graph, dx_static, first, second, eager, inputs, x, gy, stage
+        if not (captured == 1 and row["changed_by"] > 0
+                and row["replay_vs_eager_max_abs_diff"] <= row["tol"]):
+            raise AssertionError(f"captured {name} after an in-place weight change: {row}")
+    torch.cuda.empty_cache()
+    print("dgrad_graph " + json.dumps(result), flush=True)
+    return result
+
+
+def _packs_in_step(name: str, amp: bool) -> dict:
+    """Weight packs made in one forward and in its backward, grad on, of ``name``.
+
+    64^2, batch 2 (the count does not depend on the size), bf16 autocast or
+    f32. Counts ``pack_conv3x3_grad`` calls and ``pack_conv3x3_weight``
+    calls made outside it; the backward must make none.
+    """
+    from unet_embroidery_seg_torch.models import build_model
+    from unet_embroidery_seg_torch.ops import conv3x3 as C
+
+    model = build_model(name, 2, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)).cuda()
+    x = x.contiguous(memory_format=torch.channels_last)
+    counts, phase, inside = {"forward": 0, "backward": 0}, ["forward"], [False]
+    pack_grad, pack_weight = C.pack_conv3x3_grad, C.pack_conv3x3_weight
+
+    def grad_spy(*args):
+        counts[phase[0]] += 1
+        inside[0] = True
+        try:
+            return pack_grad(*args)
+        finally:
+            inside[0] = False
+
+    def weight_spy(*args, **kwargs):
+        counts[phase[0]] += 0 if inside[0] else 1
+        return pack_weight(*args, **kwargs)
+
+    grad_spy.launches = pack_grad.launches  # the kernel's wrapper counts on the module global
+    C.pack_conv3x3_grad, C.pack_conv3x3_weight = grad_spy, weight_spy
+    try:
+        with torch.autocast("cuda", torch.bfloat16, enabled=amp):
+            out = model(x)
+        phase[0] = "backward"
+        (out if isinstance(out, torch.Tensor) else out[0]).float().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        C.pack_conv3x3_grad, C.pack_conv3x3_weight = pack_grad, pack_weight
+        pack_grad.launches = grad_spy.launches
+    return counts
+
+
+def packing_cost() -> dict:
+    """The weight packs of a train step, counted, and their card and host cost.
+
+    With grad on each square conv site packs its weight once, in its
+    forward (``pack_conv3x3_grad``), and its backward's dgrad reads that
+    packing: ``packs_per_step`` counts, on one forward + backward of
+    unet_plain (9 DoubleConv sites) and unet_resnet50 (6 fused sites) in
+    bf16 and f32, the packs of each half; the backward's must be 0. Then,
+    per type, at the families' 9 sites (float32 OIHW in, channels_last as
+    the models hold it): ``card_ms`` by graph replay of the step's 9 packs
+    and ``host_ms_median`` the host's time to launch them, beside
+    the same for the 18 packs of the composition that packed each weight
+    again, flipped, for dgrad (``flipped_*``).
+    """
+    from unet_embroidery_seg_torch.ops.conv3x3 import (
+        _dgrad_weight,
+        pack_conv3x3_grad,
+        pack_conv3x3_weight,
+    )
     from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
 
+    counts = {name: {("bf16" if amp else "f32"): _packs_in_step(name, amp) for amp in (True, False)}
+              for name in ("unet_plain", "unet_resnet50")}
+    torch.cuda.empty_cache()
+    sites = {"unet_plain": 9, "unet_resnet50": 6}
     gen = torch.Generator().manual_seed(6)
-    weights = [torch.randn(c, c, 3, 3, generator=gen).cuda()
-               for _, c, _, k in SAME_SITES for _ in range(k)]
-    n = sum(w.numel() for w in weights)
-    result = {"sites": len(weights), "packs_per_step": 2 * len(weights)}
-    for dtype, written in ((torch.bfloat16, 2 * n), (torch.float32, 2 * 4 * n)):
+    weights = [torch.randn(c, c, 3, 3, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last) for _, c, _, k in SAME_SITES for _ in range(k)]
+    result = {"sites": sites, "packs_per_step": counts,
+              "flipped_packs_per_step": {k: 2 * v for k, v in sites.items()}}
 
-        def pack_all(dtype=dtype):
-            for w in weights:
-                pack_conv3x3_weight(w, dtype)
-                pack_conv3x3_weight(_dgrad_weight(w), dtype)
-
-        eager = event_ms(pack_all)
-        host = []
+    def host_ms(fn):
+        times = []
         for _ in range(10):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pack_all()
-            host.append((time.perf_counter() - t0) * 1e3)
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        result[str(dtype)] = {"bytes_written_per_step": 2 * written,
-                              "bytes_read_per_step": 2 * 4 * n,
-                              "card_ms": graph_ms(pack_all, eager), "eager_ms": eager,
-                              "host_ms_median": statistics.median(host)}
+        return statistics.median(times)
+
+    for dtype in (torch.bfloat16, torch.float32):
+
+        def pack_step(dtype=dtype):
+            return [pack_conv3x3_grad(w, dtype) for w in weights]
+
+        def flipped_step(dtype=dtype):
+            return [pack_conv3x3_weight(v, dtype) for w in weights for v in (w, _dgrad_weight(w))]
+
+        entry = {}
+        for key, fn in (("", pack_step), ("flipped_", flipped_step)):
+            written = sum(t.nbytes for t in fn())
+            eager = event_ms(fn)
+            entry.update({f"{key}bytes_written_per_step": written,
+                          f"{key}card_ms": graph_ms(fn, eager), f"{key}eager_ms": eager,
+                          f"{key}host_ms_median": host_ms(fn)})
+        result[str(dtype)] = entry
+        torch.cuda.empty_cache()
     print("packing_cost " + json.dumps(result), flush=True)
+    for name, by_type in counts.items():
+        if any(c != {"forward": sites[name], "backward": 0} for c in by_type.values()):
+            raise AssertionError(f"{name}: packs per step {by_type}, want {sites[name]} in the "
+                                 f"forward and none in the backward")
     return result
+
+
+def _pack_rows(prefix: str, sites, gen: torch.Generator, sites_of: str) -> list[dict]:
+    """The ``tf32x3`` grad-mode pack kernel at f32 conv sites: (site, C, ..., count) rows.
+
+    Held bit for bit (tolerance 0) against its plain version, the two
+    ``pack_conv3x3_weight`` packings stacked; no PyTorch call computes it.
+    Bound by bytes: the f32 weight read once, the four planes written once.
+    """
+    from unet_embroidery_seg_torch.ops.conv3x3 import (
+        _dgrad_weight,
+        pack_conv3x3_grad,
+        pack_conv3x3_weight,
+    )
+
+    rows = []
+    for site, c, _, count in sites:
+        w = torch.randn(c, c, 3, 3, generator=gen).cuda().contiguous(
+            memory_format=torch.channels_last)
+        out = pack_conv3x3_grad(w, torch.float32)
+        nbytes = w.nbytes + out.nbytes
+        rows.append(measure_site(
+            prefix, "conv3x3_pack_tf32x3", f"{site}.f32", "tf32x3", torch.float32,
+            lambda w=w: pack_conv3x3_grad(w, torch.float32),
+            lambda w=w: torch.stack([pack_conv3x3_weight(v, torch.float32)
+                                     for v in (w, _dgrad_weight(w))]),
+            None, nbytes, 0.0, {"shape": list(out.shape), "count": count, "sites_of": sites_of}))
+        del w, out
+    return rows
 
 
 def check_f32_resnet_sites(gen: torch.Generator) -> list[dict]:
@@ -1224,7 +1453,8 @@ def check_f32_resnet_sites(gen: torch.Generator) -> list[dict]:
     512^2, batch 8, TF32 off for the library calls: the align_corners=True
     upsample forward at its 5 sites and its backward at the same 5 (cat
     slices), the fused conv (bias + ReLU, ``tf32x3``, ``fma`` beside it) at
-    its 6 sites and their dgrad, each against its plain version.
+    its 6 sites and their dgrad, and the grad-mode pack kernel at those
+    sites, each against its plain version.
     """
     rows = []
     for kernel, sites in (("upsample2x", F32_UPSAMPLE_SITES), ("conv3x3_same", F32_FUSED_SITES)):
@@ -1240,15 +1470,16 @@ def check_f32_resnet_sites(gen: torch.Generator) -> list[dict]:
     cases = [("upsample2x_backward", site, c, h, skips[site], count)
              for site, c, h, count in F32_UPSAMPLE_SITES]
     cases += [("conv3x3_dgrad", site, c, h, 0, count) for site, c, h, count in F32_FUSED_SITES]
+    rows += _pack_rows("f32_backward_site", F32_FUSED_SITES, gen, "unet_resnet50, multitask_unet")
     for kernel, site, c, h, skip, count in cases:
-        run, plain, library, nbytes, flops, path, g, fma = _backward_case(
+        run, plain, library, nbytes, flops, path, g, fma, flipped = _backward_case(
             kernel, c, h, skip, torch.float32, gen)
         rows.append(measure_site("f32_backward_site", kernel, f"{site}.f32", path, torch.float32,
                                  run, plain, library, nbytes, flops,
                                  {"shape": [BATCH, c, h, h], "grad_shape": list(g.shape),
                                   "count": count, "sites_of": "unet_resnet50, multitask_unet"},
-                                 fma))
-        del run, plain, library, g, fma
+                                 fma, flipped))
+        del run, plain, library, g, fma, flipped
     torch.cuda.empty_cache()
     return rows
 
@@ -2080,6 +2311,7 @@ def data_parallel_phase(counters, data) -> dict:
 
 def opcheck_on_card() -> dict:
     """13a: ``torch.library.opcheck`` of each operator at one site shape, bf16 and f32."""
+    from unet_embroidery_seg_torch.ops.conv3x3 import pack_conv3x3_grad
     from unet_embroidery_seg_torch.ops.library import registered_ops
 
     ops = registered_ops()
@@ -2106,7 +2338,8 @@ def opcheck_on_card() -> dict:
             "upsample2x_backward": (act(c_bw, 2 * h_bw, dtype, skip), True),
             "conv3x3_bias_relu": (act(*OPCHECK_SHAPES["conv3x3_bias_relu"], dtype), w1, b1, True),
             "conv3x3_same": (act(*OPCHECK_SHAPES["conv3x3_same"], dtype), w2, True),
-            "conv3x3_dgrad": (act(*OPCHECK_SHAPES["conv3x3_dgrad"], dtype), w3),
+            "conv3x3_dgrad": (act(*OPCHECK_SHAPES["conv3x3_dgrad"], dtype), w3,
+                              pack_conv3x3_grad(w3, dtype)),
         }
         for name, args in cases.items():
             t0 = time.perf_counter()
@@ -2291,9 +2524,10 @@ def unbaked_artifact(model, weights: str, canvases, workdir: str, counters) -> d
 def _kernel_role(name: str) -> str | None:
     """Which hand-written kernel a CUDA kernel event's (demangled) name is, or None.
 
-    The conv kernel's last template flag is BIAS_RELU: on in unet_resnet50's
-    forward, off in dgrad (``void (anonymous namespace)::tc::
-    conv3x3_wgmma_kernel<__nv_bfloat16, 64, true, true>(...)``).
+    The conv kernel's last two template flags are BIAS_RELU, on in
+    unet_resnet50's forward, and DGRAD, on in its dgrad (``void (anonymous
+    namespace)::tc::conv3x3_wgmma_kernel<__nv_bfloat16, 64, true, true,
+    false>(...)``).
     """
     for role, key in (("upsample2x", "::upsample2x_kernel<"),
                       ("upsample2x_backward", "::upsample2x_bwd_kernel<")):
@@ -2301,8 +2535,10 @@ def _kernel_role(name: str) -> str | None:
             return role
     if "::conv3x3_wgmma_kernel<" not in name:
         return None
-    flags = name.split("::conv3x3_wgmma_kernel<", 1)[1].split(">", 1)[0].split(",")
-    return "conv3x3 forward" if flags[-1].strip() == "true" else "conv3x3 dgrad"
+    flags = [f.strip() for f in
+             name.split("::conv3x3_wgmma_kernel<", 1)[1].split(">", 1)[0].split(",")]
+    return ("conv3x3 forward" if flags[3] == "true" else "conv3x3 dgrad" if flags[4] == "true"
+            else None)
 
 
 def profile_cli() -> dict:
@@ -2398,7 +2634,7 @@ def dispatch_cost(counters, data, resident_step_ms: float) -> dict:
     w, b = torch.randn(64, 64, 3, 3, device="cuda") * 0.05, torch.zeros(64, device="cuda")
     args = {"upsample2x": (x, True), "upsample2x_backward": (x, True),
             "conv3x3_bias_relu": (x, w, b, True), "conv3x3_same": (x, w, True),
-            "conv3x3_dgrad": (x, w)}
+            "conv3x3_dgrad": (x, w, conv_mod.pack_conv3x3_grad(w, x.dtype))}
     per_call = {}
     with torch.no_grad():
         for name, (mod, op_name, impl) in direct.items():
@@ -2658,12 +2894,12 @@ def _space_shards(h: int):
 
 
 def _space_row(prefix, kernel, site, s, path, dtype, run, plain, library, nbytes, flops, shape,
-               count, sites_of):
+               count, sites_of, flipped=None):
     """One timed row of a shard; shard 0's counts in the pass of one rank, shard 1's are held only."""
     return measure_site(prefix, kernel, f"{site}.shard{s}", path, dtype, run, plain,
                         library, nbytes, flops,
                         {"shape": shape, "count": count if s == 0 else 0, "sites_of": sites_of,
-                         "shard": s})
+                         "shard": s}, flipped=flipped)
 
 
 @torch.no_grad()
@@ -2689,8 +2925,8 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
     rows, unsplit = [], {}
     torch.backends.cudnn.allow_tf32 = False
 
-    def row(*args):
-        rows.append(_space_row(prefix, *args, sites_of))
+    def row(*args, flipped=None):
+        rows.append(_space_row(prefix, *args, sites_of, flipped))
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = "" if dtype == torch.bfloat16 else ".f32"
@@ -2700,8 +2936,10 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
             g = torch.randn(BATCH, c, h, h, generator=gen).to(dev, dtype).contiguous(
                 memory_format=cl)
             w = (torch.randn(c, c, 3, 3, generator=gen) / (3 * c ** 0.5)).to(dev)
+            w = w.contiguous(memory_format=cl)  # as the models hold it
             b = (0.1 * torch.randn(c, generator=gen)).to(dev)
-            wd, bd = w.to(dtype).contiguous(memory_format=cl), b.to(dtype)
+            wd, bd = w.to(dtype), b.to(dtype)
+            packed = C.pack_conv3x3_grad(w, dtype)  # the forward's, with grad on
             path, es = C.conv3x3_path(c, dtype), x.element_size()
             if fused:
                 conv = lambda xs, pad=(1, 1): C.conv3x3_bias_relu(xs, w, b, pad)  # noqa: E731
@@ -2711,7 +2949,7 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
                 conv = lambda xs, pad=(1, 1): C.conv3x3_same(xs, w, pad)  # noqa: E731
                 conv_plain = lambda xs, pad: C.conv3x3_same_plain(xs, w, pad)  # noqa: E731
                 library = lambda xs: F.conv2d(xs, wd, padding=(0, 1))  # noqa: E731
-            want_y, want_dx = conv(x), C.conv3x3_dgrad(g, w)
+            want_y, want_dx = conv(x), C.conv3x3_dgrad(g, w, C.SAME, packed)
             got_y, got_dx = [], torch.zeros(want_dx.shape, device=dev)
             for s, own, halo_rows, pad in _space_shards(h):
                 xs = x[:, :, halo_rows].contiguous(memory_format=cl)
@@ -2725,12 +2963,13 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
                     list(xs.shape), count)
                 dp = C.dgrad_pad(pad)
                 row("conv3x3_dgrad", site + tag, s, path, dtype,
-                    lambda gs=gs, dp=dp: C.conv3x3_dgrad(gs, w, dp),
+                    lambda gs=gs, dp=dp: C.conv3x3_dgrad(gs, w, dp, packed),
                     lambda gs=gs, dp=dp: C.conv3x3_dgrad_plain(gs, w, dp),
                     lambda gs=gs: torch.nn.grad.conv2d_input(gs.shape, wd, gs, padding=1),
-                    (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape), count)
+                    (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape), count,
+                    flipped=_flipped_dgrad(gs, w, dp, packed))
                 got_y.append(conv(xs, pad))
-                got_dx[:, :, halo_rows] += C.conv3x3_dgrad(gs, w, dp).float()
+                got_dx[:, :, halo_rows] += C.conv3x3_dgrad(gs, w, dp, packed).float()
             unsplit[f"conv3x3_same:{site}{tag}"] = (torch.cat(got_y, 2).float()
                                                      - want_y.float()).abs().max().item()
             unsplit[f"conv3x3_dgrad:{site}{tag}"] = ((got_dx - want_dx.float()).abs().max().item()
@@ -3900,6 +4139,11 @@ KERNEL_META = {  # name -> (source, TPU kernel it replaces, launch counter)
     "conv3x3_dgrad": ("unet_embroidery_seg_torch/csrc/conv3x3_same.cu",
                       "docs/negative-results/pallas_conv.py:61", "conv3x3_dgrad"),
 }
+# The tf32x3 path's grad-mode weight pack (forward and dgrad planes in one
+# launch), part of the conv's port: f32 entries only.
+PACK_META = {"conv3x3_pack_tf32x3": ("unet_embroidery_seg_torch/csrc/conv3x3_same.cu",
+                                     "docs/negative-results/pallas_conv.py:61",
+                                     "pack_conv3x3_grad")}
 # The families' entries: the same kernels at their new sites, under names of
 # their own: (kernel, launch counter, dtype of the sites summed).
 FAMILY_KERNELS = {
@@ -3914,6 +4158,7 @@ FAMILY_KERNELS = {
 F32_KERNELS = {
     "conv3x3_same[f32]": ("conv3x3_same", "conv3x3_same", "torch.float32"),
     "conv3x3_dgrad[f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
+    "conv3x3_pack_tf32x3[f32]": ("conv3x3_pack_tf32x3", "pack_conv3x3_grad", "torch.float32"),
 }
 # The f32 entries at unet_resnet50's (and multitask_unet's) sites, phase 10's
 # rows, launches from phase 10b's f32 steps of multitask_unet.
@@ -3923,6 +4168,8 @@ F32_RESNET_KERNELS = {
                                                     "torch.float32"),
     "conv3x3_same[fused,f32]": ("conv3x3_same", "conv3x3_bias_relu", "torch.float32"),
     "conv3x3_dgrad[fused,f32]": ("conv3x3_dgrad", "conv3x3_dgrad", "torch.float32"),
+    "conv3x3_pack_tf32x3[fused,f32]": ("conv3x3_pack_tf32x3", "pack_conv3x3_grad",
+                                       "torch.float32"),
 }
 
 
@@ -3935,11 +4182,12 @@ def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, site
     limit behind most of that bound. Rows of no model site (``count`` 0)
     are held but not summed.
     """
-    source, replaces, _ = KERNEL_META[kernel]
+    source, replaces, _ = {**KERNEL_META, **PACK_META}[kernel]
     mine = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype and r["count"] > 0]
 
-    def total(key):
-        return sum(r[key] * r["count"] for r in mine)
+    def total(key):  # None where a row has none (no library call computes the pack)
+        vals = [r[key] for r in mine]
+        return None if None in vals else sum(v * r["count"] for v, r in zip(vals, mine))
 
     share: dict[str, float] = {}
     for r in mine:
@@ -3955,6 +4203,8 @@ def _summary_entry(name: str, kernel: str, rows: list[dict], launches: int, site
     }
     if all("fma_ms" in r for r in mine):
         entry.update({"fma_ms": total("fma_ms"), "cuda_core_bound_ms": total("cuda_core_bound_ms")})
+    if all("flipped_ms" in r for r in mine):  # dgrad: the flipped-packing composition beside it
+        entry.update({k: total(k) for k in ("flipped_ms", "flipped_pack_ms", "grad_pack_ms")})
     return entry
 
 
@@ -4057,7 +4307,12 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from unet_embroidery_seg_torch.ops import _build
-    from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_bias_relu, conv3x3_dgrad, conv3x3_same
+    from unet_embroidery_seg_torch.ops.conv3x3 import (
+        conv3x3_bias_relu,
+        conv3x3_dgrad,
+        conv3x3_same,
+        pack_conv3x3_grad,
+    )
     from unet_embroidery_seg_torch.ops.upsample import upsample2x, upsample2x_backward
     from unet_embroidery_seg_torch.utils.device import card_line, set_float32_precision
 
@@ -4084,6 +4339,8 @@ def main(argv=None) -> int:
         print(card)
         return 0 if result["ran"] and space["ran"] and family_space["ran"] else 1
 
+    # 3c first: a bf16 capture must come before any f32 one (see its docstring).
+    graph_check = dgrad_graph_check(torch.Generator().manual_seed(3))
     rows = check_sites(torch.Generator().manual_seed(0))
     update = weight_update_check(torch.Generator().manual_seed(2))
     bwd_rows = check_backward_sites(torch.Generator().manual_seed(4))
@@ -4113,9 +4370,10 @@ def main(argv=None) -> int:
     # The paper pipeline's --no-amp run: f32 convs, cuDNN's with TF32 as
     # PyTorch has it by default (the train CLI sets it so).
     set_float32_precision()
-    f32_full = train_path(train_counters, "unet_plain", "bce", FAMILY_F32_STEPS,
+    f32_full = train_path(train_counters + [pack_conv3x3_grad], "unet_plain", "bce",
+                          FAMILY_F32_STEPS,
                           {**FAMILY_FORWARD_LAUNCHES["unet_plain"], "upsample2x_backward": 4,
-                           "conv3x3_dgrad": 9}, amp=False, checks=False)
+                           "conv3x3_dgrad": 9, "pack_conv3x3_grad": 9}, amp=False, checks=False)
     torch.backends.cudnn.allow_tf32 = False
 
     # Phase 10: multitask_unet and the multiclass task.
@@ -4127,8 +4385,9 @@ def main(argv=None) -> int:
     for key, task, name, loss in (("multitask_f32", "multitask", "multitask_unet", "bce"),
                                   ("multiclass_f32_ce", "multiclass", "unet_resnet50", "ce"),
                                   ("multiclass_f32_focal", "multiclass", "unet_resnet50", "focal")):
-        tasks[key] = task_train_path(train_counters, task, name, loss, TASK_F32_STEPS,
-                                     RESNET_PER_STEP, amp=False, checks=False)
+        tasks[key] = task_train_path(train_counters + [pack_conv3x3_grad], task, name, loss,
+                                     TASK_F32_STEPS, {**RESNET_PER_STEP, "pack_conv3x3_grad": 6},
+                                     amp=False, checks=False)
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     tasks["multiclass_bf16"] = task_train_path(
@@ -4178,7 +4437,7 @@ def main(argv=None) -> int:
                              tasks["multitask_f32"]["launches"], space, family_space)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "sites": rows,
+            json.dump({"card": card, "build_s": build_s, "dgrad_graph": graph_check, "sites": rows,
                        "weight_update": update, "backward_sites": bwd_rows,
                        "function_check": functions, "main_path": path, "train_path": train,
                        "f32_card_vs_cpu": f32, "f32_train_card_vs_cpu": f32_train,

@@ -256,6 +256,69 @@ def test_conv3x3_dgrad_kernel_matches_plain_at_1024_channels(device, shape, dtyp
     assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=1e-4)
 
 
+# dgrad on the forward's packing (``pack_conv3x3_grad``), per path: bf16
+# c64_persistent and wgmma read it flipped and transposed in the kernel,
+# tf32x3 reads the packing's dgrad planes, fma flips by index.
+DGRAD_PACK_CASES = [((2, 64, 17, 33), torch.bfloat16), ((1, 48, 9, 20), torch.bfloat16),
+                    ((2, 128, 9, 30), torch.bfloat16), ((1, 192, 11, 13), torch.bfloat16),
+                    ((1, 1024, 4, 6), torch.bfloat16),
+                    ((2, 64, 17, 33), torch.float32), ((1, 192, 9, 20), torch.float32),
+                    ((1, 24, 9, 5), torch.bfloat16), ((2, 3, 5, 4), torch.float32),
+                    ((1, 130, 8, 16), torch.float32)]
+
+
+@pytest.mark.parametrize("pad", [(1, 1), (2, 1), (0, 2)])
+@pytest.mark.parametrize("shape,dtype", DGRAD_PACK_CASES)
+def test_conv3x3_dgrad_on_the_forward_packing_equals_the_flipped_packing(device, shape, dtype,
+                                                                        pad):
+    c = shape[1]
+    g = _x(shape, dtype, device, seed=c + 21)
+    weight, _ = _conv_params(c, device, seed=c + 22)
+    weight = weight.contiguous(memory_format=torch.channels_last)  # as the models hold it
+    packed = conv3x3_mod.pack_conv3x3_grad(weight, dtype)
+    got = conv3x3_dgrad(g, weight, pad, packed)
+    # the forward kernel on the weights flipped, transposed and packed for the call
+    flipped = conv3x3_mod.pack_conv3x3_weight(conv3x3_mod._dgrad_weight(weight), dtype)
+    want = conv3x3_mod._launch(g, flipped, None, "flipped dgrad", pad=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # the same products summed in the same order
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("c", [4, 36, 64, 192, 1024])
+def test_tf32x3_grad_pack_kernel_equals_both_packings(device, c, layout):
+    weight, _ = _conv_params(c, device, seed=c + 23)
+    if layout == "channels_last":
+        weight = weight.contiguous(memory_format=torch.channels_last)
+    before = conv3x3_mod.pack_conv3x3_grad.launches
+    got = conv3x3_mod.pack_conv3x3_grad(weight, torch.float32)
+    assert conv3x3_mod.pack_conv3x3_grad.launches == before + 1
+    want = torch.stack([conv3x3_mod.pack_conv3x3_weight(w, torch.float32)
+                        for w in (weight, conv3x3_mod._dgrad_weight(weight))])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_conv3x3_function_backward_packs_nothing(device, dtype, fused, monkeypatch):
+    c = 128
+    x = torch.relu(_x((2, c, 12, 10), dtype, device, seed=24)).requires_grad_()
+    weight, bias = _conv_params(c, device, seed=25)
+    weight.requires_grad_()
+    g = _x((2, c, 12, 10), dtype, device, seed=26)
+    y = conv3x3_bias_relu(x, weight, bias) if fused else conv3x3_same(x, weight)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("packed in the backward")
+
+    packed = conv3x3_mod.pack_conv3x3_grad(weight, dtype)
+    monkeypatch.setattr(conv3x3_mod, "pack_conv3x3_grad", refuse)
+    monkeypatch.setattr(conv3x3_mod, "pack_conv3x3_weight", refuse)
+    (dx,) = torch.autograd.grad(y, (x,), g)
+    g_pre = torch.where(y > 0, g, 0) if fused else g
+    assert torch.equal(dx, conv3x3_dgrad(g_pre, weight, packed=packed))
+
+
 def test_conv3x3_same_cache_sees_in_place_weight_update(device):
     x = _x((1, 128, 12, 20), torch.bfloat16, device, seed=16)
     weight, _ = _conv_params(128, device, seed=17)

@@ -19,6 +19,7 @@ from unet_embroidery_seg_torch.models.blocks import init_weights
 from unet_embroidery_seg_torch.models.unet_attention import AttentionUNet
 from unet_embroidery_seg_torch.models.unet_dualdense import DualDenseUNet
 from unet_embroidery_seg_torch.models.unet_plain import UNetPlain
+from unet_embroidery_seg_torch.ops.conv3x3 import pack_conv3x3_grad
 from unet_embroidery_seg_torch.ops.library import NAMESPACE, registered_ops
 
 OPS = registered_ops()
@@ -35,12 +36,13 @@ def _cases(dtype):
     w = _x(1, (C, C, 3, 3), torch.float32).contiguous()
     b = _x(2, (C,), torch.float32)
     g_up = _x(3, (2, C, 2 * H, 2 * H), dtype)
+    packed = pack_conv3x3_grad(w, dtype)  # grad on: the forward packs, dgrad reads it
     return {
         "upsample2x": [(x, True), (x, False)],
         "upsample2x_backward": [(g_up, True), (g_up, False)],
-        "conv3x3_bias_relu": [(x, w, b, True), (x, w, b, False)],
-        "conv3x3_same": [(x, w, True), (x, w, False)],
-        "conv3x3_dgrad": [(x, w)],
+        "conv3x3_bias_relu": [(x, w, b, True), (x, w, b, False), (x, w, b, False, 1, 1, packed)],
+        "conv3x3_same": [(x, w, True), (x, w, False), (x, w, False, 1, 1, packed)],
+        "conv3x3_dgrad": [(x, w, packed), (x, w, packed, 2, 0)],
     }
 
 

@@ -15,9 +15,16 @@
 // Replaces: docs/negative-results/pallas_conv.py, conv3x3_same
 // (pl.pallas_call over _kernel): NHWC x HWIO -> NHWC with f32 accumulation,
 // one im2col GEMM per kernel row on the TPU. As there, the same kernel
-// computes dgrad (dx of the conv) when given the weights flipped in space
-// and transposed in channels, with the epilogue's bias and ReLU off
-// (bias_relu = 0; ops/conv3x3.py:conv3x3_dgrad).
+// computes dgrad (dx of the conv): the conv of the output's gradient with
+// the weights flipped in space and transposed in channels, the epilogue's
+// bias and ReLU off (ops/conv3x3.py:conv3x3_dgrad). The Pallas kernel was
+// handed weights flipped and transposed beforehand; here dgrad reads the
+// forward's packing as it stands (MODE_DGRAD), so with grad on a weight is
+// packed once per step, in the forward, and nothing is packed in the
+// backward: tap t reads the forward's tap 8 - t, and the bf16 path's wgmma
+// reads each [co][64 ci] tile as an MN-major B (transposed-B mode). The
+// f32 path's wgmma has no transposed B: its grad-mode packing
+// (conv3x3_pack_tf32x3) writes dgrad's K-major planes beside the forward's.
 //
 // Bound on the H100: 2*9*C*C FLOP per output pixel against 4*C bytes of
 // bf16 input and output. At the six unet_resnet50 decoder sites (480^2,
@@ -110,12 +117,15 @@
 //    inputs of a kernel row for 3 taps (96 FMA per 30 shared-memory reads).
 //    Any N, H, W, C >= 1.
 //
-// Weights arrive packed once per parameter version by the wrapper
-// (ops/conv3x3.py:pack_conv3x3_weight), bias as f32:
+// Weights arrive packed by the wrapper (ops/conv3x3.py:pack_conv3x3_weight;
+// grad off once per parameter version, grad on once per forward), bias as
+// f32:
 //  - bf16 tensor-core path: [tap = ky*3+kx][C_in chunk of 64][co_pad][64],
-//    zero in the padding (co_pad = C rounded up to N);
+//    zero in the padding (co_pad = C rounded up to N); dgrad reads the same;
 //  - tf32x3: f32 [plane: w_big, w_small][tap][C_in chunk of 32][co_pad][32];
-//  - CUDA-core path: [ky][kx][co][ci] in the activation type.
+//    with grad on [layout: forward, dgrad] of those (conv3x3_pack_tf32x3);
+//  - CUDA-core path: [ky][kx][co][ci] in the activation type; dgrad reads
+//    the same.
 //
 // C interface (ctypes): pointers and the stream are void*; each entry point
 // returns cudaGetLastError() after its launch, or a CUDA error code for
@@ -300,6 +310,15 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
          (1ull << 62);
 }
 
+// MN-major B tile with the 128-byte swizzle (dgrad: the forward's rows of
+// 64 input channels, one row per output channel, read as K' rows of 64 N'
+// values each): 8-row K' groups 1024 bytes apart (SBO), 64-wide N' blocks
+// `block` bytes apart (LBO). A k16 step is 16 rows, 2048 bytes on.
+__device__ __forceinline__ uint64_t smem_desc_sw128_mn(uint32_t addr, uint32_t block) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(block >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -325,6 +344,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t desc) {
   asm volatile(
@@ -334,14 +354,15 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
 }
 
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
                                                  uint64_t desc) {
   asm volatile(
@@ -355,7 +376,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -364,14 +385,16 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
 }
 
-template <int BN>
+// TRANS_B = 0: B K-major (the forward); 1: B MN-major (dgrad, reading the
+// forward's tiles transposed).
+template <int BN, int TRANS_B>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], const uint32_t (&a)[4],
                                            uint64_t desc) {
-  if constexpr (BN == 64) wgmma_m64n64k16(d, a, desc);
-  else wgmma_m64n128k16(d, a, desc);
+  if constexpr (BN == 64) wgmma_m64n64k16<TRANS_B>(d, a, desc);
+  else wgmma_m64n128k16<TRANS_B>(d, a, desc);
 }
 
 // tf32 (k8): A from registers in the m64k8 fragment (per warp of 16 rows:
@@ -427,13 +450,22 @@ __device__ __forceinline__ void wgmma_tile_tf32(float (&d)[BN / 2], const uint32
   else wgmma_m64n128k8_tf32(d, a, desc);
 }
 
-template <typename T, int BN, bool RESIDENT, bool BIAS_RELU>
+// DGRAD (bf16 only, epilogue off): dx from the output's gradient, reading the
+// forward's packed weights as they stand. Tap t reads the forward's tap
+// 8 - t (the flip); K' = the forward's output channels, N' = its input
+// channels, so each [co][64 ci] weight tile is B' MN-major (the transpose),
+// which wgmma's transposed-B mode reads in place. Streamed, a weight stage
+// is two TMA boxes of 64 co x 64 ci: the rows of this halo stage's K'
+// chunk from the two input-channel chunks of the N' = 128 tile.
+template <typename T, int BN, bool RESIDENT, bool BIAS_RELU, bool DGRAD>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap,
                          const __grid_constant__ CUtensorMap ymap, const Params p) {
   using C = Cfg<T, BN, RESIDENT>;
+  static_assert(!DGRAD || (!C::F32 && !BIAS_RELU), "dgrad: bf16, epilogue off");
   constexpr int SLABS = C::SLABS;
+  constexpr int DG_BOX = C::CHUNK * ROW_BYTES;  // dgrad: 64 K' rows of one N' block
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align every stage to it.
   const uint32_t halo0 = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -493,12 +525,21 @@ __global__ void __launch_bounds__(THREADS, 1)
               const int ws = wi % C::W_STAGES;
               mbar_wait(wempty + 8 * ws, ((wi / C::W_STAGES) & 1) ^ 1);
               mbar_expect_tx(wfull + 8 * ws, C::W_TILE);
-              // f32: plane 1 (w_small) lies 9 * nchunks * co_pad rows after plane 0.
+              if constexpr (DGRAD) {
+                // Box (64 ci, 64 co, 1, 1) of [tap][ci chunk][co_pad][64] at the
+                // forward's tap 8 - tap; a chunk past the last is TMA's zero fill.
 #pragma unroll
-              for (int pl = 0; pl < C::PLANES; ++pl)
-                tma_load_2d(wgt0 + ws * C::W_TILE + pl * C::PLANE_BYTES, &wmap, wfull + 8 * ws, 0,
-                            pl * 9 * p.nchunks * p.co_pad + (tap * p.nchunks + ch) * p.co_pad +
-                                co_t * BN);
+                for (int j = 0; j < BN / C::CHUNK; ++j)
+                  tma_load_4d(wgt0 + ws * C::W_TILE + j * DG_BOX, &wmap, wfull + 8 * ws, 0,
+                              ch * C::CHUNK, co_t * (BN / C::CHUNK) + j, 8 - tap);
+              } else {
+                // f32: plane 1 (w_small) lies 9 * nchunks * co_pad rows after plane 0.
+#pragma unroll
+                for (int pl = 0; pl < C::PLANES; ++pl)
+                  tma_load_2d(wgt0 + ws * C::W_TILE + pl * C::PLANE_BYTES, &wmap, wfull + 8 * ws,
+                              0, pl * 9 * p.nchunks * p.co_pad + (tap * p.nchunks + ch) * p.co_pad +
+                                     co_t * BN);
+              }
             }
           }
         }
@@ -552,7 +593,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           uint32_t wtile;
           int ws = 0;
           if (RESIDENT) {
-            wtile = wgt0 + tap * C::W_TILE;
+            wtile = wgt0 + (DGRAD ? 8 - tap : tap) * C::W_TILE;
           } else {
             ws = wi % C::W_STAGES;
             mbar_wait(wfull + 8 * ws, (wi / C::W_STAGES) & 1);
@@ -586,7 +627,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
           }
           wgmma_fence();
-          const uint64_t desc = smem_desc_sw128(wtile);
+          const uint64_t desc = DGRAD ? smem_desc_sw128_mn(wtile, DG_BOX) : smem_desc_sw128(wtile);
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -596,8 +637,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                 wgmma_tile_tf32<BN>(acc[s], a_small[tap & 1][s][ks], desc + 2 * ks);
                 wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc_small + 2 * ks);
                 wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);
+              } else if constexpr (DGRAD) {
+                wgmma_tile<BN, 1>(acc[s], a[tap & 1][s][ks], desc + 128 * ks);  // +16 rows per k16
               } else {
-                wgmma_tile<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);  // +32 bytes per k16
+                wgmma_tile<BN, 0>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);  // +32 bytes per k16
               }
             }
           wgmma_commit();
@@ -740,7 +783,7 @@ Tile pick_tile(int m, int max_halo_rows, int h, int w) {
 }
 
 // x has h rows; out has h + pad_top + pad_bottom - 2.
-template <typename T, int BN, bool RESIDENT, bool BIAS_RELU>
+template <typename T, int BN, bool RESIDENT, bool BIAS_RELU, bool DGRAD>
 int launch(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
            int c, int pad_top, int pad_bottom, cudaStream_t stream) {
   using C = Cfg<T, BN, RESIDENT>;
@@ -748,7 +791,7 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   constexpr cuuint64_t ES = sizeof(T);
   constexpr CUtensorMapDataType DTYPE =
       C::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  auto kernel = conv3x3_wgmma_kernel<T, BN, RESIDENT, BIAS_RELU>;
+  auto kernel = conv3x3_wgmma_kernel<T, BN, RESIDENT, BIAS_RELU, DGRAD>;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
 
@@ -807,14 +850,29 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  // f32: [plane][tap][chunk][co_pad][32] as rows of one 128-byte chunk.
-  const cuuint64_t wdim[2] = {CHUNK, static_cast<cuuint64_t>(C::PLANES) * 9 * p.nchunks * p.co_pad};
-  const cuuint64_t wstride[1] = {ROW_BYTES};
-  const cuuint32_t wbox[2] = {CHUNK, BN};
-  if (encode(&wmap, DTYPE, 2, const_cast<void*>(wpk), wdim, wstride,
-             wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (DGRAD && !RESIDENT) {
+    // The forward's [tap][chunk][co_pad][64] as a 4-D tensor, boxes of 64 co
+    // rows of one input-channel chunk; a chunk past the last reads zeros.
+    const cuuint64_t wdim[4] = {CHUNK, static_cast<cuuint64_t>(p.co_pad),
+                                static_cast<cuuint64_t>(p.nchunks), 9};
+    const cuuint64_t wstride[3] = {ROW_BYTES, static_cast<cuuint64_t>(p.co_pad) * ROW_BYTES,
+                                   static_cast<cuuint64_t>(p.nchunks) * p.co_pad * ROW_BYTES};
+    const cuuint32_t wbox[4] = {CHUNK, CHUNK, 1, 1};
+    if (encode(&wmap, DTYPE, 4, const_cast<void*>(wpk), wdim, wstride, wbox, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    // f32: [plane][tap][chunk][co_pad][32] as rows of one 128-byte chunk.
+    const cuuint64_t wdim[2] = {CHUNK,
+                                static_cast<cuuint64_t>(C::PLANES) * 9 * p.nchunks * p.co_pad};
+    const cuuint64_t wstride[1] = {ROW_BYTES};
+    const cuuint32_t wbox[2] = {CHUNK, BN};
+    if (encode(&wmap, DTYPE, 2, const_cast<void*>(wpk), wdim, wstride, wbox, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 
   const int ctas = (p.items + C::GROUPS - 1) / C::GROUPS;
   const int grid = ctas < sms ? ctas : sms;
@@ -836,7 +894,8 @@ constexpr int PX = 4;          // neighbouring pixels per thread (along W)
 constexpr int CO_PER = 8;      // output channels per thread, strided by 8
 static_assert((TH * TW / PX) * (CO_T / CO_PER) == THREADS, "one thread per micro-tile");
 
-template <typename T, bool BIAS_RELU>
+// DGRAD: wt is the forward's packing, read flipped and transposed by index.
+template <typename T, bool BIAS_RELU, bool DGRAD>
 __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
     const T* __restrict__ x, const T* __restrict__ wt, const float* __restrict__ bias,
     T* __restrict__ out, int h, int w, int c, int tiles_x, int oh, int pad_top) {
@@ -878,7 +937,9 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
       const int tap = e / (CI_T * CO_T);
       const int gc = ci0 + ci, go = co0 + co;
       float v = 0.0f;
-      if (gc < c && go < c) v = to_f32(wt[((long long)tap * c + go) * c + gc]);
+      if (gc < c && go < c)
+        v = to_f32(DGRAD ? wt[((long long)(8 - tap) * c + gc) * c + go]
+                         : wt[((long long)tap * c + go) * c + gc]);
       w_s[tap][ci][co] = v;
     }
     __syncthreads();
@@ -919,28 +980,96 @@ __global__ void __launch_bounds__(THREADS) conv3x3_fma_kernel(
   }
 }
 
-}  // namespace
+// f32 tensor-core path with grad on: the forward's two tf32 planes and
+// dgrad's (the weights flipped in space and transposed in channels) in one
+// pass, out = [layout: forward, dgrad][plane: w_big, w_small][tap][chunk of
+// 32][co_pad][32]. wgmma takes no transposed tf32 B, so dgrad cannot read
+// the forward's planes as the bf16 path does. The split is done on the bits,
+// as ops/conv3x3.py:tf32_split does (+0x1000, clear the low 13), so both
+// layouts equal pack_conv3x3_weight's bit for bit. w is OIHW f32 with
+// strides (so, si, sy, sx) in elements. Bound by bytes: 9*C*C f32 read,
+// four times that (and the padding) written.
+__global__ void conv3x3_pack_tf32x3_kernel(const float* __restrict__ w, float* __restrict__ out,
+                                           int c, int chunks, int co_pad, long long so,
+                                           long long si, long long sy, long long sx,
+                                           long long plane) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= plane) return;
+  const int k = static_cast<int>(e % 32);
+  const int row = static_cast<int>((e / 32) % co_pad);
+  const long long rest = e / (32LL * co_pad);
+  const int chunk = static_cast<int>(rest % chunks), tap = static_cast<int>(rest / chunks);
+  const int kk = chunk * 32 + k;  // the K index: input channel of this layout's conv
+  const bool live = row < c && kk < c;
+  const int fy = tap / 3, fx = tap % 3;
+  const float fwd = live ? w[row * so + kk * si + fy * sy + fx * sx] : 0.0f;
+  const float dg = live ? w[kk * so + row * si + (2 - fy) * sy + (2 - fx) * sx] : 0.0f;
+  const float vals[2] = {fwd, dg};
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const float big = __uint_as_float((__float_as_uint(vals[l]) + 0x1000u) & ~0x1FFFu);
+    const float small = __uint_as_float((__float_as_uint(vals[l] - big) + 0x1000u) & ~0x1FFFu);
+    out[(2 * l) * plane + e] = big;
+    out[(2 * l + 1) * plane + e] = small;
+  }
+}
 
-// Epilogue mode, both paths: bias_relu = 1 stores relu(conv + bias) (the
-// forward), 0 stores the bare conv and never reads bias (dgrad). Each mode
-// is its own template instance, so the forward's code is the same as
-// without the mode. pad_top, pad_bottom (0 to 2 each; SAME is 1, 1): the
-// zero rows above and below x in H; out has h + pad_top + pad_bottom - 2
-// rows.
-namespace {
+// Epilogue and weight-read mode of a launch: MODE_CONV stores the bare conv
+// and never reads bias; MODE_BIAS_RELU stores relu(conv + bias) (the fused
+// forward); MODE_DGRAD stores the bare conv of the output's gradient with
+// the forward's packed weights read flipped and transposed in the kernel
+// (bf16 tensor-core and CUDA-core paths; the f32 tensor-core path's dgrad
+// reads the planes conv3x3_pack_tf32x3 wrote, in MODE_CONV). Each mode is its
+// own template instance, so the forward's code is the same as without the
+// modes. pad_top, pad_bottom (0 to 2 each; SAME is 1, 1): the zero rows
+// above and below x in H; out has h + pad_top + pad_bottom - 2 rows.
+constexpr int MODE_CONV = 0, MODE_BIAS_RELU = 1, MODE_DGRAD = 2;
 
 bool bad_pads(int h, int pad_top, int pad_bottom) {
   return pad_top < 0 || pad_top > 2 || pad_bottom < 0 || pad_bottom > 2 ||
          h + pad_top + pad_bottom - 2 < 1;
 }
 
+template <typename T, int BN, bool RESIDENT>
+int tc_modes(int mode, const void* x, const void* wpk, const void* bias, void* out, int n, int h,
+             int w, int c, int pt, int pb, cudaStream_t s) {
+  if (mode == MODE_BIAS_RELU)
+    return tc::launch<T, BN, RESIDENT, true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  if constexpr (sizeof(T) == 2) {
+    if (mode == MODE_DGRAD)
+      return tc::launch<T, BN, RESIDENT, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  }
+  if (mode != MODE_CONV) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch<T, BN, RESIDENT, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+}
+
+template <typename T, bool BIAS_RELU, bool DGRAD>
+int fma_launch(const void* x, const void* wt, const float* bias, void* out, dim3 grid, int h,
+               int w, int c, int tiles_x, int oh, int pad_top, cudaStream_t s) {
+  conv3x3_fma_kernel<T, BIAS_RELU, DGRAD><<<grid, THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wt), bias, static_cast<T*>(out), h, w, c,
+      tiles_x, oh, pad_top);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fma_modes(int mode, const void* x, const void* wt, const float* bias, void* out, dim3 grid,
+              int h, int w, int c, int tiles_x, int oh, int pad_top, cudaStream_t s) {
+  if (mode == MODE_BIAS_RELU)
+    return fma_launch<T, true, false>(x, wt, bias, out, grid, h, w, c, tiles_x, oh, pad_top, s);
+  if (mode == MODE_DGRAD)
+    return fma_launch<T, false, true>(x, wt, bias, out, grid, h, w, c, tiles_x, oh, pad_top, s);
+  if (mode != MODE_CONV) return static_cast<int>(cudaErrorInvalidValue);
+  return fma_launch<T, false, false>(x, wt, bias, out, grid, h, w, c, tiles_x, oh, pad_top, s);
+}
+
 }  // namespace
 
 // Tensor-core path. x, wpk (packed) and out bf16; bias f32. Needs C % 16 == 0
 // and 16-byte aligned x and wpk (TMA); C <= 64 takes the persistent
-// resident-weight kernel, C > 64 the streamed-weight one.
+// resident-weight kernel, C > 64 the streamed-weight one. mode: MODE_*.
 extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* bias, void* out,
-                                    int n, int h, int w, int c, int bias_relu, int pad_top,
+                                    int n, int h, int w, int c, int mode, int pad_top,
                                     int pad_bottom, void* stream) {
   if (c % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
@@ -948,40 +1077,33 @@ extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  const int pt = pad_top, pb = pad_bottom;
-  if (c <= 64) {
-    if (bias_relu) return tc::launch<bf16, 64, true, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-    return tc::launch<bf16, 64, true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-  }
-  if (bias_relu) return tc::launch<bf16, 128, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-  return tc::launch<bf16, 128, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  if (c <= 64)
+    return tc_modes<bf16, 64, true>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
+  return tc_modes<bf16, 128, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
 }
 
 // Tensor-core path in f32 (3xTF32). x, out and bias f32; wpk the two tf32
 // planes [plane][tap][chunk of 32][co_pad][32]. Needs C % 4 == 0 (TMA's
 // 16-byte strides) and 16-byte aligned x, wpk and out; tiles of 64 output
-// channels for C <= 64, 128 above, weights streamed at every C.
+// channels for C <= 64, 128 above, weights streamed at every C. mode:
+// MODE_CONV or MODE_BIAS_RELU (dgrad is MODE_CONV on dgrad's planes).
 extern "C" int conv3x3_tf32x3_launch(const void* x, const void* wpk, const void* bias, void* out,
-                                     int n, int h, int w, int c, int bias_relu, int pad_top,
+                                     int n, int h, int w, int c, int mode, int pad_top,
                                      int pad_bottom, void* stream) {
   if (c % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wpk) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       bad_pads(h, pad_top, pad_bottom))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pt = pad_top, pb = pad_bottom;
-  if (c <= 64) {
-    if (bias_relu) return tc::launch<float, 64, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-    return tc::launch<float, 64, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-  }
-  if (bias_relu) return tc::launch<float, 128, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
-  return tc::launch<float, 128, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  if (c <= 64)
+    return tc_modes<float, 64, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
+  return tc_modes<float, 128, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
 }
 
 // CUDA-core path. dtype: 0 = float32, 1 = bfloat16 (x, wt and out); bias is
-// float32; wt is [ky][kx][co][ci].
+// float32; wt is [ky][kx][co][ci] (MODE_DGRAD: the forward's). mode: MODE_*.
 extern "C" int conv3x3_fma_launch(const void* x, const void* wt, const void* bias, void* out,
-                                  int n, int h, int w, int c, int dtype, int bias_relu,
+                                  int n, int h, int w, int c, int dtype, int mode,
                                   int pad_top, int pad_bottom, void* stream) {
   if (bad_pads(h, pad_top, pad_bottom)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -989,25 +1111,26 @@ extern "C" int conv3x3_fma_launch(const void* x, const void* wt, const void* bia
   const int tiles_x = (w + TW - 1) / TW;
   const dim3 grid(tiles_x * ((oh + TH - 1) / TH), (c + CO_T - 1) / CO_T, n);
   const float* b = static_cast<const float*>(bias);
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0 && bias_relu) {
-    conv3x3_fma_kernel<float, true><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt), b,
-        static_cast<float*>(out), h, w, c, tiles_x, oh, pad_top);
-  } else if (dtype == 0) {
-    conv3x3_fma_kernel<float, false><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt), b,
-        static_cast<float*>(out), h, w, c, tiles_x, oh, pad_top);
-  } else if (dtype == 1 && bias_relu) {
-    conv3x3_fma_kernel<bf16, true><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
-        static_cast<bf16*>(out), h, w, c, tiles_x, oh, pad_top);
-  } else if (dtype == 1) {
-    conv3x3_fma_kernel<bf16, false><<<grid, THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(wt), b,
-        static_cast<bf16*>(out), h, w, c, tiles_x, oh, pad_top);
-  } else {
+  if (dtype == 0) return fma_modes<float>(mode, x, wt, b, out, grid, h, w, c, tiles_x, oh, pad_top, s);
+  if (dtype == 1)
+    return fma_modes<__nv_bfloat16>(mode, x, wt, b, out, grid, h, w, c, tiles_x, oh, pad_top, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 tensor-core path's packing with grad on (conv3x3_pack_tf32x3_kernel):
+// w OIHW f32 with strides so, si, sy, sx (elements); out f32 of
+// 4 * 9 * chunks * co_pad * 32 elements, 16-byte aligned.
+extern "C" int conv3x3_pack_tf32x3_launch(const void* w, void* out, int c, int chunks, int co_pad,
+                                          long long so, long long si, long long sy, long long sx,
+                                          void* stream) {
+  if (c < 1 || chunks * 32 < c || co_pad < c || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long long plane = 9LL * chunks * co_pad * 32;
+  const int threads = 256;
+  const long long blocks = (plane + threads - 1) / threads;
+  conv3x3_pack_tf32x3_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<float*>(out), c, chunks, co_pad, so, si, sy, sx,
+      plane);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,18 +30,26 @@ which the JAX package computes with a flax ``nn.Conv``
 - dgrad: the same kernel, as the Pallas kernel's docstring has it: dx is
   the same conv of the output's gradient with the weights flipped in space
   and transposed in channels, the epilogue's bias and ReLU off
-  (``conv3x3_dgrad``). wgrad is cuDNN's (``torch.nn.grad.conv2d_weight``):
-  the Pallas kernel never computed it, the JAX package left it to XLA.
+  (``conv3x3_dgrad``). It reads the weights the forward packed
+  (``pack_conv3x3_grad``), flipped and transposed inside the kernel (bf16
+  and ``fma``); the ``tf32x3`` packing holds dgrad's planes beside the
+  forward's, written in the same launch. wgrad is cuDNN's
+  (``torch.nn.grad.conv2d_weight``): the Pallas kernel never computed it,
+  the JAX package left it to XLA.
 - Plain versions: ``conv3x3_bias_relu_plain``, ``conv3x3_same_plain`` and
   ``conv3x3_dgrad_plain``, nine shifted-slice products accumulated in
   float32 (autocast off), the arithmetic of the Pallas kernel's per-row
   im2col GEMMs.
 - Operators (``ops/library.py``): ``unet_seg::conv3x3_bias_relu(x, weight,
-  bias, cache)``, ``unet_seg::conv3x3_same(x, weight, cache)`` and
-  ``unet_seg::conv3x3_dgrad(g, weight)`` (``*_op``): on a CUDA tensor the
-  kernel, on a CPU tensor the plain version, and a fake implementation for
-  tracing. ``cache`` is the autograd Function's choice, made from grad
-  mode outside the operator.
+  bias, cache, pad_top, pad_bottom, packed)``, ``unet_seg::conv3x3_same(x,
+  weight, cache, pad_top, pad_bottom, packed)`` and
+  ``unet_seg::conv3x3_dgrad(g, weight, packed, pad_top, pad_bottom)``
+  (``*_op``): on a CUDA tensor the kernel, on a CPU tensor the plain
+  version (which reads ``weight``), and a fake implementation for tracing.
+  ``cache`` and ``packed`` are the autograd Function's choice, made from
+  grad mode outside the operator: grad off, ``cache`` and no ``packed``;
+  grad on, the Function's ``pack_conv3x3_grad`` packing, which the forward
+  reads and the backward hands to dgrad.
 - Wrappers: ``conv3x3_bias_relu`` and ``conv3x3_same``, each a
   ``torch.autograd.Function`` over its operator whose backward runs
   ``conv3x3_dgrad``, and ``conv3x3_dgrad``. A CPU tensor takes the plain
@@ -67,10 +75,13 @@ Weights are OIHW (``nn.Conv2d``'s layout). ``pack_conv3x3_weight`` puts them
 in the kernel's layout. With grad mode off (predict, eval) the wrappers pack
 a weight once per parameter version and keep the packed copy, and the
 float32 bias where there is one, until the parameter is updated in place,
-given a new storage, or freed; with grad on (training) and in dgrad they
-pack on every call (``_packed_params``, which also states what the cache
-cannot see). A bf16 call reads its weights and its bias rounded to bf16, as
-the JAX package's AMP computes with bf16 copies of every parameter
+given a new storage, or freed (``_packed_params``, which also states what
+the cache cannot see). With grad on (training) every forward packs anew
+(``pack_conv3x3_grad``) and saves the packing for its backward: nothing is
+cached across calls, and nothing is packed in the backward, so a captured
+CUDA graph of a train step repacks what the weights hold at each replay. A
+bf16 call reads its weights and its bias rounded to bf16, as the JAX
+package's AMP computes with bf16 copies of every parameter
 (``TreeAdam.cast_params``); the kernel adds the bias in f32.
 """
 
@@ -87,11 +98,18 @@ from unet_embroidery_seg_torch.ops import _build
 from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel_output
 
 __all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
-           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_weight", "tf32_split"]
+           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_grad",
+           "pack_conv3x3_weight", "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _FMA_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_PACK_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_void_p]
+# A launch's mode (``csrc/conv3x3_same.cu``'s MODE_*): the bare conv,
+# relu(conv + bias), or dgrad reading the forward's packing flipped and
+# transposed in the kernel (bf16 tensor-core and ``fma`` paths).
+MODE_CONV, MODE_BIAS_RELU, MODE_DGRAD = 0, 1, 2
 SAME = (1, 1)
 # Input channels per halo stage of a tensor-core path: 128 bytes of the type.
 CHUNK = {torch.bfloat16: 64, torch.float32: 32}
@@ -195,6 +213,64 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype,
     if path == "tf32x3":
         return torch.stack(tf32_split(w))
     return w.contiguous()
+
+
+def _grad_pack_shape(c: int, dtype: torch.dtype) -> tuple[int, ...]:
+    """The shape ``pack_conv3x3_grad`` gives for C channels of ``dtype``."""
+    path = conv3x3_path(c, dtype)
+    if path == "fma":
+        return (3, 3, c, c)
+    chunks, co_pad = _tc_layout(c, dtype)
+    tile = (9, chunks, co_pad, CHUNK[dtype])
+    return (2, 2, *tile) if path == "tf32x3" else tile
+
+
+def pack_conv3x3_grad(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The packing a forward with grad on makes, reads, and saves for dgrad.
+
+    bf16 tensor-core paths and ``fma``: ``pack_conv3x3_weight``'s layout,
+    which dgrad's kernel reads flipped in space and transposed in channels.
+    ``tf32x3`` (wgmma takes no transposed tf32 B): [layout][plane][tap]
+    [chunk of 32][co_pad][32], layout 0 the forward's planes and layout 1
+    dgrad's, ``pack_conv3x3_weight`` of the weight and of ``_dgrad_weight``
+    of it, bit for bit. On the card one kernel launch writes both
+    (``conv3x3_pack_tf32x3``, counted by ``pack_conv3x3_grad.launches``); on
+    the CPU the plain version stacks the two packings.
+    """
+    c = weight.shape[0]
+    if tuple(weight.shape) != (c, c, 3, 3):
+        raise ValueError(f"conv3x3: needs a ({c}, {c}, 3, 3) weight, got {tuple(weight.shape)}")
+    if conv3x3_path(c, dtype) != "tf32x3":
+        return pack_conv3x3_weight(weight, dtype)
+    if weight.device.type != "cuda":
+        return torch.stack([pack_conv3x3_weight(weight, dtype),
+                            pack_conv3x3_weight(_dgrad_weight(weight), dtype)])
+    w = weight.detach().float()
+    out = torch.empty(_grad_pack_shape(c, dtype), dtype=torch.float32, device=w.device)
+    chunks, co_pad = out.shape[3], out.shape[4]
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    fn = _build.load("conv3x3_same", "conv3x3_pack_tf32x3_launch", _PACK_ARGTYPES)
+    with torch.cuda.device(w.device):
+        code = fn(w.data_ptr(), out.data_ptr(), c, chunks, co_pad, *w.stride(), stream)
+    _build.check(code, "pack_conv3x3_grad")
+    pack_conv3x3_grad.launches += 1
+    return out
+
+
+pack_conv3x3_grad.launches = 0
+
+
+def _check_grad_pack(packed: torch.Tensor | None, c: int, dtype: torch.dtype, what: str) -> None:
+    """Raises unless ``packed`` is ``pack_conv3x3_grad``'s packing for C channels of ``dtype``.
+
+    None (a forward operator given no packing) passes.
+    """
+    if packed is None:
+        return
+    shape = _grad_pack_shape(c, dtype)
+    if (tuple(packed.shape) != shape or packed.dtype != dtype or not packed.is_contiguous()):
+        raise ValueError(f"{what}: needs pack_conv3x3_grad's packing {shape} of {dtype}, got "
+                         f"{tuple(packed.shape)} of {packed.dtype}")
 
 
 # (id weight, id bias or None, dtype) -> ((ptr, version) of the weight and
@@ -311,11 +387,15 @@ def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor,
 
 
 def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
-            what: str, path: str | None = None, pad: tuple[int, int] = SAME) -> torch.Tensor:
+            what: str, path: str | None = None, pad: tuple[int, int] = SAME,
+            dgrad: bool = False) -> torch.Tensor:
     """The kernel on ``x`` with packed weights; bias and ReLU fused when ``bias`` is given.
 
     ``path`` (``conv3x3_path``'s choice by default) must be the one the
     weights were packed for; ``fma`` takes any call. ``pad``: the H pads.
+    ``dgrad``: ``x`` is an output's gradient and ``packed`` the forward's
+    packing, which the kernel reads flipped and transposed (MODE_DGRAD; the
+    bf16 tensor-core paths and ``fma``, no bias).
     """
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -331,20 +411,22 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
         raise ValueError(f"{what}: path {path} does not take {c} channels of {x.dtype}")
     if path != "fma" and x.data_ptr() % 16 != 0:
         raise ValueError(f"{what}: the tensor-core paths need a 16-byte aligned input (TMA)")
+    if dgrad and (path == "tf32x3" or bias is not None):
+        raise ValueError(f"{what}: MODE_DGRAD takes no bias and no tf32x3 call")
     out = empty_kernel_output((n, c, out_rows(h, pad), w), x)
     if out.numel() == 0:
         return out
     b = 0 if bias is None else bias.data_ptr()
-    fused = int(bias is not None)
+    mode = MODE_DGRAD if dgrad else MODE_CONV if bias is None else MODE_BIAS_RELU
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if path == "fma":
             fn = _build.load("conv3x3_same", "conv3x3_fma_launch", _FMA_ARGTYPES)
             code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c,
-                      _DTYPE_CODES[x.dtype], fused, pad[0], pad[1], stream)
+                      _DTYPE_CODES[x.dtype], mode, pad[0], pad[1], stream)
         else:
             fn = _build.load("conv3x3_same", _TC_SYMBOLS[path], _TC_ARGTYPES)
-            code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c, fused,
+            code = fn(x.data_ptr(), packed.data_ptr(), b, out.data_ptr(), n, h, w, c, mode,
                       pad[0], pad[1], stream)
     _build.check(code, what)
     return out
@@ -356,17 +438,35 @@ def _count(wrapper, pad: tuple[int, int]) -> None:
         wrapper.halo_launches += 1
 
 
+def _forward_weights(weight: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype,
+                     cache: bool, packed: torch.Tensor | None, what: str):
+    """The forward's packed weights (``tf32x3`` grad packing: its layout 0) and f32 bias.
+
+    ``packed`` (grad on): the autograd Function's ``pack_conv3x3_grad``;
+    without it ``cache`` takes the per-version cache (grad off), else the
+    call packs anew.
+    """
+    if packed is None:
+        return _packed_params(weight, bias, dtype) if cache else _pack(weight, bias, dtype)
+    _check_grad_pack(packed, weight.shape[0], dtype, what)
+    b = None if bias is None else bias.detach().to(dtype).float().contiguous()
+    return (packed[0] if packed.dim() == 6 else packed), b
+
+
 def _conv3x3_bias_relu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                            cache: bool, pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+                            cache: bool, pad_top: int = 1, pad_bottom: int = 1,
+                            packed: torch.Tensor | None = None) -> torch.Tensor:
     """``unet_seg::conv3x3_bias_relu`` on a CUDA tensor: the kernel with bias and ReLU fused.
 
-    ``cache``: take the packed weights from the per-version cache (grad
-    mode off), else pack them anew. ``pad_top``, ``pad_bottom``: the H pads.
+    ``packed``: the Function's ``pack_conv3x3_grad`` packing (grad on);
+    without it, ``cache`` takes the packed weights from the per-version
+    cache (grad mode off), else the call packs them anew. ``pad_top``,
+    ``pad_bottom``: the H pads.
     """
     pad = (pad_top, pad_bottom)
     _check_shapes(x, weight, bias, pad)
-    packed, b = _packed_params(weight, bias, x.dtype) if cache else _pack(weight, bias, x.dtype)
-    out = _launch(x, packed, b, "conv3x3", pad=pad)
+    wpk, b = _forward_weights(weight, bias, x.dtype, cache, packed, "conv3x3")
+    out = _launch(x, wpk, b, "conv3x3", pad=pad)
     _count(conv3x3_bias_relu, pad)
     return out
 
@@ -378,26 +478,36 @@ conv3x3_bias_relu_op = torch.library.custom_op(
 
 @conv3x3_bias_relu_op.register_kernel("cpu")
 def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool,
-      pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+      pad_top: int = 1, pad_bottom: int = 1, packed: torch.Tensor | None = None) -> torch.Tensor:
+    _check_grad_pack(packed, x.shape[1], x.dtype, "conv3x3")
     return as_kernel_layout(conv3x3_bias_relu_plain(x, weight, bias, (pad_top, pad_bottom)))
 
 
 @conv3x3_bias_relu_op.register_fake
 def _(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, cache: bool,
-      pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+      pad_top: int = 1, pad_bottom: int = 1, packed: torch.Tensor | None = None) -> torch.Tensor:
     pad = (pad_top, pad_bottom)
     _check_shapes(x, weight, bias, pad)
+    _check_grad_pack(packed, x.shape[1], x.dtype, "conv3x3")
     n, c, h, w = x.shape
     return empty_kernel_output((n, c, out_rows(h, pad), w), x)
 
 
-def _conv3x3_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
-                        pad_bottom: int = 1) -> torch.Tensor:
-    """``unet_seg::conv3x3_dgrad`` on a CUDA tensor: the kernel, flipped and transposed weights."""
+def _conv3x3_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor, packed: torch.Tensor,
+                        pad_top: int = 1, pad_bottom: int = 1) -> torch.Tensor:
+    """``unet_seg::conv3x3_dgrad`` on a CUDA tensor: the kernel on the forward's packing.
+
+    bf16 and ``fma``: the kernel reads ``packed`` flipped in space and
+    transposed in channels (MODE_DGRAD); ``tf32x3``: the bare conv on the
+    packing's dgrad planes (layout 1). Nothing is packed here.
+    """
     pad = (pad_top, pad_bottom)
     _check_shapes(g, weight, None, pad)
-    dx = _launch(g, pack_conv3x3_weight(_dgrad_weight(weight), g.dtype), None, "conv3x3_dgrad",
-                 pad=pad)
+    _check_grad_pack(packed, g.shape[1], g.dtype, "conv3x3_dgrad")
+    if packed.dim() == 6:  # tf32x3
+        dx = _launch(g, packed[1], None, "conv3x3_dgrad", pad=pad)
+    else:
+        dx = _launch(g, packed, None, "conv3x3_dgrad", pad=pad, dgrad=True)
     _count(conv3x3_dgrad, pad)
     return dx
 
@@ -407,30 +517,36 @@ conv3x3_dgrad_op = torch.library.custom_op(
 
 
 @conv3x3_dgrad_op.register_kernel("cpu")
-def _(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
+def _(g: torch.Tensor, weight: torch.Tensor, packed: torch.Tensor, pad_top: int = 1,
       pad_bottom: int = 1) -> torch.Tensor:
+    _check_grad_pack(packed, g.shape[1], g.dtype, "conv3x3_dgrad")  # the plain version reads weight
     return as_kernel_layout(conv3x3_dgrad_plain(g, weight, (pad_top, pad_bottom)))
 
 
 @conv3x3_dgrad_op.register_fake
-def _(g: torch.Tensor, weight: torch.Tensor, pad_top: int = 1,
+def _(g: torch.Tensor, weight: torch.Tensor, packed: torch.Tensor, pad_top: int = 1,
       pad_bottom: int = 1) -> torch.Tensor:
     pad = (pad_top, pad_bottom)
     _check_shapes(g, weight, None, pad)
+    _check_grad_pack(packed, g.shape[1], g.dtype, "conv3x3_dgrad")
     n, c, h, w = g.shape
     return empty_kernel_output((n, c, out_rows(h, pad), w), g)
 
 
-def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor,
-                  pad: tuple[int, int] = SAME) -> torch.Tensor:
+def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, pad: tuple[int, int] = SAME,
+                  packed: torch.Tensor | None = None) -> torch.Tensor:
     """dx of conv3x3_same(x, weight) from the output's gradient ``g`` (NCHW).
 
     A CPU tensor takes ``conv3x3_dgrad_plain``; a CUDA tensor (channels_last)
-    runs the conv kernel on ``g`` with the flipped, transposed weights
-    (packed anew on every call) and its epilogue's bias and ReLU off.
+    runs the conv kernel on ``g`` with the weights flipped and transposed
+    and its epilogue's bias and ReLU off, reading ``packed``, the forward's
+    ``pack_conv3x3_grad(weight, g.dtype)`` (the Functions' backward hands
+    over the one their forward made; a call with none packs it here).
     ``pad`` is dgrad's own H pads (``dgrad_pad`` of the forward's).
     """
-    return conv3x3_dgrad_op(g, weight, *pad)
+    if packed is None:
+        packed = pack_conv3x3_grad(weight, g.dtype)
+    return conv3x3_dgrad_op(g, weight, packed, *pad)
 
 
 conv3x3_dgrad.launches = 0
@@ -453,29 +569,32 @@ def _wgrad(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
 class _Conv3x3BiasRelu(torch.autograd.Function):
     """relu(conv(x, W) + b) with the kernels forward and (dgrad) backward.
 
-    Backward of the fused op: g_pre = g * (y > 0) with y the saved output;
-    dx = dgrad(g_pre) through the conv kernel; db = sum of g_pre; dW by
+    With grad on the forward packs W once (``pack_conv3x3_grad``), reads the
+    packing and saves it. Backward of the fused op: g_pre = g * (y > 0)
+    with y the saved output; dx = dgrad(g_pre) through the conv kernel on
+    the saved packing; db = sum of g_pre; dW by
     ``torch.nn.grad.conv2d_weight`` (cuDNN on the card), as the JAX package
     left wgrad to XLA. dW and db come back in the parameters' dtype.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, cache: bool, pad: tuple[int, int]):
-        y = conv3x3_bias_relu_op(x, weight, bias, cache, *pad)
+        packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
+        y = conv3x3_bias_relu_op(x, weight, bias, cache, *pad, packed=packed)
         if not cache:  # grad mode on: a backward may follow
-            ctx.save_for_backward(x, weight, y)
+            ctx.save_for_backward(x, weight, y, packed)
             ctx.bias_dtype, ctx.pad = bias.dtype, pad
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, weight, y = ctx.saved_tensors
+        x, weight, y, packed = ctx.saved_tensors
         g_pre = torch.empty_like(y, memory_format=torch.channels_last)
         torch.ops.aten.threshold_backward.grad_input(g, y, 0, grad_input=g_pre)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad(g_pre, weight, dgrad_pad(ctx.pad)).to(x.dtype)
+            dx = conv3x3_dgrad_op(g_pre, weight, packed, *dgrad_pad(ctx.pad)).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = _wgrad(x, weight, g_pre.to(x.dtype), ctx.pad)
         if ctx.needs_input_grad[2]:
@@ -489,7 +608,8 @@ def conv3x3_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
     Differentiable in x, weight and bias. With grad mode off the packed
     weights come from the per-version cache; with it on (training) every
-    call packs what the weight holds now. ``pad``: the H pads (SAME: 1, 1).
+    call packs what the weight holds now, and its backward's dgrad reads
+    that packing. ``pad``: the H pads (SAME: 1, 1).
     """
     return _Conv3x3BiasRelu.apply(x, weight, bias, not torch.is_grad_enabled(), tuple(pad))
 
@@ -499,15 +619,16 @@ conv3x3_bias_relu.halo_launches = 0
 
 
 def _conv3x3_same_cuda(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
-                       pad_bottom: int = 1) -> torch.Tensor:
+                       pad_bottom: int = 1, packed: torch.Tensor | None = None) -> torch.Tensor:
     """``unet_seg::conv3x3_same`` on a CUDA tensor: the kernel, epilogue off.
 
-    ``cache`` as ``_conv3x3_bias_relu_cuda``'s; ``pad_top``, ``pad_bottom``: the H pads.
+    ``cache`` and ``packed`` as ``_conv3x3_bias_relu_cuda``'s; ``pad_top``,
+    ``pad_bottom``: the H pads.
     """
     pad = (pad_top, pad_bottom)
     _check_shapes(x, weight, None, pad)
-    packed, _ = _packed_params(weight, None, x.dtype) if cache else _pack(weight, None, x.dtype)
-    out = _launch(x, packed, None, "conv3x3_same", pad=pad)
+    wpk, _ = _forward_weights(weight, None, x.dtype, cache, packed, "conv3x3_same")
+    out = _launch(x, wpk, None, "conv3x3_same", pad=pad)
     _count(conv3x3_same, pad)
     return out
 
@@ -518,15 +639,17 @@ conv3x3_same_op = torch.library.custom_op(
 
 @conv3x3_same_op.register_kernel("cpu")
 def _(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
-      pad_bottom: int = 1) -> torch.Tensor:
+      pad_bottom: int = 1, packed: torch.Tensor | None = None) -> torch.Tensor:
+    _check_grad_pack(packed, x.shape[1], x.dtype, "conv3x3_same")
     return as_kernel_layout(conv3x3_same_plain(x, weight, (pad_top, pad_bottom)))
 
 
 @conv3x3_same_op.register_fake
 def _(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
-      pad_bottom: int = 1) -> torch.Tensor:
+      pad_bottom: int = 1, packed: torch.Tensor | None = None) -> torch.Tensor:
     pad = (pad_top, pad_bottom)
     _check_shapes(x, weight, None, pad)
+    _check_grad_pack(packed, x.shape[1], x.dtype, "conv3x3_same")
     n, c, h, w = x.shape
     return empty_kernel_output((n, c, out_rows(h, pad), w), x)
 
@@ -534,29 +657,31 @@ def _(x: torch.Tensor, weight: torch.Tensor, cache: bool, pad_top: int = 1,
 class _Conv3x3Same(torch.autograd.Function):
     """conv(x, W), no bias, with the kernel forward (epilogue off) and dgrad backward.
 
-    Backward: dx = dgrad(g) through the conv kernel; dW by
-    ``torch.nn.grad.conv2d_weight`` (cuDNN on the card), as the JAX package
-    left wgrad to XLA. There is no ReLU mask: BN and ReLU follow as stock
-    ops. On the card ``g`` (BN's input gradient) is made ``channels_last``
-    if it is not, which the kernel reads.
+    With grad on the forward packs W once (``pack_conv3x3_grad``), reads the
+    packing and saves it. Backward: dx = dgrad(g) through the conv kernel on
+    the saved packing; dW by ``torch.nn.grad.conv2d_weight`` (cuDNN on the
+    card), as the JAX package left wgrad to XLA. There is no ReLU mask: BN
+    and ReLU follow as stock ops. On the card ``g`` (BN's input gradient) is
+    made ``channels_last`` if it is not, which the kernel reads.
     """
 
     @staticmethod
     def forward(ctx, x, weight, cache: bool, pad: tuple[int, int]):
-        y = conv3x3_same_op(x, weight, cache, *pad)
+        packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
+        y = conv3x3_same_op(x, weight, cache, *pad, packed=packed)
         if not cache:  # grad mode on: a backward may follow
-            ctx.save_for_backward(x, weight)
+            ctx.save_for_backward(x, weight, packed)
             ctx.pad = pad
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, weight = ctx.saved_tensors
+        x, weight, packed = ctx.saved_tensors
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad(g, weight, dgrad_pad(ctx.pad))
+            dx = conv3x3_dgrad_op(g, weight, packed, *dgrad_pad(ctx.pad))
         if ctx.needs_input_grad[1]:
             dw = _wgrad(x, weight, g, ctx.pad)
         return dx, dw, None, None
@@ -568,7 +693,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor,
 
     Differentiable in x and weight. With grad mode off the packed weights
     come from the per-version cache; with it on (training) every call packs
-    what the weight holds now. ``pad``: the H pads (SAME: 1, 1).
+    what the weight holds now, and its backward's dgrad reads that packing.
+    ``pad``: the H pads (SAME: 1, 1).
     """
     return _Conv3x3Same.apply(x, weight, not torch.is_grad_enabled(), tuple(pad))
 

@@ -4,9 +4,11 @@ Each kernel entry point is a ``torch.library.custom_op``:
 
 - ``unet_seg::upsample2x(x, align_corners)`` and
   ``unet_seg::upsample2x_backward(g, align_corners)`` (``ops/upsample.py``);
-- ``unet_seg::conv3x3_bias_relu(x, weight, bias, cache)``,
-  ``unet_seg::conv3x3_same(x, weight, cache)`` and
-  ``unet_seg::conv3x3_dgrad(g, weight)`` (``ops/conv3x3.py``).
+- ``unet_seg::conv3x3_bias_relu(x, weight, bias, cache, pad_top, pad_bottom,
+  packed)``, ``unet_seg::conv3x3_same(x, weight, cache, pad_top, pad_bottom,
+  packed)`` and ``unet_seg::conv3x3_dgrad(g, weight, packed, pad_top,
+  pad_bottom)`` (``ops/conv3x3.py``; ``packed`` is the forward's
+  ``pack_conv3x3_grad`` packing, which dgrad reads on the card).
 
 Each has three implementations: on CUDA tensors the kernel's launch (its
 checks raise, its ``.launches`` counter counts), on CPU tensors the plain
@@ -16,7 +18,9 @@ So ``torch.export`` keeps the kernels as graph nodes, and the profiler
 names each call ``unet_seg::<op>``. The autograd Functions of the two
 modules call the operators; an operator has no autograd formula of its own.
 ``cache`` (the conv's packed-weight cache, grad mode off) is an argument,
-so an inference graph exported under ``torch.no_grad()`` holds ``True``.
+so an inference graph exported under ``torch.no_grad()`` holds ``True``
+(and no ``packed``); with grad on the autograd Function packs once and
+passes the packing to the forward operator and, in its backward, to dgrad.
 
 Importing ``ops.upsample`` and ``ops.conv3x3`` registers the operators;
 ``registered_ops`` imports both and returns the five.

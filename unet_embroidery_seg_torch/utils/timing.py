@@ -61,7 +61,9 @@ def graph_ms(fn, probe_ms: float, budget_ms: float = 300.0) -> float:
 KERNEL_GROUPS = [
     ("port upsample2x backward", ("upsample2x_bwd_kernel",)),
     ("port upsample2x", ("upsample2x_kernel",)),
-    # The tensor-core kernel's f32 (tf32x3) instances, then every other conv3x3 launch.
+    # The tensor-core kernel's f32 (tf32x3) instances and their grad-mode weight
+    # packing, then every other conv3x3 launch.
+    ("port conv3x3 f32 tf32x3 weight pack", ("conv3x3_pack_tf32x3",)),
     ("port conv3x3 f32 tf32x3 (forward and dgrad)", ("conv3x3_wgmma_kernel<float",)),
     ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("memcpy", ("Memcpy", "memcpy")),
