@@ -16,8 +16,9 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    the card's own time, by CUDA-graph replay (``ms_method``); ``eager_ms``
    and ``library_eager_ms`` are the same calls back to back from the host,
    dispatch included; ``plain_ms`` is eager. Each row names the kernel path
-   taken (conv: ``c64_persistent``, ``wgmma``, ``tf32x3`` or ``fma``) and its TFLOP/s
-   and share of the bound, both from ``ms``; ``tf32x3`` rows are bound at
+   taken (conv: ``c64_persistent``, ``wgmma``, ``tf32x3_c64`` (f32, C <= 64),
+   ``tf32x3`` or ``fma``) and its TFLOP/s and share of the bound, both from
+   ``ms``; the f32 tensor-core rows (``tf32x3_c64``, ``tf32x3``) are bound at
    the 3xTF32 rate (495/3 TFLOP/s), with the CUDA cores' 67 TFLOP/s bound
    beside it (``cuda_core_bound_ms``). Then an in-place weight update
    between two conv calls on signed inputs must change the result (the
@@ -104,8 +105,8 @@ align_corners=True upsamples and 6 fused convs) and the multiclass task
   class confusion sums to 8) and eval-after-step checks of phase 5;
 - 10b. the paper pipeline's ``--no-amp``: 3 f32 steps each of
   multitask_unet and of multiclass unet_resnet50 with CE + Dice and with
-  Focal + Dice, timed, finite, launch counts held, every fused site on
-  ``tf32x3``;
+  Focal + Dice, timed, finite, launch counts held, the fused sites on
+  ``tf32x3_c64`` (C = 64, three) and ``tf32x3`` (three);
 - 10c. multiclass unet_plain in bf16, CE + Dice, 20 steps (4 + 4 + 9 + 9
   launches), with the checks of 10a (the eval step's four metrics in
   [0, 1]);
@@ -188,8 +189,8 @@ that runs them, and the train CLI's ``--profile``:
   artifact's no more than eager's; artifact and eager serving forward
   timed per batch in turns (median card ms per call by CUDA events, host
   ms per call), the artifact's bytes;
-- 13c. the same for one ``--no-amp`` (f32) artifact at batch 1, every
-  fused site on ``tf32x3``;
+- 13c. the same for one ``--no-amp`` (f32) artifact at batch 1, the
+  fused sites on ``tf32x3_c64`` and ``tf32x3``;
 - 13d. the train CLI with ``--profile`` (resident path, unet_resnet50,
   512^2, batch 8, chunks of 2): the trace file parses and holds, in its
   window (chunk 1: 2 steps), exactly 2 x (5, 5, 6, 6) CUDA kernels of the
@@ -215,7 +216,7 @@ counts are set to 0 before it and read after. It fails unless each leg's
 ``expN/config.json`` sequence of (task, model, loss) is ``pipeline.plan``'s
 with the winner picked, every run is f32 on the card, the tables hold a
 row per fit (multitask renders none, as ``run.sh``), every square conv
-site is on ``tf32x3``, the f32 upsample (forward, backward) and conv
+site is on ``tf32x3_c64`` or ``tf32x3``, the f32 upsample (forward, backward) and conv
 (fused and bias-free forward, dgrad) all launched, and each fit's counts
 are its family's sites times its model forwards (backward: its train
 steps, 2). Prints each leg's seconds per fit.
@@ -292,7 +293,7 @@ rule as 16b holds its SGD step.
 
 The model phases (5, 6, 8, 9, 10) record each model's ``square_conv_paths`` in
 the dtype they run, and fail if a square conv site would take the CUDA-core
-kernel: in f32 every site is ``tf32x3``.
+kernel: in f32 every site is ``tf32x3_c64`` (C <= 64) or ``tf32x3``.
 
 Last, the ``kernels`` JSON line (unet_resnet50's entries, then the
 families' under names of their own, then the f32 conv's, ``[f32]``, with
@@ -334,6 +335,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 off th
 # rows are bound against it (the least time the card takes for f32-accurate
 # work); ``cuda_core_bound_ms`` keeps the 67 TFLOP/s one beside it.
 PEAK_FLOPS_3XTF32 = 495e12 / 3
+# unet_resnet50's six fused sites in f32: C = 512, 256, 128, and 64 three times.
+F32_FUSED_PATHS = {"tf32x3": 3, "tf32x3_c64": 3}
 BATCH, SIZE = 8, 480
 TRAIN_SIZE, TRAIN_STEPS = 512, 60
 UPSAMPLE_SITES = [(2048, 15), (512, 30), (256, 60), (128, 120), (64, 240)]  # (C, H_in)
@@ -479,7 +482,9 @@ EXTRA_BUDGET_MS = 60.0
 
 
 def bound(nbytes: float, flops: float, dtype, path: str = "") -> tuple[float, str]:
-    peak = PEAK_FLOPS_3XTF32 if path == "tf32x3" else PEAK_FLOPS[dtype]
+    from unet_embroidery_seg_torch.ops.conv3x3 import TF32X3_PATHS
+
+    peak = PEAK_FLOPS_3XTF32 if path in TF32X3_PATHS else PEAK_FLOPS[dtype]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -582,6 +587,7 @@ def _forward_case(kernel: str, c: int, h: int, dtype, gen: torch.Generator,
     ``tf32x3``, else None.
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import (
+        TF32X3_PATHS,
         conv3x3_bias_relu,
         conv3x3_bias_relu_plain,
         conv3x3_path,
@@ -619,7 +625,7 @@ def _forward_case(kernel: str, c: int, h: int, dtype, gen: torch.Generator,
         run = lambda: conv3x3_same(x, w)  # noqa: E731
         plain = lambda: conv3x3_same_plain(x, w)  # noqa: E731
         library = lambda: F.conv2d(x, wd, padding=1)  # noqa: E731
-    fma = _fma_call(x, w, b) if path == "tf32x3" else None
+    fma = _fma_call(x, w, b) if path in TF32X3_PATHS else None
     return run, plain, library, nbytes, flops, path, x, fma
 
 
@@ -715,6 +721,7 @@ def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Gen
     """
     from unet_embroidery_seg_torch.ops.conv3x3 import (
         SAME,
+        TF32X3_PATHS,
         conv3x3_dgrad,
         conv3x3_dgrad_plain,
         conv3x3_path,
@@ -751,7 +758,7 @@ def _backward_case(kernel: str, c: int, h: int, skip: int, dtype, gen: torch.Gen
     nbytes = 2 * g.numel() * es + 9 * c * c * es
     flops = 2.0 * 9 * c * c * BATCH * h * h
     path = conv3x3_path(c, dtype)
-    fma = _fma_call(g, w, dgrad=True) if path == "tf32x3" else None
+    fma = _fma_call(g, w, dgrad=True) if path in TF32X3_PATHS else None
     return run, plain, library, nbytes, flops, path, g, fma, _flipped_dgrad(g, w, SAME, packed)
 
 
@@ -922,7 +929,7 @@ def square_conv_paths(model, dtype) -> dict:
     """{kernel path: square conv sites of ``model``} for calls in ``dtype``.
 
     Every site must take a tensor-core path (bf16 ``c64_persistent`` /
-    ``wgmma``, f32 ``tf32x3``): a model site on the CUDA cores (``fma``)
+    ``wgmma``, f32 ``tf32x3_c64`` / ``tf32x3``): a model site on the CUDA cores (``fma``)
     fails the run.
     """
     from unet_embroidery_seg_torch.models.blocks import Conv3x3Same, SquareConv3x3
@@ -1557,8 +1564,8 @@ def task_train_path(counters, task: str, name: str, loss: str, steps: int, per_s
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     dtype = torch.bfloat16 if amp else torch.float32
     paths = square_conv_paths(model, dtype)
-    if not amp and paths != {"tf32x3": 6}:  # the f32 runs: the six fused sites
-        raise AssertionError(f"{label}: fused conv sites not all on tf32x3: {paths}")
+    if not amp and paths != F32_FUSED_PATHS:  # the f32 runs: the six fused sites
+        raise AssertionError(f"{label}: fused conv sites not on {F32_FUSED_PATHS}: {paths}")
     result = {
         "task": task, "model": name, "steps": steps, "size": TRAIN_SIZE, "batch": BATCH,
         "loss": loss, "lr": TRAIN_LR, "amp": amp,
@@ -2428,8 +2435,9 @@ def serving_phase(counters) -> dict:
             predict_fn = make_predict_fn(model, amp)
             eager = export_serving.build_predict(model, amp)
             paths = square_conv_paths(model, torch.bfloat16 if amp else torch.float32)
-            if not amp and paths != {"tf32x3": 6}:
-                raise AssertionError(f"f32 artifact: fused sites on {paths}, not all on tf32x3")
+            if not amp and paths != F32_FUSED_PATHS:
+                raise AssertionError(f"f32 artifact: fused sites on {paths}, not on "
+                                     f"{F32_FUSED_PATHS}")
             for b in batches:
                 art = manifest["artifacts"][str(b)]["cuda"]
                 module = export_serving.load_artifact(os.path.join(workdir, label, art["file"]))
@@ -2727,11 +2735,13 @@ def pipeline_phase(counters) -> dict:
     Fails unless the fits' (task, model, loss) follow ``pipeline.plan``
     with the winner picked, every config.json records an f32 run on the
     card, the tables hold a row per fit (multitask renders none, as
-    ``run.sh``), every square conv site is on ``tf32x3``, and each fit's
-    launches are its sites times its forwards (backward: train forwards).
+    ``run.sh``), every square conv site is on an f32 tensor-core path
+    (``TF32X3_PATHS``), and each fit's launches are its sites times its
+    forwards (backward: train forwards).
     """
     from unet_embroidery_seg_torch import pipeline
     from unet_embroidery_seg_torch import train as train_cli
+    from unet_embroidery_seg_torch.ops.conv3x3 import TF32X3_PATHS
 
     fits: list[dict] = []
     forwards: list[bool] = []
@@ -2799,8 +2809,8 @@ def pipeline_phase(counters) -> dict:
             out["legs"][task] = leg
         for fit in fits:
             _check_fit_launches(fit)
-        if any(set(p) - {"tf32x3"} for p in paths):
-            raise AssertionError(f"pipeline: square conv sites off tf32x3 in f32: {paths}")
+        if any(set(p) - set(TF32X3_PATHS) for p in paths):
+            raise AssertionError(f"pipeline: square conv sites off {TF32X3_PATHS} in f32: {paths}")
     finally:
         pipeline.run_fit, train_cli.build_model = real_fit, real_build
         os.chdir(cwd)

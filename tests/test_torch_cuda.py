@@ -5,8 +5,9 @@ interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
 vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
-``wgmma`` above; f32 with C % 4 == 0 on the TF32 tensor cores, ``tf32x3``,
-held to f32's tolerance; the rest on the CUDA cores, ``fma``). The backward kernels
+``wgmma`` above; f32 with C % 4 == 0 on the TF32 tensor cores,
+``tf32x3_c64`` for C <= 64 (also at halo pads), ``tf32x3`` above, held to
+f32's tolerance; the rest on the CUDA cores, ``fma``). The backward kernels
 (upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
 Functions' gradients are held against the plain versions' autograd. The
 bias-free conv (``conv3x3_same``, epilogue off) runs at the same paths and
@@ -367,7 +368,7 @@ TF32X3_SHAPES = [(1, 32, 8, 16),     # one 16 x 8 tile, one chunk
 @pytest.mark.parametrize("shape", TF32X3_SHAPES)
 def test_tf32x3_kernel_matches_plain(device, shape, fn):
     n, c, h, w = shape
-    assert conv3x3_mod.conv3x3_path(c, torch.float32) == "tf32x3"
+    assert conv3x3_mod.conv3x3_path(c, torch.float32) == ("tf32x3_c64" if c <= 64 else "tf32x3")
     x = _x(shape, torch.float32, device, seed=c + h + 21)  # signed
     weight, bias = _conv_params(c, device, seed=c + 22)
     run, plain, counter = {
@@ -388,6 +389,36 @@ def test_tf32x3_kernel_matches_plain(device, shape, fn):
     # f32-accurate: about 2^-21 of each product, summed over 9*C terms in
     # another order: within 1e-4 of the largest value, as f32 on the CUDA cores.
     assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+@pytest.mark.parametrize("pad", [(1, 1), (0, 1), (1, 2)])
+@pytest.mark.parametrize("fn", ["bias_relu", "same", "dgrad"])
+@pytest.mark.parametrize("c", [16, 48, 64])
+def test_tf32x3_c64_kernel_matches_plain_at_each_pad(device, c, fn, pad):
+    # The C <= 64 variant (two pipelines per CTA, each streaming its own
+    # weights) in both launch modes (MODE_BIAS_RELU; MODE_CONV, which the
+    # bias-free forward and the f32 dgrad take) at SAME and halo pads.
+    assert conv3x3_mod.conv3x3_path(c, torch.float32) == "tf32x3_c64"
+    shape = (2, c, 37, 45)  # ragged tiles; 48: a half-empty second chunk
+    x = _x(shape, torch.float32, device, seed=c + sum(pad) + 27)
+    weight, bias = _conv_params(c, device, seed=c + 28)
+    run, plain, counter = {
+        "bias_relu": (lambda: conv3x3_bias_relu(x, weight, bias, pad),
+                      lambda: conv3x3_bias_relu_plain(x, weight, bias, pad), conv3x3_bias_relu),
+        "same": (lambda: conv3x3_same(x, weight, pad), lambda: conv3x3_same_plain(x, weight, pad),
+                 conv3x3_same),
+        "dgrad": (lambda: conv3x3_dgrad(x, weight, pad), lambda: conv3x3_dgrad_plain(x, weight, pad),
+                  conv3x3_dgrad),
+    }[fn]
+    before = (counter.launches, counter.halo_launches)
+    with torch.no_grad():
+        got = run()
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.halo_launches) == (before[0] + 1,
+                                                         before[1] + (pad != (1, 1)))
+    want = plain()
+    assert got.shape == (2, c, 37 + sum(pad) - 2, 45)
+    assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)  # f32, 9*C terms
 
 
 @pytest.mark.parametrize("tap", [4, 0, 8, 5])  # centre, the two corners, a side

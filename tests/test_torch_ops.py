@@ -122,9 +122,11 @@ def test_upsample_tile_taps_fit_the_kernels_staging_area(tile, align_corners):
 @pytest.mark.parametrize("c,dtype,path", [
     (64, torch.bfloat16, "c64_persistent"), (16, torch.bfloat16, "c64_persistent"),
     (80, torch.bfloat16, "wgmma"), (2048, torch.bfloat16, "wgmma"),
-    (24, torch.bfloat16, "fma"), (130, torch.bfloat16, "fma"), (64, torch.float32, "tf32x3"),
-    # f32 with C % 4 == 0 (TMA's 16-byte strides) on the TF32 tensor cores, the rest fma
-    (4, torch.float32, "tf32x3"), (36, torch.float32, "tf32x3"), (1024, torch.float32, "tf32x3"),
+    (24, torch.bfloat16, "fma"), (130, torch.bfloat16, "fma"), (64, torch.float32, "tf32x3_c64"),
+    # f32 with C % 4 == 0 (TMA's 16-byte strides) on the TF32 tensor cores (C <= 64 its own
+    # variant), the rest fma
+    (4, torch.float32, "tf32x3_c64"), (36, torch.float32, "tf32x3_c64"),
+    (1024, torch.float32, "tf32x3"),
     (3, torch.float32, "fma"), (6, torch.float32, "fma"), (130, torch.float32, "fma"),
 ])
 def test_conv3x3_path_by_dtype_and_channels(c, dtype, path):
@@ -233,7 +235,7 @@ def _unpack(packed, c, dtype):
     path = conv3x3_path(c, dtype)
     if path == "fma":  # [ky][kx][co][ci]
         return packed.permute(2, 3, 0, 1)
-    if path == "tf32x3":  # [plane][tap][chunk][co_pad][32]
+    if path in conv3x3_mod.TF32X3_PATHS:  # [plane][tap][chunk][co_pad][32]
         return torch.stack([_unpack_planar(p, c, 32) for p in packed])
     return _unpack_planar(packed, c, 64)
 
@@ -250,7 +252,7 @@ def test_pack_conv3x3_weight_round_trips(c, dtype):
     packed = pack_conv3x3_weight(weight, dtype)
     assert packed.dtype == dtype and packed.is_contiguous()
     bn = 64 if c <= 64 else 128
-    if conv3x3_path(c, dtype) == "tf32x3":
+    if conv3x3_path(c, dtype) in conv3x3_mod.TF32X3_PATHS:
         # [w_big, w_small][tap][C_in chunk of 32][C_out padded to the tile][32]
         assert tuple(packed.shape) == (2, 9, -(-c // 32), -(-c // bn) * bn, 32)
         want = torch.stack(conv3x3_mod.tf32_split(weight))
@@ -271,7 +273,7 @@ def _conv_from_packed(x, packed, bias, c, path):
         for kx in range(3):
             if path == "fma":  # [ky][kx][co][ci]
                 tap = packed[ky, kx]
-            elif path == "tf32x3":  # [plane][tap][chunk][co_pad][32]: w_big + w_small
+            elif path in conv3x3_mod.TF32X3_PATHS:  # [plane][tap][chunk][co_pad][32]: big + small
                 tap = sum(torch.cat([p[ky * 3 + kx, k, :c] for k in range(p.shape[1])],
                                     dim=1)[:, :c] for p in packed)
             else:  # [tap][chunk][co_pad][64]: the chunks side by side are C_in

@@ -80,14 +80,14 @@
 //        (64, TW, TH, 1) boxes, which clip the ragged edges and C not a
 //        multiple of 64. The C <= 64 path stages in the halo stage it has
 //        just consumed, the C > 64 path in a 32 KB buffer of its own.
-//  - f32 with C % 4 == 0 (every f32 model site): "tf32x3", the same
-//    streamed kernel (template instances for float) on the TF32 tensor
-//    cores, f32-accurate by the three-pass split: a = a_big + a_small and
-//    w = w_big + w_small, each part rounded to tf32 (cvt.rna: nearest, ties
-//    away), acc += a_small*w_big + a_big*w_small + a_big*w_big in f32
-//    (a_small*w_small, ~2^-22 of a product, is dropped). Bound: 2*9*C*C
-//    FLOP per pixel at 495/3 = 165 TFLOP/s, 0.824 ms at C = 1024, 30^2,
-//    batch 8 (the CUDA cores' f32 peak, 67 TFLOP/s, would be 2.03 ms).
+//  - f32 with C % 4 == 0 (every f32 model site): the same kernel's float
+//    template instances on the TF32 tensor cores, f32-accurate by the
+//    three-pass split: a = a_big + a_small and w = w_big + w_small, each
+//    part rounded to tf32 (cvt.rna: nearest, ties away), acc += a_small*w_big
+//    + a_big*w_small + a_big*w_big in f32 (a_small*w_small, ~2^-22 of a
+//    product, is dropped). Bound: 2*9*C*C FLOP per pixel at 495/3 = 165
+//    TFLOP/s, 0.824 ms at C = 1024, 30^2, batch 8 (the CUDA cores' f32 peak,
+//    67 TFLOP/s, would be 2.03 ms); 0.937 ms at C = 64, 512^2, batch 8.
 //      * A 32-channel f32 chunk is 128 bytes: the bf16 path's halo box,
 //        swizzle and ldmatrix addresses carry over unchanged, CHUNK = 32.
 //        An ldmatrix 8x8 b16 matrix is 8 rows x 4 f32, so the x4 load that
@@ -98,17 +98,46 @@
 //      * B: the packed weights hold two planes, w_big and w_small, already
 //        rounded on the host (the same rounding as cvt.rna); K-major, the
 //        only layout wgmma takes for tf32; a weight stage is one tap-chunk
-//        of both planes (two TMA loads on one barrier).
-//      * Shared memory (the bf16 layout would take 265 KB here): 2 halo
-//        stages of 24 KB, 128 KB of weight stages (4 x 32 KB at N = 128,
-//        8 x 16 KB at N = 64: 12 wgmma per stage), and the 64 KB f32
-//        epilogue staged as rounds of 64 channels through one 32 KB buffer;
-//        214 KB in all.
-//      * Tiles of 64 output channels for C <= 64 (no padded half), 128
-//        above; no resident-weight variant (two f32 planes at C = 64 are
-//        288 KB).
-//      * Epilogue: + bias (f32) and ReLU, f32 rows of 32 channels with the
-//        128-byte swizzle, TMA stores of (32, TW, TH, 1) boxes.
+//        of both planes (two TMA loads on one barrier). Both variants below
+//        read the one packing. No resident-weight variant: two f32 planes
+//        at C = 64 are 288 KB.
+//      * C > 64: "tf32x3", the streamed layout (one pipeline of both
+//        warpgroups, one slab each), tiles of 128 output channels. Shared
+//        memory (the bf16 layout would take 265 KB here): 2 halo stages of
+//        24 KB, 128 KB of weight stages (4 x 32 KB: 12 wgmma per stage),
+//        and the 64 KB f32 epilogue staged as rounds of 64 channels through
+//        one 32 KB buffer; 214 KB in all. Epilogue: + bias (f32) and ReLU,
+//        f32 rows of 32 channels with the 128-byte swizzle, TMA stores of
+//        (32, TW, TH, 1) boxes.
+//      * C <= 64 (up_conv.1/.3 and the families' inc, up4.conv at 512^2,
+//        up_concat1.conv2 at 256^2, their halo bands; forward and dgrad):
+//        "tf32x3_c64", layout PIPES. With the streamed layout at N = 64
+//        these ran at ~59% of the bound. Timing variants of that kernel at
+//        64@512 (scripts/torch_conv_f32_probe.py split, H100 SXM, 700 W)
+//        put the loss in the A split first: with no split at all the call
+//        took ~15% less, with the store skipped ~5% less, the epilogue
+//        skipped ~5%, the L2 weight reloads taken away ~2%. sm_90 has no
+//        one-instruction cvt.rna.tf32.f32 (ptxas emits a compare-and-
+//        select sequence: 288 FSETP in a chunk's 9 taps), and at N = 64 each split
+//        serves only 24 MMA columns. So:
+//          - the split is done on the bits (tf32_rna_bits: an integer add
+//            and a mask, the same values; ~11% of the call);
+//          - two pipelines per CTA, as c64_persistent: each consumer
+//            warpgroup takes its own 128-pixel tiles as two m64 slabs,
+//            with its own 2-stage halo ring, its own ring of 4 weight
+//            stages of 16 KB (each tap's 24 wgmma) and its own producer
+//            thread, so one pipeline's epilogue, split and chunk-end drain
+//            run under the other's MMAs. The second pipeline starts half
+//            an item late (the "go" barrier), so the two epilogues do not
+//            fall together. The output is staged in the halo stage just
+//            consumed, in rounds of 32 channels (16 KB). 225 KB in all;
+//          - a commit group per k8 step (6 wgmma), one left in flight: the
+//            A fragments of a whole tap for two slabs, big and small,
+//            beside 64 accumulators, spilled past the 168 registers ptxas
+//            gives a thread of 384.
+//        Same products in the same order as the streamed layout: the
+//        output is bit-equal to it. 64@512: ~70% of the bound (the
+//        streamed layout ~59%).
 //  - everything else (C % 4 != 0 in f32, C % 16 != 0 in bf16):
 //    conv3x3_fma_kernel on the CUDA cores. An
 //    8 x 16 pixel tile x 64 output channels per block; each stage holds 8
@@ -160,10 +189,16 @@ constexpr int HALO_ROWS = 192;             // most (TH+2)*(TW+2) of a tile shape
 // T is the activation type: __nv_bfloat16, or float for 3xTF32.
 //
 // A "group" is one pipeline: its consumer warpgroups share a tile, a halo
-// ring and a producer thread. RESIDENT (bf16, C <= 64): two groups of one
-// warpgroup each (two slabs of m64), so one group's epilogue overlaps the
-// other's MMAs; both read the one resident weight set. Streamed: one group
-// of two warpgroups (one slab each) sharing every weight tile.
+// ring and a producer thread. LAYOUT says how the two consumer warpgroups
+// and the weights are laid out:
+//  - STREAMED (bf16 C > 64, f32 C > 64): one group of two warpgroups (one
+//    slab each) sharing every tile and every streamed weight stage.
+//  - RESIDENT (bf16, C <= 64): two groups of one warpgroup each (two slabs
+//    of m64), so one group's epilogue overlaps the other's MMAs; both read
+//    the one resident weight set.
+//  - PIPES (f32, C <= 64): two groups of one warpgroup each, as RESIDENT,
+//    but each streams its own weight ring (two f32 planes are too large to
+//    stay). The epilogue stages in the halo stage just consumed.
 //
 // f32 (3xTF32): a chunk is 32 channels, so a row is still 128 bytes; a
 // weight stage holds two planes (w_big, w_small), 32 KB at BN = 128. The
@@ -171,29 +206,49 @@ constexpr int HALO_ROWS = 192;             // most (TH+2)*(TW+2) of a tile shape
 // wgmma, ~14k cycles, against one 24 KB halo load), 128 KB of weight stages
 // (4 at BN = 128: each tap's 12 wgmma cover ~1.5k cycles, so 3 loads stay
 // in flight ahead), and the 64 KB f32 epilogue staged in rounds of 64
-// channels through one 32 KB buffer.
-template <typename T, int BN, bool RESIDENT>
+// channels through one 32 KB buffer. PIPES: per group 2 halo stages and a
+// ring of 4 weight stages of 16 KB (each tap's 24 wgmma cover ~0.8-1.5k
+// cycles), the output staged in rounds of 32 channels (16 KB) in the halo
+// stage; 225 KB in all.
+constexpr int STREAMED = 0, RESIDENT = 1, PIPES = 2;
+
+template <typename T, int BN, int LAYOUT>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int CHUNK = ROW_BYTES / static_cast<int>(sizeof(T));  // channels per stage
   static constexpr int PLANES = F32 ? 2 : 1;               // weight planes: w_big, w_small
-  static constexpr int GROUPS = RESIDENT ? 2 : 1;
+  static constexpr bool RESIDENT_W = LAYOUT == RESIDENT;   // weights loaded once per CTA
+  static constexpr int GROUPS = LAYOUT == STREAMED ? 1 : 2;
+  static constexpr int RINGS = LAYOUT == PIPES ? 2 : 1;    // weight rings: one per group
   static constexpr int WGS = 2 / GROUPS;                   // warpgroups per group
   static constexpr int SLABS = TILE_M / 64 / WGS;          // m64 slabs per warpgroup
   static constexpr int HALO_BYTES = HALO_ROWS * ROW_BYTES;  // a multiple of 1024
   static constexpr int H_STAGES = F32 ? 2 : 3;             // per group
   static constexpr int PLANE_BYTES = BN * ROW_BYTES;       // one tap, one chunk, one plane
   static constexpr int W_TILE = PLANES * PLANE_BYTES;
-  static constexpr int W_STAGES = RESIDENT ? 9 : F32 ? 131072 / W_TILE : 6;
-  static constexpr int OUT_CH = F32 ? 64 : BN;             // output channels staged per round
-  static constexpr int OUT_BYTES = RESIDENT ? 0 : TILE_M * OUT_CH * static_cast<int>(sizeof(T));
-  static constexpr int BARS = 2 * GROUPS * H_STAGES + 2 * W_STAGES;
-  static constexpr int SMEM =
-      1024 + GROUPS * H_STAGES * HALO_BYTES + W_STAGES * W_TILE + OUT_BYTES + 8 * BARS;
+  static constexpr int W_STAGES = RESIDENT_W ? 9 : F32 ? 131072 / W_TILE / RINGS : 6;  // per ring
+  // The epilogue stages its output in the halo stage it has just consumed.
+  static constexpr bool STAGE_IN_HALO = LAYOUT != STREAMED;
+  static constexpr int OUT_CH = !F32 ? BN : STAGE_IN_HALO ? CHUNK : 64;  // channels per round
+  static constexpr int OUT_BYTES =
+      STAGE_IN_HALO ? 0 : TILE_M * OUT_CH * static_cast<int>(sizeof(T));
+  // wgmma commit groups per tap (A registers double-buffered by group). f32
+  // with two slabs commits each k8 step (6 wgmma) on its own: a tap's A
+  // fragments, big and small, for both slabs, would not fit the 168
+  // registers ptxas gives a thread of 384 beside the 64 accumulators.
+  static constexpr int PARTS = F32 && SLABS == 2 ? 4 : 1;
+  static constexpr int BARS =
+      2 * GROUPS * H_STAGES + 2 * RINGS * W_STAGES + (LAYOUT == PIPES ? 1 : 0);
+  static constexpr int SMEM = 1024 + GROUPS * H_STAGES * HALO_BYTES + RINGS * W_STAGES * W_TILE +
+                              OUT_BYTES + 8 * BARS;
   static_assert(HALO_BYTES % 1024 == 0 && PLANE_BYTES % 1024 == 0,
                 "stages keep the swizzle's 1024-byte alignment");
+  static_assert(TILE_M * OUT_CH * static_cast<int>(sizeof(T)) <= HALO_BYTES || !STAGE_IN_HALO,
+                "a round of the output fits the halo stage");
   static_assert(SMEM <= 232448, "over the 227 KB a block can have");
-  static_assert(!(F32 && RESIDENT), "no resident f32 variant: two f32 planes at C = 64 are 288 KB");
+  static_assert(!(F32 && RESIDENT_W),
+                "no resident f32 variant: two f32 planes at C = 64 are 288 KB");
+  static_assert(LAYOUT != PIPES || F32, "PIPES is the f32 layout");
 };
 
 struct Params {
@@ -295,6 +350,12 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
   return r;
 }
+
+// The same rounding on the bits, as ops/conv3x3.py:_round_tf32 packs the
+// weights: add half of the dropped 13 bits' range, clear them (the carry
+// rounds the magnitude up, whatever the sign). Two integer operations where
+// sm_90's cvt.rna.tf32.f32 is a compare-and-select sequence of ~5.
+__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t v) { return (v + 0x1000u) & ~0x1FFFu; }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -457,25 +518,28 @@ __device__ __forceinline__ void wgmma_tile_tf32(float (&d)[BN / 2], const uint32
 // which wgmma's transposed-B mode reads in place. Streamed, a weight stage
 // is two TMA boxes of 64 co x 64 ci: the rows of this halo stage's K'
 // chunk from the two input-channel chunks of the N' = 128 tile.
-template <typename T, int BN, bool RESIDENT, bool BIAS_RELU, bool DGRAD>
+template <typename T, int BN, int LAYOUT, bool BIAS_RELU, bool DGRAD>
 __global__ void __launch_bounds__(THREADS, 1)
     conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap,
                          const __grid_constant__ CUtensorMap ymap, const Params p) {
-  using C = Cfg<T, BN, RESIDENT>;
+  using C = Cfg<T, BN, LAYOUT>;
   static_assert(!DGRAD || (!C::F32 && !BIAS_RELU), "dgrad: bf16, epilogue off");
-  constexpr int SLABS = C::SLABS;
+  constexpr bool RESIDENT_W = C::RESIDENT_W;
+  constexpr int SLABS = C::SLABS, PARTS = C::PARTS, KS = 4 / PARTS;  // KS: k steps per part
   constexpr int DG_BOX = C::CHUNK * ROW_BYTES;  // dgrad: 64 K' rows of one N' block
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align every stage to it.
   const uint32_t halo0 = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t wgt0 = halo0 + C::GROUPS * C::H_STAGES * C::HALO_BYTES;
-  const uint32_t out0 = wgt0 + C::W_STAGES * C::W_TILE;
+  const uint32_t out0 = wgt0 + C::RINGS * C::W_STAGES * C::W_TILE;
   const uint32_t bars = out0 + C::OUT_BYTES;
-  // Barriers: hfull[group][stage], hempty[group][stage], wfull[stage], wempty[stage].
+  // Barriers: hfull[group][stage], hempty[group][stage], wfull[ring][stage],
+  // wempty[ring][stage], and (PIPES) go: group 1 starts half an item late.
   const uint32_t hfull0 = bars, hempty0 = hfull0 + 8 * C::GROUPS * C::H_STAGES;
-  const uint32_t wfull = hempty0 + 8 * C::GROUPS * C::H_STAGES;
-  const uint32_t wempty = wfull + 8 * C::W_STAGES;
+  const uint32_t wfull0 = hempty0 + 8 * C::GROUPS * C::H_STAGES;
+  const uint32_t wempty0 = wfull0 + 8 * C::RINGS * C::W_STAGES;
+  const uint32_t go = wempty0 + 8 * C::RINGS * C::W_STAGES;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -483,10 +547,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(hfull0 + 8 * s, 1);
       mbar_init(hempty0 + 8 * s, 128 * C::WGS);
     }
-    for (int s = 0; s < C::W_STAGES; ++s) {
-      mbar_init(wfull + 8 * s, 1);
-      mbar_init(wempty + 8 * s, CONSUMERS);
+    for (int s = 0; s < C::RINGS * C::W_STAGES; ++s) {
+      mbar_init(wfull0 + 8 * s, 1);
+      mbar_init(wempty0 + 8 * s, CONSUMERS / C::RINGS);
     }
+    if (LAYOUT == PIPES) mbar_init(go, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -502,10 +567,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t hfull = hfull0 + 8 * g * C::H_STAGES;
       const uint32_t hempty = hempty0 + 8 * g * C::H_STAGES;
       const uint32_t halo_g = halo0 + g * C::H_STAGES * C::HALO_BYTES;
-      if (RESIDENT && g == 0) {
+      const int ring = C::RINGS == 2 ? g : 0;
+      const uint32_t wfull = wfull0 + 8 * ring * C::W_STAGES;
+      const uint32_t wempty = wempty0 + 8 * ring * C::W_STAGES;
+      const uint32_t wgt = wgt0 + ring * C::W_STAGES * C::W_TILE;
+      if (RESIDENT_W && g == 0) {
         mbar_expect_tx(wfull, 9 * C::W_TILE);
         for (int tap = 0; tap < 9; ++tap)
-          tma_load_2d(wgt0 + tap * C::W_TILE, &wmap, wfull, 0, tap * p.co_pad);
+          tma_load_2d(wgt + tap * C::W_TILE, &wmap, wfull, 0, tap * p.co_pad);
       }
       int hi = 0, wi = 0;
       for (int item = blockIdx.x * C::GROUPS + g; item < p.items; item += slots) {
@@ -520,7 +589,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_expect_tx(hfull + 8 * hs, p.halo_tx);
           tma_load_4d(halo_g + hs * C::HALO_BYTES, &xmap, hfull + 8 * hs, ch * C::CHUNK,
                       tx * p.tw - 1, ty * p.th - p.pad_top, n);
-          if (!RESIDENT) {
+          if (!RESIDENT_W) {
             for (int tap = 0; tap < 9; ++tap, ++wi) {
               const int ws = wi % C::W_STAGES;
               mbar_wait(wempty + 8 * ws, ((wi / C::W_STAGES) & 1) ^ 1);
@@ -530,13 +599,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                 // forward's tap 8 - tap; a chunk past the last is TMA's zero fill.
 #pragma unroll
                 for (int j = 0; j < BN / C::CHUNK; ++j)
-                  tma_load_4d(wgt0 + ws * C::W_TILE + j * DG_BOX, &wmap, wfull + 8 * ws, 0,
+                  tma_load_4d(wgt + ws * C::W_TILE + j * DG_BOX, &wmap, wfull + 8 * ws, 0,
                               ch * C::CHUNK, co_t * (BN / C::CHUNK) + j, 8 - tap);
               } else {
                 // f32: plane 1 (w_small) lies 9 * nchunks * co_pad rows after plane 0.
 #pragma unroll
                 for (int pl = 0; pl < C::PLANES; ++pl)
-                  tma_load_2d(wgt0 + ws * C::W_TILE + pl * C::PLANE_BYTES, &wmap, wfull + 8 * ws,
+                  tma_load_2d(wgt + ws * C::W_TILE + pl * C::PLANE_BYTES, &wmap, wfull + 8 * ws,
                               0, pl * 9 * p.nchunks * p.co_pad + (tap * p.nchunks + ch) * p.co_pad +
                                      co_t * BN);
               }
@@ -548,11 +617,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     // ---- consumers: warpgroup wg of group g, SLABS m64 slabs each -----------
     setmaxnreg_inc<232>();
-    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    // PIPES: the warpgroup index made warp-uniform to the compiler (a shuffle
+    // from lane 0), so the ring addresses and wgmma descriptors derived from
+    // it stay in uniform registers.
+    const int wg = LAYOUT == PIPES ? __shfl_sync(0xffffffffu, tid / 128, 0) : tid / 128;
+    const int warp = (tid / 32) % 4, lane = tid % 32;
     const int g = wg / C::WGS, wg_in = wg % C::WGS;
     const uint32_t hfull = hfull0 + 8 * g * C::H_STAGES;
     const uint32_t hempty = hempty0 + 8 * g * C::H_STAGES;
     const uint32_t halo_g = halo0 + g * C::H_STAGES * C::HALO_BYTES;
+    const int ring = C::RINGS == 2 ? g : 0;
+    const uint32_t wfull = wfull0 + 8 * ring * C::W_STAGES;
+    const uint32_t wempty = wempty0 + 8 * ring * C::W_STAGES;
+    const uint32_t wgt = wgt0 + ring * C::W_STAGES * C::W_TILE;
     const int tile_px = p.th * p.tw;
     // ldmatrix: lane -> A row (pixel) and 8-channel half of the k16 step.
     const int lrow = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
@@ -565,7 +642,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       a_row[s] = (m / p.tw) * halo_w + m % p.tw;
     }
 
-    if (RESIDENT) mbar_wait(wfull, 0);
+    if (RESIDENT_W) mbar_wait(wfull, 0);
+    // PIPES: group 1 waits until group 0 is half through its first item, so
+    // the two groups' epilogues (and their drains at each chunk's end) fall
+    // while the other group's MMAs run, not at the same time.
+    const int go_step = p.nchunks * 9 / 2;
+    if (LAYOUT == PIPES && g == 1) mbar_wait(go, 0);
     int hi = 0, wi = 0, last_hs = 0;
     for (int item = blockIdx.x * C::GROUPS + g; item < p.items; item += slots) {
       const int co_t = item % p.co_tiles;
@@ -584,73 +666,92 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int hs = hi % C::H_STAGES;
         mbar_wait(hfull + 8 * hs, (hi / C::H_STAGES) & 1);
         const uint32_t halo = halo_g + hs * C::HALO_BYTES;
-        // [buffer][slab][k step][register]: bf16 A, or f32 A's tf32 big part
-        uint32_t a[2][SLABS][4][4];
-        uint32_t a_small[2][C::F32 ? SLABS : 1][4][4];  // f32: A - big, rounded to tf32
+        // [buffer][slab][k step of the part][register]: bf16 A, or f32 A's tf32 big part
+        uint32_t a[2][SLABS][KS][4];
+        uint32_t a_small[2][C::F32 ? SLABS : 1][KS][4];  // f32: A - big, rounded to tf32
         int prev_ws = 0;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
           uint32_t wtile;
           int ws = 0;
-          if (RESIDENT) {
-            wtile = wgt0 + (DGRAD ? 8 - tap : tap) * C::W_TILE;
+          if (RESIDENT_W) {
+            wtile = wgt + (DGRAD ? 8 - tap : tap) * C::W_TILE;
           } else {
             ws = wi % C::W_STAGES;
             mbar_wait(wfull + 8 * ws, (wi / C::W_STAGES) & 1);
             ++wi;
-            wtile = wgt0 + ws * C::W_TILE;
+            wtile = wgt + ws * C::W_TILE;
           }
           const int shift = (tap / 3) * halo_w + tap % 3;
 #pragma unroll
-          for (int s = 0; s < SLABS; ++s) {
-            const uint32_t r = a_row[s] + shift;
-            const uint32_t row_addr = halo + r * ROW_BYTES;
-#pragma unroll
-            for (int ks = 0; ks < 4; ++ks) {
-              const uint32_t addr = row_addr + ((((ks * 2 + khalf) ^ r) & 7) << 4);
-              if constexpr (C::F32) {
-                // An 8x8 b16 matrix is 8 rows x 4 f32: the four matrices are
-                // the tf32 m64k8 fragment's a0..a3, as the four k8 halves of
-                // bf16's k16. Split here, once per 3 x BN/8 MMA columns.
-                uint32_t raw[4];
-                ldsm_x4(addr, raw);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                  const uint32_t big = tf32_rna(__uint_as_float(raw[i]));
-                  a[tap & 1][s][ks][i] = big;
-                  a_small[tap & 1][s][ks][i] =
-                      tf32_rna(__uint_as_float(raw[i]) - __uint_as_float(big));
-                }
-              } else {
-                ldsm_x4(addr, a[tap & 1][s][ks]);
-              }
-            }
-          }
-          wgmma_fence();
-          const uint64_t desc = DGRAD ? smem_desc_sw128_mn(wtile, DG_BOX) : smem_desc_sw128(wtile);
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
+          for (int part = 0; part < PARTS; ++part) {
+            const int buf = (tap * PARTS + part) & 1;  // the part before last has completed
 #pragma unroll
             for (int s = 0; s < SLABS; ++s) {
-              if constexpr (C::F32) {  // small x big + big x small + big x big, +32 bytes per k8
-                const uint64_t desc_small = smem_desc_sw128(wtile + C::PLANE_BYTES);
-                wgmma_tile_tf32<BN>(acc[s], a_small[tap & 1][s][ks], desc + 2 * ks);
-                wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc_small + 2 * ks);
-                wgmma_tile_tf32<BN>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);
-              } else if constexpr (DGRAD) {
-                wgmma_tile<BN, 1>(acc[s], a[tap & 1][s][ks], desc + 128 * ks);  // +16 rows per k16
-              } else {
-                wgmma_tile<BN, 0>(acc[s], a[tap & 1][s][ks], desc + 2 * ks);  // +32 bytes per k16
+              const uint32_t r = a_row[s] + shift;
+              const uint32_t row_addr = halo + r * ROW_BYTES;
+#pragma unroll
+              for (int kk = 0; kk < KS; ++kk) {
+                const int ks = part * KS + kk;
+                const uint32_t addr = row_addr + ((((ks * 2 + khalf) ^ r) & 7) << 4);
+                if constexpr (C::F32) {
+                  // An 8x8 b16 matrix is 8 rows x 4 f32: the four matrices are
+                  // the tf32 m64k8 fragment's a0..a3, as the four k8 halves of
+                  // bf16's k16. Split here, once per 3 x BN/8 MMA columns.
+                  uint32_t raw[4];
+                  ldsm_x4(addr, raw);
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) {
+                    if constexpr (LAYOUT == PIPES) {
+                      const uint32_t big = tf32_rna_bits(raw[i]);
+                      a[buf][s][kk][i] = big;
+                      a_small[buf][s][kk][i] = tf32_rna_bits(
+                          __float_as_uint(__uint_as_float(raw[i]) - __uint_as_float(big)));
+                    } else {
+                      const uint32_t big = tf32_rna(__uint_as_float(raw[i]));
+                      a[buf][s][kk][i] = big;
+                      a_small[buf][s][kk][i] =
+                          tf32_rna(__uint_as_float(raw[i]) - __uint_as_float(big));
+                    }
+                  }
+                } else {
+                  ldsm_x4(addr, a[buf][s][kk]);
+                }
               }
             }
-          wgmma_commit();
-          wgmma_wait<1>();  // tap - 1 is done: its A registers and weight stage are free
-          if (!RESIDENT && tap > 0) mbar_arrive(wempty + 8 * prev_ws);
+            wgmma_fence();
+            const uint64_t desc = DGRAD ? smem_desc_sw128_mn(wtile, DG_BOX) : smem_desc_sw128(wtile);
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+              for (int s = 0; s < SLABS; ++s) {
+                const int ks = part * KS + kk;
+                if constexpr (C::F32) {  // small x big + big x small + big x big, +32 bytes per k8
+                  const uint64_t desc_small = smem_desc_sw128(wtile + C::PLANE_BYTES);
+                  wgmma_tile_tf32<BN>(acc[s], a_small[buf][s][kk], desc + 2 * ks);
+                  wgmma_tile_tf32<BN>(acc[s], a[buf][s][kk], desc_small + 2 * ks);
+                  wgmma_tile_tf32<BN>(acc[s], a[buf][s][kk], desc + 2 * ks);
+                } else if constexpr (DGRAD) {
+                  wgmma_tile<BN, 1>(acc[s], a[buf][s][kk], desc + 128 * ks);  // +16 rows per k16
+                } else {
+                  wgmma_tile<BN, 0>(acc[s], a[buf][s][kk], desc + 2 * ks);  // +32 bytes per k16
+                }
+              }
+            wgmma_commit();
+            wgmma_wait<1>();  // the part before is done: its A registers (and weight stage) are free
+            if (!RESIDENT_W && part == 0 && tap > 0) mbar_arrive(wempty + 8 * prev_ws);
+          }
           prev_ws = ws;
+          if (LAYOUT == PIPES && g == 0 && tid == 0 && item == blockIdx.x * C::GROUPS &&
+              ch * 9 + tap == go_step)
+            mbar_arrive(go);
         }
         wgmma_wait<0>();
-        if (!RESIDENT) mbar_arrive(wempty + 8 * prev_ws);
-        if (!RESIDENT) mbar_arrive(hempty + 8 * hs);  // else released after the store
+        if (!RESIDENT_W) mbar_arrive(wempty + 8 * prev_ws);
+        // The last chunk's halo stage is released after the epilogue's store
+        // where the epilogue stages in it.
+        if (!C::STAGE_IN_HALO || (LAYOUT == PIPES && ch + 1 < p.nchunks))
+          mbar_arrive(hempty + 8 * hs);
         last_hs = hs;
       }
 #pragma unroll
@@ -661,15 +762,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       // channels) with the 128-byte swizzle, conflict-free (the 8 rows of one
       // store get 8 distinct 16-byte chunks), then one TMA store per 64
       // channels writes the (64, TW, TH, 1) box; TMA clips the ragged edges
-      // and the channels past C. RESIDENT stages in the halo stage it just
-      // consumed (released after the store), streamed in its own buffer.
-      const uint32_t stage = RESIDENT ? halo_g + last_hs * C::HALO_BYTES : out0;
+      // and the channels past C. RESIDENT and PIPES stage in the halo stage
+      // they just consumed (released after the store), STREAMED in its own
+      // buffer.
+      const uint32_t stage = C::STAGE_IN_HALO ? halo_g + last_hs * C::HALO_BYTES : out0;
       const int x0 = tx * p.tw, y0 = ty * p.th, co0 = co_t * BN + 2 * (lane % 4);
       if constexpr (C::F32) {
-        // f32: rows of 32 channels (128 bytes), two boxes per round of 64
-        // output channels through the one 32 KB buffer. A thread's two
-        // channels are 8 bytes of the 16-byte unit 2 * (jj % 4) + t / 2,
-        // swizzled by the row as the bf16 path's units are.
+        // f32: rows of 32 channels (128 bytes), OUT_CH / 32 boxes per round
+        // of OUT_CH output channels through the one buffer (STREAMED: 64
+        // channels through 32 KB; PIPES: 32 through 16 KB of the halo stage).
+        // A thread's two channels are 8 bytes of the 16-byte unit
+        // 2 * (jj % 4) + t / 2, swizzled by the row as the bf16 path's units are.
 #pragma unroll
         for (int rd = 0; rd < BN / C::OUT_CH; ++rd) {
           named_bar_sync(1 + g, 128 * C::WGS);  // the previous store has read the buffer
@@ -705,6 +808,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             bulk_store_wait_read();
           }
         }
+        if (C::STAGE_IN_HALO) mbar_arrive(hempty + 8 * last_hs);
         continue;
       }
       named_bar_sync(1 + g, 128 * C::WGS);  // the previous store has read the buffer
@@ -737,7 +841,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             tma_store_4d(&ymap, stage + half * TILE_M * ROW_BYTES, co_t * BN + half * 64, x0, y0, n);
         bulk_store_wait_read();
       }
-      if (RESIDENT) mbar_arrive(hempty + 8 * last_hs);
+      if (C::STAGE_IN_HALO) mbar_arrive(hempty + 8 * last_hs);
     }
   }
 }
@@ -783,15 +887,15 @@ Tile pick_tile(int m, int max_halo_rows, int h, int w) {
 }
 
 // x has h rows; out has h + pad_top + pad_bottom - 2.
-template <typename T, int BN, bool RESIDENT, bool BIAS_RELU, bool DGRAD>
+template <typename T, int BN, int LAYOUT, bool BIAS_RELU, bool DGRAD>
 int launch(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
            int c, int pad_top, int pad_bottom, cudaStream_t stream) {
-  using C = Cfg<T, BN, RESIDENT>;
+  using C = Cfg<T, BN, LAYOUT>;
   constexpr int CHUNK = C::CHUNK;
   constexpr cuuint64_t ES = sizeof(T);
   constexpr CUtensorMapDataType DTYPE =
       C::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  auto kernel = conv3x3_wgmma_kernel<T, BN, RESIDENT, BIAS_RELU, DGRAD>;
+  auto kernel = conv3x3_wgmma_kernel<T, BN, LAYOUT, BIAS_RELU, DGRAD>;
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
 
@@ -825,7 +929,7 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   p.items = n * p.tiles_y * p.tiles_x * p.co_tiles;
   p.pad_top = pad_top;
   p.halo_tx = static_cast<uint32_t>((t.th + 2) * (t.tw + 2) * ROW_BYTES);
-  if (RESIDENT && p.nchunks != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (C::RESIDENT_W && p.nchunks != 1) return static_cast<int>(cudaErrorInvalidValue);
 
   alignas(64) CUtensorMap xmap, wmap, ymap;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
@@ -850,7 +954,7 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (DGRAD && !RESIDENT) {
+  if (DGRAD && !C::RESIDENT_W) {
     // The forward's [tap][chunk][co_pad][64] as a 4-D tensor, boxes of 64 co
     // rows of one input-channel chunk; a chunk past the last reads zeros.
     const cuuint64_t wdim[4] = {CHUNK, static_cast<cuuint64_t>(p.co_pad),
@@ -1030,17 +1134,17 @@ bool bad_pads(int h, int pad_top, int pad_bottom) {
          h + pad_top + pad_bottom - 2 < 1;
 }
 
-template <typename T, int BN, bool RESIDENT>
+template <typename T, int BN, int LAYOUT>
 int tc_modes(int mode, const void* x, const void* wpk, const void* bias, void* out, int n, int h,
              int w, int c, int pt, int pb, cudaStream_t s) {
   if (mode == MODE_BIAS_RELU)
-    return tc::launch<T, BN, RESIDENT, true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+    return tc::launch<T, BN, LAYOUT, true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
   if constexpr (sizeof(T) == 2) {
     if (mode == MODE_DGRAD)
-      return tc::launch<T, BN, RESIDENT, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+      return tc::launch<T, BN, LAYOUT, false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
   }
   if (mode != MODE_CONV) return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch<T, BN, RESIDENT, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  return tc::launch<T, BN, LAYOUT, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
 }
 
 template <typename T, bool BIAS_RELU, bool DGRAD>
@@ -1078,15 +1182,18 @@ extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (c <= 64)
-    return tc_modes<bf16, 64, true>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
-  return tc_modes<bf16, 128, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
+    return tc_modes<bf16, 64, tc::RESIDENT>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
+                                            pad_bottom, s);
+  return tc_modes<bf16, 128, tc::STREAMED>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
+                                           pad_bottom, s);
 }
 
 // Tensor-core path in f32 (3xTF32). x, out and bias f32; wpk the two tf32
 // planes [plane][tap][chunk of 32][co_pad][32]. Needs C % 4 == 0 (TMA's
-// 16-byte strides) and 16-byte aligned x, wpk and out; tiles of 64 output
-// channels for C <= 64, 128 above, weights streamed at every C. mode:
-// MODE_CONV or MODE_BIAS_RELU (dgrad is MODE_CONV on dgrad's planes).
+// 16-byte strides) and 16-byte aligned x, wpk and out; C <= 64 takes the
+// two-pipeline kernel (PIPES, 64 output channels), C > 64 the streamed one
+// (128), weights streamed in both. mode: MODE_CONV or MODE_BIAS_RELU (dgrad
+// is MODE_CONV on dgrad's planes).
 extern "C" int conv3x3_tf32x3_launch(const void* x, const void* wpk, const void* bias, void* out,
                                      int n, int h, int w, int c, int mode, int pad_top,
                                      int pad_bottom, void* stream) {
@@ -1096,8 +1203,10 @@ extern "C" int conv3x3_tf32x3_launch(const void* x, const void* wpk, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 64)
-    return tc_modes<float, 64, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
-  return tc_modes<float, 128, false>(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
+    return tc_modes<float, 64, tc::PIPES>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
+                                          pad_bottom, s);
+  return tc_modes<float, 128, tc::STREAMED>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
+                                            pad_bottom, s);
 }
 
 // CUDA-core path. dtype: 0 = float32, 1 = bfloat16 (x, wt and out); bias is

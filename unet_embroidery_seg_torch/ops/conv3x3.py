@@ -23,9 +23,11 @@ which the JAX package computes with a flax ``nn.Conv``
     cores (TMA halo ring, ``wgmma``): ``c64_persistent`` for C <= 64,
     ``wgmma`` above;
   - f32 with C % 4 == 0 (every f32 site; TMA needs 16-byte strides, 4 f32):
-    ``tf32x3``, the same kernel on the TF32 tensor cores with each operand
-    split into two tf32 parts (``tf32_split``) and three products summed in
-    f32, which keeps f32 accuracy (about 2^-21 of each product);
+    the same kernel on the TF32 tensor cores with each operand split into
+    two tf32 parts (``tf32_split``) and three products summed in f32, which
+    keeps f32 accuracy (about 2^-21 of each product): ``tf32x3_c64`` for
+    C <= 64 (two pipelines per CTA, each streaming its own weights),
+    ``tf32x3`` above; the two read the same packing and give the same bits;
   - everything else on the CUDA cores (``fma``).
 - dgrad: the same kernel, as the Pallas kernel's docstring has it: dx is
   the same conv of the output's gradient with the weights flipped in space
@@ -97,9 +99,9 @@ from torch.autograd.function import once_differentiable
 from unet_embroidery_seg_torch.ops import _build
 from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel_output
 
-__all__ = ["conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad", "conv3x3_dgrad_plain",
-           "conv3x3_path", "conv3x3_same", "conv3x3_same_plain", "pack_conv3x3_grad",
-           "pack_conv3x3_weight", "tf32_split"]
+__all__ = ["TF32X3_PATHS", "conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad",
+           "conv3x3_dgrad_plain", "conv3x3_path", "conv3x3_same", "conv3x3_same_plain",
+           "pack_conv3x3_grad", "pack_conv3x3_weight", "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -113,9 +115,12 @@ MODE_CONV, MODE_BIAS_RELU, MODE_DGRAD = 0, 1, 2
 SAME = (1, 1)
 # Input channels per halo stage of a tensor-core path: 128 bytes of the type.
 CHUNK = {torch.bfloat16: 64, torch.float32: 32}
+# The f32 tensor-core paths (3xTF32): C <= 64, and above. Both read the
+# ``tf32x3`` packing.
+TF32X3_PATHS = ("tf32x3_c64", "tf32x3")
 # C entry point of each tensor-core path.
 _TC_SYMBOLS = {"c64_persistent": "conv3x3_wgmma_launch", "wgmma": "conv3x3_wgmma_launch",
-               "tf32x3": "conv3x3_tf32x3_launch"}
+               "tf32x3_c64": "conv3x3_tf32x3_launch", "tf32x3": "conv3x3_tf32x3_launch"}
 
 
 def _check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
@@ -147,12 +152,13 @@ def conv3x3_path(c: int, dtype: torch.dtype) -> str:
     """The kernel path a CUDA call with ``c`` channels of ``dtype`` takes.
 
     bf16 with C % 16 == 0: ``c64_persistent`` (C <= 64) or ``wgmma``; f32
-    with C % 4 == 0 (TMA's 16-byte strides): ``tf32x3``; the rest ``fma``.
+    with C % 4 == 0 (TMA's 16-byte strides): ``tf32x3_c64`` (C <= 64) or
+    ``tf32x3``; the rest ``fma``.
     """
     if dtype == torch.bfloat16 and c % 16 == 0:
         return "c64_persistent" if c <= 64 else "wgmma"
     if dtype == torch.float32 and c % 4 == 0:
-        return "tf32x3"
+        return "tf32x3_c64" if c <= 64 else "tf32x3"
     return "fma"
 
 
@@ -195,8 +201,9 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype,
     - ``c64_persistent`` / ``wgmma``: [tap = ky*3 + kx][input-channel chunk of
       64][co_pad][64], zero where C_in or C_out is padded (co_pad is C rounded
       up to the kernel's 64 or 128 output channels per tile).
-    - ``tf32x3``: [plane][tap][input-channel chunk of 32][co_pad][32], plane
-      0 ``w_big`` and plane 1 ``w_small`` of ``tf32_split``.
+    - ``tf32x3`` and ``tf32x3_c64``: [plane][tap][input-channel chunk of
+      32][co_pad][32], plane 0 ``w_big`` and plane 1 ``w_small`` of
+      ``tf32_split``.
     - ``fma``: [ky][kx][co][ci].
     """
     c = weight.shape[0]
@@ -210,7 +217,7 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype,
     chunk = CHUNK[dtype]
     w = F.pad(w, (0, chunks * chunk - c, 0, co_pad - c))  # [ky][kx][co_pad][chunks*chunk]
     w = w.reshape(9, co_pad, chunks, chunk).permute(0, 2, 1, 3)
-    if path == "tf32x3":
+    if path in TF32X3_PATHS:
         return torch.stack(tf32_split(w))
     return w.contiguous()
 
@@ -222,7 +229,7 @@ def _grad_pack_shape(c: int, dtype: torch.dtype) -> tuple[int, ...]:
         return (3, 3, c, c)
     chunks, co_pad = _tc_layout(c, dtype)
     tile = (9, chunks, co_pad, CHUNK[dtype])
-    return (2, 2, *tile) if path == "tf32x3" else tile
+    return (2, 2, *tile) if path in TF32X3_PATHS else tile
 
 
 def pack_conv3x3_grad(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -240,7 +247,7 @@ def pack_conv3x3_grad(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     c = weight.shape[0]
     if tuple(weight.shape) != (c, c, 3, 3):
         raise ValueError(f"conv3x3: needs a ({c}, {c}, 3, 3) weight, got {tuple(weight.shape)}")
-    if conv3x3_path(c, dtype) != "tf32x3":
+    if conv3x3_path(c, dtype) not in TF32X3_PATHS:
         return pack_conv3x3_weight(weight, dtype)
     if weight.device.type != "cuda":
         return torch.stack([pack_conv3x3_weight(weight, dtype),
@@ -411,7 +418,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor | None,
         raise ValueError(f"{what}: path {path} does not take {c} channels of {x.dtype}")
     if path != "fma" and x.data_ptr() % 16 != 0:
         raise ValueError(f"{what}: the tensor-core paths need a 16-byte aligned input (TMA)")
-    if dgrad and (path == "tf32x3" or bias is not None):
+    if dgrad and (path in TF32X3_PATHS or bias is not None):
         raise ValueError(f"{what}: MODE_DGRAD takes no bias and no tf32x3 call")
     out = empty_kernel_output((n, c, out_rows(h, pad), w), x)
     if out.numel() == 0:
