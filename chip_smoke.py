@@ -20,7 +20,11 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    ``tf32x3`` or ``fma``) and its TFLOP/s and share of the bound, both from
    ``ms``; the f32 tensor-core rows (``tf32x3_c64``, ``tf32x3``) are bound at
    the 3xTF32 rate (495/3 TFLOP/s), with the CUDA cores' 67 TFLOP/s bound
-   beside it (``cuda_core_bound_ms``). Then an in-place weight update
+   beside it (``cuda_core_bound_ms``). A ``wgmma`` row (bf16, C > 64) also
+   gives its thread-block cluster size (``cluster``) and the weight bytes
+   its launch reads from L2 (``l2_weight_bytes``, counted from the schedule
+   by ``ops/conv3x3.py:streamed_schedule``) and their rate over ``ms``
+   (``l2_weight_bytes_per_s``). Then an in-place weight update
    between two conv calls on signed inputs must change the result (the
    wrapper's packed-weight cache repacks).
 3. Backward sites, at the train shapes (512^2, batch 8, bf16) plus one f32
@@ -525,6 +529,13 @@ def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, pla
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
         "tflops": flops / ms / 1e9,
     }
+    if path == "wgmma":  # the bf16 streamed layout: its clusters and the weights they read from L2
+        from unet_embroidery_seg_torch.ops.conv3x3 import streamed_schedule
+
+        n, c, h, w = shapes["shape"]
+        sched = streamed_schedule(n, h, w, c, tuple(shapes.get("pad", (1, 1))))
+        row.update({"cluster": sched["cluster"], "l2_weight_bytes": sched["l2_weight_bytes"],
+                    "l2_weight_bytes_per_s": sched["l2_weight_bytes"] / ms * 1e3})
     if fma is not None:
         row["fma_ms"] = graph_ms(fma, event_ms(fma))
         row["cuda_core_bound_ms"] = bound(nbytes, flops, dtype, "fma")[0]
@@ -2904,12 +2915,16 @@ def _space_shards(h: int):
 
 
 def _space_row(prefix, kernel, site, s, path, dtype, run, plain, library, nbytes, flops, shape,
-               count, sites_of, flipped=None):
-    """One timed row of a shard; shard 0's counts in the pass of one rank, shard 1's are held only."""
+               count, sites_of, flipped=None, pad=None):
+    """One timed row of a shard; shard 0's counts in the pass of one rank, shard 1's are held only.
+
+    ``pad``: the conv's H pads of the launch (its ``shape`` is the launch's input).
+    """
+    shapes = {"shape": shape, "count": count if s == 0 else 0, "sites_of": sites_of, "shard": s}
+    if pad is not None:
+        shapes["pad"] = list(pad)
     return measure_site(prefix, kernel, f"{site}.shard{s}", path, dtype, run, plain,
-                        library, nbytes, flops,
-                        {"shape": shape, "count": count if s == 0 else 0, "sites_of": sites_of,
-                         "shard": s}, flipped=flipped)
+                        library, nbytes, flops, shapes, flipped=flipped)
 
 
 @torch.no_grad()
@@ -2935,8 +2950,8 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
     rows, unsplit = [], {}
     torch.backends.cudnn.allow_tf32 = False
 
-    def row(*args, flipped=None):
-        rows.append(_space_row(prefix, *args, sites_of, flipped))
+    def row(*args, flipped=None, pad=None):
+        rows.append(_space_row(prefix, *args, sites_of, flipped, pad))
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = "" if dtype == torch.bfloat16 else ".f32"
@@ -2970,14 +2985,14 @@ def space_sites(gen: torch.Generator, prefix: str, conv_sites, up_sites, fused: 
                     lambda xs=xs, pad=pad: conv_plain(xs, pad),
                     lambda xs=xs: library(xs),
                     (xs.numel() + gs.numel() + 9 * c * c) * es + (4 * c if fused else 0), flops,
-                    list(xs.shape), count)
+                    list(xs.shape), count, pad=pad)
                 dp = C.dgrad_pad(pad)
                 row("conv3x3_dgrad", site + tag, s, path, dtype,
                     lambda gs=gs, dp=dp: C.conv3x3_dgrad(gs, w, dp, packed),
                     lambda gs=gs, dp=dp: C.conv3x3_dgrad_plain(gs, w, dp),
                     lambda gs=gs: torch.nn.grad.conv2d_input(gs.shape, wd, gs, padding=1),
                     (xs.numel() + gs.numel() + 9 * c * c) * es, flops, list(gs.shape), count,
-                    flipped=_flipped_dgrad(gs, w, dp, packed))
+                    flipped=_flipped_dgrad(gs, w, dp, packed), pad=dp)
                 got_y.append(conv(xs, pad))
                 got_dx[:, :, halo_rows] += C.conv3x3_dgrad(gs, w, dp, packed).float()
             unsplit[f"conv3x3_same:{site}{tag}"] = (torch.cat(got_y, 2).float()

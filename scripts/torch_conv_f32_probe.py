@@ -146,13 +146,14 @@ def _setup():
     return _build
 
 
-def _compile(_build, sources: dict[str, str]) -> tuple[dict[str, Path], dict[str, str]]:
-    """nvcc -Xptxas -v of each source text, all at once: (.so by name, ptxas log by name)."""
+def _compile(_build, sources: dict[str, str], out: Path = OUT) -> tuple[dict[str, Path], dict[str, str]]:
+    """nvcc -Xptxas -v of each source text into ``out``, all at once: (.so by name, ptxas log by name)."""
+    out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in sources.items():
-        src = OUT / f"{name}.cu"
+        src = out / f"{name}.cu"
         src.write_text(text)
-        lib = OUT / f"{name}.so"
+        lib = out / f"{name}.so"
         jobs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -166,19 +167,24 @@ def _compile(_build, sources: dict[str, str]) -> tuple[dict[str, Path], dict[str
     return libs, logs
 
 
-def _ptxas_f32_64(log: str) -> list[str]:
-    """ptxas's lines for the f32 instances at 64 output channels (registers, spills)."""
+def _ptxas_f32_64(log: str, kernel: str = "IfLi64") -> list[str]:
+    """ptxas's lines for the instances ``conv3x3_wgmma_kernel<kernel>...`` (registers, spills).
+
+    ``kernel`` is the start of the mangled template arguments: the f32
+    instances at 64 output channels by default.
+    """
     lines, out = log.splitlines(), []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "conv3x3_wgmma_kernelIfLi64" in line:
-            name = re.search(r"kernelIfLi64E\w*?E(?=E|v)", line)
+        if "Compiling entry function" in line and f"conv3x3_wgmma_kernel{kernel}" in line:
+            name = re.search(rf"kernel{kernel}E\w*?E(?=E|v)", line)
             out.append(" | ".join([name.group(0) if name else line.strip()]
                                   + [x.strip() for x in lines[i + 2:i + 4]]))
     return out
 
 
-def _sass_opcodes(lib: Path, top: int = 30) -> dict:
-    """The most frequent SASS opcodes of the fused f32 C <= 64 instance (cuobjdump)."""
+def _sass_opcodes(lib: Path, top: int = 30, kernel: str = FUSED_F32_64) -> dict:
+    """The most frequent SASS opcodes of one instance (``kernel``, a regex of its mangled name;
+    by default the fused f32 C <= 64 one), from cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -190,7 +196,7 @@ def _sass_opcodes(lib: Path, top: int = 30) -> dict:
     counts, inside, total = Counter(), False, 0
     for line in text.splitlines():
         if "Function :" in line:
-            inside = re.search(FUSED_F32_64, line) is not None
+            inside = re.search(kernel, line) is not None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if inside and m:
@@ -249,12 +255,15 @@ def _inputs(c: int, n: int, h: int, w: int, seed: int):
     return x, g, wt, b
 
 
-def _calls(c: int, n: int, h: int, w: int, pad=(1, 1), seed: int = 0) -> dict:
-    """The fused forward, the bias-free forward and dgrad of one f32 call, as the model makes them."""
+def _calls(c: int, n: int, h: int, w: int, pad=(1, 1), seed: int = 0,
+           dtype: torch.dtype = torch.float32) -> dict:
+    """The fused forward, the bias-free forward and dgrad of one call in ``dtype``, as the model
+    makes them (weights and bias f32, as the model holds them)."""
     from unet_embroidery_seg_torch.ops import conv3x3 as C
 
     x, g, wt, b = _inputs(c, n, h, w, seed)
-    packed = C.pack_conv3x3_grad(wt, torch.float32)
+    x, g = x.to(dtype), g.to(dtype)
+    packed = C.pack_conv3x3_grad(wt, dtype)
     gd = g[:, :, :C.out_rows(h, pad)].contiguous(memory_format=torch.channels_last)
     dp = C.dgrad_pad(pad)
     return {"fused": lambda: C.conv3x3_bias_relu(x, wt, b, pad),

@@ -5,7 +5,8 @@ interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
 vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
-``wgmma`` above; f32 with C % 4 == 0 on the TF32 tensor cores,
+``wgmma`` above, in clusters of two CTAs, also at halo pads and odd tile
+counts; f32 with C % 4 == 0 on the TF32 tensor cores,
 ``tf32x3_c64`` for C <= 64 (also at halo pads), ``tf32x3`` above, held to
 f32's tolerance; the rest on the CUDA cores, ``fma``). The backward kernels
 (upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
@@ -419,6 +420,40 @@ def test_tf32x3_c64_kernel_matches_plain_at_each_pad(device, c, fn, pad):
     want = plain()
     assert got.shape == (2, c, 37 + sum(pad) - 2, 45)
     assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)  # f32, 9*C terms
+
+
+@pytest.mark.parametrize("pad", [(1, 1), (1, 0), (0, 1), (1, 2), (2, 1), (0, 2)])
+@pytest.mark.parametrize("fn", ["bias_relu", "same", "dgrad"])
+@pytest.mark.parametrize("shape", [(1, 80, 19, 21), (1, 1024, 9, 37), (3, 192, 15, 23)])
+def test_wgmma_clusters_match_plain_at_each_pad(device, shape, fn, pad):
+    # The bf16 streamed layout: clusters of two CTAs, each loading half of
+    # every weight stage into both (TMA multicast). C = 80: one channel tile,
+    # a half-empty second chunk; 1024: 8 channel tiles, 16 chunks; 192: a
+    # half-empty second channel tile. Each shape has an odd count of pixel
+    # tiles at SAME pads, so the last cluster item's partner stores nothing.
+    n, c, h, w = shape
+    assert conv3x3_mod.conv3x3_path(c, torch.bfloat16) == "wgmma"
+    assert conv3x3_mod.streamed_schedule(n, h, w, c)["pix_tiles"] % 2 == 1
+    x = _x(shape, torch.bfloat16, device, seed=c + sum(pad) + 31)
+    weight, bias = _conv_params(c, device, seed=c + 32)
+    run, plain, counter = {
+        "bias_relu": (lambda: conv3x3_bias_relu(torch.relu(x), weight, bias, pad),
+                      lambda: conv3x3_bias_relu_plain(torch.relu(x), weight, bias, pad),
+                      conv3x3_bias_relu),
+        "same": (lambda: conv3x3_same(x, weight, pad), lambda: conv3x3_same_plain(x, weight, pad),
+                 conv3x3_same),
+        "dgrad": (lambda: conv3x3_dgrad(x, weight, pad), lambda: conv3x3_dgrad_plain(x, weight, pad),
+                  conv3x3_dgrad),
+    }[fn]
+    before = (counter.launches, counter.halo_launches)
+    with torch.no_grad():
+        got = run()
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.halo_launches) == (before[0] + 1,
+                                                         before[1] + (pad != (1, 1)))
+    want = plain()
+    assert got.shape == (n, c, h + sum(pad) - 2, w)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=0.0)
 
 
 @pytest.mark.parametrize("tap", [4, 0, 8, 5])  # centre, the two corners, a side

@@ -68,7 +68,29 @@
 //        Tiles of 128 pixels x 128 output channels, one slab of m64 per
 //        consumer warpgroup; per 64-channel chunk one halo stage (reused by
 //        all 9 taps) and 9 weight tiles of 16 KB streamed through a 6-stage
-//        ring.
+//        ring. Thread-block clusters of two CTAs (launched with
+//        cudaLaunchKernelEx, as many as cudaOccupancyMaxActiveClusters
+//        says fit: 66 on the H100): both take the same channel tile and
+//        neighbouring pixel tiles, and each loads half of every weight
+//        stage (64 of its rows; dgrad: one of its two 64 x 64 boxes) into
+//        both with a multicast TMA copy, so the weights read from L2 per
+//        FLOP are halved (128 FLOP per byte before, whatever C). A stage is
+//        freed once both CTAs' consumers are done with it (one arrival per
+//        warp on each CTA's barrier); an odd count of pixel tiles leaves a
+//        partner that computes the last tile again and stores nothing.
+//        Timing variants of the single-CTA kernel
+//        (scripts/torch_conv_bf16_probe.py split, H100 SXM, 700 W) put the
+//        L2 weight reloads at 0-2% of the call, but the epilogue at 6-23%
+//        at C <= 256 (2-4 chunks an item) and its store at 4-12%, with
+//        both warpgroups idle on the tensor cores meanwhile. So each
+//        consumer warpgroup takes its own half of the tile's rows and
+//        stages and stores it alone (a named barrier per warpgroup,
+//        (64, TW, TH/2, 1) boxes): neither waits for the other at an
+//        item's end, and a storing thread waits for its store to read the
+//        buffer at the buffer's next use, not right after it. Starting
+//        the second warpgroup a few taps late as well (variant lag4) ran
+//        slower. The weight ring is 8 deep, the halo ring 2. Same products
+//        in the same order: the output is bit-equal.
 //      * Tile shape per call: TW in {8, 16, 30}, TH = 128 / TW, choosing
 //        the fewest M rows in all (ties: the smaller halo, then the
 //        narrower tile). 480^2, 240^2 and 120^2 take 16 x 8 (120^2 has 7%
@@ -79,7 +101,8 @@
 //        shared memory (128-byte rows, swizzled), then TMA stores of
 //        (64, TW, TH, 1) boxes, which clip the ragged edges and C not a
 //        multiple of 64. The C <= 64 path stages in the halo stage it has
-//        just consumed, the C > 64 path in a 32 KB buffer of its own.
+//        just consumed, the C > 64 path in a 32 KB buffer of its own, 16 KB
+//        per warpgroup, each storing (64, TW, TH/2, 1) boxes.
 //  - f32 with C % 4 == 0 (every f32 model site): the same kernel's float
 //    template instances on the TF32 tensor cores, f32-accurate by the
 //    three-pass split: a = a_big + a_small and w = w_big + w_small, each
@@ -192,7 +215,9 @@ constexpr int HALO_ROWS = 192;             // most (TH+2)*(TW+2) of a tile shape
 // ring and a producer thread. LAYOUT says how the two consumer warpgroups
 // and the weights are laid out:
 //  - STREAMED (bf16 C > 64, f32 C > 64): one group of two warpgroups (one
-//    slab each) sharing every tile and every streamed weight stage.
+//    slab each) sharing every tile and every streamed weight stage; bf16 in
+//    clusters of CLUSTER = 2 CTAs that share each weight stage (multicast),
+//    each warpgroup staging and storing its own half of the tile's rows.
 //  - RESIDENT (bf16, C <= 64): two groups of one warpgroup each (two slabs
 //    of m64), so one group's epilogue overlaps the other's MMAs; both read
 //    the one resident weight set.
@@ -221,12 +246,21 @@ struct Cfg {
   static constexpr int GROUPS = LAYOUT == STREAMED ? 1 : 2;
   static constexpr int RINGS = LAYOUT == PIPES ? 2 : 1;    // weight rings: one per group
   static constexpr int WGS = 2 / GROUPS;                   // warpgroups per group
+  // CTAs per thread-block cluster (bf16 STREAMED): the cluster's CTAs take
+  // the same channel tile and neighbouring pixel tiles, and each loads
+  // 1/CLUSTER of every weight stage into all of them (TMA multicast).
+  static constexpr int CLUSTER = !F32 && LAYOUT == STREAMED ? 2 : 1;
   static constexpr int SLABS = TILE_M / 64 / WGS;          // m64 slabs per warpgroup
   static constexpr int HALO_BYTES = HALO_ROWS * ROW_BYTES;  // a multiple of 1024
-  static constexpr int H_STAGES = F32 ? 2 : 3;             // per group
+  // CLUSTER > 1: each warpgroup stores its own half of the tile's rows, so
+  // neither waits for the other at an item's end; a deeper weight ring and a
+  // halo ring one stage shallower (8 and 2 ran faster than 6 and 3 at 6 of
+  // the probe's 8 shapes: scripts/torch_conv_bf16_probe.py split, ring_6_3).
+  static constexpr int H_STAGES = F32 || CLUSTER > 1 ? 2 : 3;  // per group
   static constexpr int PLANE_BYTES = BN * ROW_BYTES;       // one tap, one chunk, one plane
   static constexpr int W_TILE = PLANES * PLANE_BYTES;
-  static constexpr int W_STAGES = RESIDENT_W ? 9 : F32 ? 131072 / W_TILE / RINGS : 6;  // per ring
+  static constexpr int W_STAGES =
+      RESIDENT_W ? 9 : F32 ? 131072 / W_TILE / RINGS : CLUSTER > 1 ? 8 : 6;  // per ring
   // The epilogue stages its output in the halo stage it has just consumed.
   static constexpr bool STAGE_IN_HALO = LAYOUT != STREAMED;
   static constexpr int OUT_CH = !F32 ? BN : STAGE_IN_HALO ? CHUNK : 64;  // channels per round
@@ -256,6 +290,7 @@ struct Params {
   __nv_bfloat16* out;
   int h, w, c, th, tw, tiles_x, tiles_y, co_tiles, nchunks, co_pad, items, pad_top;
   uint32_t halo_tx;  // bytes of one halo box
+  int pix_tiles;     // CLUSTER > 1: pixel tiles of the call (items counts cluster items)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -273,6 +308,39 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrives on the mbarrier at this CTA's offset `bar` in CTA `rank` of the
+// cluster. The default (release at CTA scope) form: the stage it releases was
+// read by wgmmas that have completed, so nothing needs ordering at cluster
+// scope, and the .release.cluster form made the kernel take ~1.9x as long
+// (scripts/torch_conv_bf16_probe.py split, variant release_cluster).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// Releases a weight stage: CLUSTER 1, each consumer thread arrives; else one
+// arrival per warp on each CTA's barrier (lane r on CTA r's), since every
+// CTA of the cluster writes its share of the stage into this one.
+template <int CLUSTER>
+__device__ __forceinline__ void release_stage(uint32_t bar, int lane) {
+  if constexpr (CLUSTER == 1) {
+    mbar_arrive(bar);
+  } else {
+    if (lane < CLUSTER) mbar_arrive_cluster(bar, lane);
+  }
+}
+
+// Every thread of every CTA of the cluster: barrier inits before any remote
+// arrival or multicast copy, and no CTA exits while another may still write
+// to its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -315,6 +383,27 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same loads into every CTA of `mask` in the cluster, at the same
+// shared-memory offsets, each completing on that CTA's barrier at `bar`.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_mc(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int c0, int c1, int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                              int c2, int c3) {
   asm volatile(
@@ -324,11 +413,18 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
-// Commits the stores issued so far and waits until they have read their
-// shared-memory source (the writes to global memory go on in the background).
-__device__ __forceinline__ void bulk_store_wait_read() {
+// Commits the stores issued so far; waits until they have read their
+// shared-memory source (the writes to global memory go on in the
+// background); both at once. A wait may be deferred to the buffer's next use.
+__device__ __forceinline__ void bulk_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store_wait_read_only() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store_wait_read() {
+  bulk_store_commit();
+  bulk_store_wait_read_only();
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -549,15 +645,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     for (int s = 0; s < C::RINGS * C::W_STAGES; ++s) {
       mbar_init(wfull0 + 8 * s, 1);
-      mbar_init(wempty0 + 8 * s, CONSUMERS / C::RINGS);
+      mbar_init(wempty0 + 8 * s,
+                C::CLUSTER > 1 ? C::CLUSTER * (CONSUMERS / 32) : CONSUMERS / C::RINGS);
     }
     if (LAYOUT == PIPES) mbar_init(go, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (C::CLUSTER > 1) cluster_sync();
+  else __syncthreads();
 
   const int halo_w = p.tw + 2;
-  const int slots = gridDim.x * C::GROUPS;  // item stride: one slot per group
+  // Item stride: one slot per group; CLUSTER > 1, one per cluster (an item
+  // is then CLUSTER neighbouring pixel tiles of one channel tile, and the
+  // CTA of rank r takes the r-th: rank = blockIdx.x % CLUSTER).
+  const int slots = C::CLUSTER > 1 ? gridDim.x / C::CLUSTER : gridDim.x * C::GROUPS;
+  const int rank = C::CLUSTER > 1 ? blockIdx.x % C::CLUSTER : 0;
 
   if (tid >= CONSUMERS) {
     // ---- producer warpgroup: lane 0 of warp g keeps group g's rings full ----
@@ -577,9 +679,12 @@ __global__ void __launch_bounds__(THREADS, 1)
           tma_load_2d(wgt + tap * C::W_TILE, &wmap, wfull, 0, tap * p.co_pad);
       }
       int hi = 0, wi = 0;
-      for (int item = blockIdx.x * C::GROUPS + g; item < p.items; item += slots) {
+      const int first = C::CLUSTER > 1 ? blockIdx.x / C::CLUSTER : blockIdx.x * C::GROUPS + g;
+      for (int item = first; item < p.items; item += slots) {
         const int co_t = item % p.co_tiles;
         int pix = item / p.co_tiles;
+        // An odd tail's partner loads the last tile's halo (it stores nothing).
+        if constexpr (C::CLUSTER > 1) pix = min(pix * C::CLUSTER + rank, p.pix_tiles - 1);
         const int tx = pix % p.tiles_x;
         pix /= p.tiles_x;
         const int ty = pix % p.tiles_y, n = pix / p.tiles_y;
@@ -594,7 +699,22 @@ __global__ void __launch_bounds__(THREADS, 1)
               const int ws = wi % C::W_STAGES;
               mbar_wait(wempty + 8 * ws, ((wi / C::W_STAGES) & 1) ^ 1);
               mbar_expect_tx(wfull + 8 * ws, C::W_TILE);
-              if constexpr (DGRAD) {
+              if constexpr (C::CLUSTER > 1) {
+                // This CTA's 1/CLUSTER of the stage (rows rank * 64 .. + 63 of
+                // the forward's [co][64 ci] tile; dgrad's box of N' block
+                // rank), multicast into every CTA of the cluster. wfull
+                // expects the whole stage: the other CTAs' shares land on it.
+                constexpr uint16_t ALL = (1u << C::CLUSTER) - 1;
+                constexpr int SHARE = C::W_TILE / C::CLUSTER;
+                if constexpr (DGRAD)
+                  tma_load_4d_mc(wgt + ws * C::W_TILE + rank * SHARE, &wmap, wfull + 8 * ws, 0,
+                                 ch * C::CHUNK, co_t * (BN / C::CHUNK) + rank, 8 - tap, ALL);
+                else
+                  tma_load_2d_mc(wgt + ws * C::W_TILE + rank * SHARE, &wmap, wfull + 8 * ws, 0,
+                                 (tap * p.nchunks + ch) * p.co_pad + co_t * BN +
+                                     rank * (BN / C::CLUSTER),
+                                 ALL);
+              } else if constexpr (DGRAD) {
                 // Box (64 ci, 64 co, 1, 1) of [tap][ci chunk][co_pad][64] at the
                 // forward's tap 8 - tap; a chunk past the last is TMA's zero fill.
 #pragma unroll
@@ -639,6 +759,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < SLABS; ++s) {
       int m = (wg_in * SLABS + s) * 64 + lrow;
       if (m >= tile_px) m = 0;  // dead row: read a valid pixel, store nothing
+      // CLUSTER > 1: warpgroup wg_in's slab is tile rows wg_in * TH/2 .. +
+      // TH/2 - 1 (TW = 30: 60 of its 64 M rows live).
+      if constexpr (C::CLUSTER > 1)
+        m = lrow < p.th / 2 * p.tw ? wg_in * (p.th / 2 * p.tw) + lrow : 0;
       a_row[s] = (m / p.tw) * halo_w + m % p.tw;
     }
 
@@ -649,9 +773,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int go_step = p.nchunks * 9 / 2;
     if (LAYOUT == PIPES && g == 1) mbar_wait(go, 0);
     int hi = 0, wi = 0, last_hs = 0;
-    for (int item = blockIdx.x * C::GROUPS + g; item < p.items; item += slots) {
+    const int first = C::CLUSTER > 1 ? blockIdx.x / C::CLUSTER : blockIdx.x * C::GROUPS + g;
+    for (int item = first; item < p.items; item += slots) {
       const int co_t = item % p.co_tiles;
       int pix = item / p.co_tiles;
+      bool live = true;  // false: an odd tail's partner, which computes the last tile again
+      if constexpr (C::CLUSTER > 1) {
+        pix = pix * C::CLUSTER + rank;
+        live = pix < p.pix_tiles;
+        if (!live) pix = p.pix_tiles - 1;
+      }
       const int tx = pix % p.tiles_x;
       pix /= p.tiles_x;
       const int ty = pix % p.tiles_y, n = pix / p.tiles_y;
@@ -739,7 +870,8 @@ __global__ void __launch_bounds__(THREADS, 1)
               }
             wgmma_commit();
             wgmma_wait<1>();  // the part before is done: its A registers (and weight stage) are free
-            if (!RESIDENT_W && part == 0 && tap > 0) mbar_arrive(wempty + 8 * prev_ws);
+            if (!RESIDENT_W && part == 0 && tap > 0)
+              release_stage<C::CLUSTER>(wempty + 8 * prev_ws, lane);
           }
           prev_ws = ws;
           if (LAYOUT == PIPES && g == 0 && tid == 0 && item == blockIdx.x * C::GROUPS &&
@@ -747,7 +879,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             mbar_arrive(go);
         }
         wgmma_wait<0>();
-        if (!RESIDENT_W) mbar_arrive(wempty + 8 * prev_ws);
+        if (!RESIDENT_W) release_stage<C::CLUSTER>(wempty + 8 * prev_ws, lane);
         // The last chunk's halo stage is released after the epilogue's store
         // where the epilogue stages in it.
         if (!C::STAGE_IN_HALO || (LAYOUT == PIPES && ch + 1 < p.nchunks))
@@ -811,6 +943,49 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (C::STAGE_IN_HALO) mbar_arrive(hempty + 8 * last_hs);
         continue;
       }
+      if constexpr (C::CLUSTER > 1) {
+        if (!live) continue;
+        // Each warpgroup stages its half of the tile's rows in its own half
+        // of the buffer ([half of 64 channels][64 rows]) and stores it as
+        // (64, TW, TH/2, 1) boxes (TMA drops rows past the map), with no
+        // barrier shared with the other warpgroup. Its storing thread waits
+        // for its previous store to have read the buffer here, not after
+        // the store: the next item's MMAs run meanwhile.
+        const int half_px = p.th / 2 * p.tw;
+        const uint32_t stage_wg = out0 + wg_in * (C::OUT_BYTES / 2);
+        const bool storer = warp == 0 && lane == 0;
+        if (storer) bulk_store_wait_read_only();
+        named_bar_sync(1 + wg_in, 128);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int m = warp * 16 + lane / 4 + 8 * hf;
+          if (m >= half_px) continue;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int co = co0 + 8 * j;
+            float v0 = acc[0][4 * j + 2 * hf], v1 = acc[0][4 * j + 2 * hf + 1];
+            if constexpr (BIAS_RELU) {
+              v0 = fmaxf(v0 + (co < p.c ? p.bias[co] : 0.0f), 0.0f);
+              v1 = fmaxf(v1 + (co < p.c ? p.bias[co + 1] : 0.0f), 0.0f);
+            }
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+            st_shared_b32(stage_wg + (j / 8) * 64 * ROW_BYTES + m * ROW_BYTES +
+                              ((((j % 8) ^ m) & 7) << 4) + 4 * (lane % 4),
+                          *reinterpret_cast<const uint32_t*>(&v));
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to TMA
+        named_bar_sync(1 + wg_in, 128);
+        if (storer) {
+#pragma unroll
+          for (int half = 0; half < BN / 64; ++half)
+            if (co_t * BN + half * 64 < p.c)
+              tma_store_4d(&ymap, stage_wg + half * 64 * ROW_BYTES, co_t * BN + half * 64, x0,
+                           y0 + wg_in * (p.th / 2), n);
+          bulk_store_commit();
+        }
+        continue;
+      }
       named_bar_sync(1 + g, 128 * C::WGS);  // the previous store has read the buffer
 #pragma unroll
       for (int s = 0; s < SLABS; ++s)
@@ -843,6 +1018,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       if (C::STAGE_IN_HALO) mbar_arrive(hempty + 8 * last_hs);
     }
+  }
+  if constexpr (C::CLUSTER > 1) {
+    // Each warpgroup's last store has read its buffer.
+    if (tid < CONSUMERS && tid % 128 == 0) bulk_store_wait_read_only();
+    cluster_sync();
   }
 }
 
@@ -899,7 +1079,21 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
 
+  // CLUSTER > 1: a launch of clusters of C::CLUSTER CTAs.
+  cudaLaunchAttribute cluster_dim;
+  cluster_dim.id = cudaLaunchAttributeClusterDimension;
+  cluster_dim.val.clusterDim.x = C::CLUSTER;
+  cluster_dim.val.clusterDim.y = 1;
+  cluster_dim.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &cluster_dim;
+  cfg.numAttrs = 1;
+
   static int sms = 0;
+  static int clusters = 0;  // CLUSTER > 1: the clusters the card holds at once
   static bool smem_set = false;
   if (!smem_set) {
     int dev = 0;
@@ -907,6 +1101,11 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (C::CLUSTER > 1 && e == cudaSuccess) {
+      cfg.gridDim = dim3(C::CLUSTER * sms);
+      e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (e == cudaSuccess && clusters < 1) e = cudaErrorInvalidConfiguration;
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
@@ -926,7 +1125,10 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   p.co_tiles = (c + BN - 1) / BN;
   p.nchunks = (c + CHUNK - 1) / CHUNK;
   p.co_pad = p.co_tiles * BN;
-  p.items = n * p.tiles_y * p.tiles_x * p.co_tiles;
+  p.pix_tiles = n * p.tiles_y * p.tiles_x;
+  // CLUSTER > 1: items of CLUSTER neighbouring pixel tiles (the last may
+  // have fewer live ones) per channel tile.
+  p.items = (p.pix_tiles + C::CLUSTER - 1) / C::CLUSTER * p.co_tiles;
   p.pad_top = pad_top;
   p.halo_tx = static_cast<uint32_t>((t.th + 2) * (t.tw + 2) * ROW_BYTES);
   if (C::RESIDENT_W && p.nchunks != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -949,7 +1151,9 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   const cuuint64_t ystride[3] = {static_cast<cuuint64_t>(c) * ES,
                                  static_cast<cuuint64_t>(w) * c * ES,
                                  static_cast<cuuint64_t>(oh) * w * c * ES};
-  const cuuint32_t ybox[4] = {CHUNK, static_cast<cuuint32_t>(t.tw), static_cast<cuuint32_t>(t.th), 1};
+  // CLUSTER > 1: each warpgroup stores its half of the tile's rows.
+  const cuuint32_t ybox[4] = {CHUNK, static_cast<cuuint32_t>(t.tw),
+                              static_cast<cuuint32_t>(C::CLUSTER > 1 ? t.th / 2 : t.th), 1};
   if (encode(&ymap, DTYPE, 4, out, ydim, ystride, ybox, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -971,13 +1175,21 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
     const cuuint64_t wdim[2] = {CHUNK,
                                 static_cast<cuuint64_t>(C::PLANES) * 9 * p.nchunks * p.co_pad};
     const cuuint64_t wstride[1] = {ROW_BYTES};
-    const cuuint32_t wbox[2] = {CHUNK, BN};
+    const cuuint32_t wbox[2] = {CHUNK, BN / C::CLUSTER};  // CLUSTER > 1: a CTA's share
     if (encode(&wmap, DTYPE, 2, const_cast<void*>(wpk), wdim, wstride, wbox, ones,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
   }
 
+  if constexpr (C::CLUSTER > 1) {
+    // Persistent: as many clusters as the card holds at once, at most one per item.
+    cfg.gridDim = dim3(C::CLUSTER * (p.items < clusters ? p.items : clusters));
+    void* args[] = {&xmap, &wmap, &ymap, &p};
+    const cudaError_t e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int ctas = (p.items + C::GROUPS - 1) / C::GROUPS;
   const int grid = ctas < sms ? ctas : sms;
   kernel<<<grid, THREADS, C::SMEM, stream>>>(xmap, wmap, ymap, p);

@@ -101,7 +101,8 @@ from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel
 
 __all__ = ["TF32X3_PATHS", "conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad",
            "conv3x3_dgrad_plain", "conv3x3_path", "conv3x3_same", "conv3x3_same_plain",
-           "pack_conv3x3_grad", "pack_conv3x3_weight", "tf32_split"]
+           "pack_conv3x3_grad", "pack_conv3x3_weight", "pick_tile", "streamed_schedule",
+           "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -146,6 +147,55 @@ def out_rows(h: int, pad: tuple[int, int]) -> int:
 def dgrad_pad(pad: tuple[int, int]) -> tuple[int, int]:
     """dgrad's pads for a forward with ``pad``: its output has the forward's input rows."""
     return 2 - pad[0], 2 - pad[1]
+
+
+# ``csrc/conv3x3_same.cu``'s tensor-core tiles: pixels per tile, the most
+# rows a halo stage holds, the tile widths ``pick_tile`` tries. The bf16
+# streamed layout (``wgmma``): output channels per tile, CTAs per cluster
+# (which share each weight stage, TMA multicast), bytes of a weight stage
+# (one tap of one 64-channel chunk for the tile's output channels).
+TILE_M, HALO_ROWS, TILE_WIDTHS = 128, 192, (8, 16, 30)
+STREAMED_BN, STREAMED_CLUSTER = 128, 2
+STREAMED_STAGE_BYTES = STREAMED_BN * 64 * 2
+
+
+def pick_tile(h: int, w: int) -> tuple[int, int]:
+    """The kernel's (TH, TW) for an ``h`` x ``w`` output (``csrc/conv3x3_same.cu:pick_tile``).
+
+    TH = 128 // TW rows of TW pixels, the fewest M rows over the map, ties
+    to the smaller halo box.
+    """
+    best = None
+    for tw in TILE_WIDTHS:
+        th = TILE_M // tw
+        halo = (th + 2) * (tw + 2)
+        if halo > HALO_ROWS:
+            continue
+        key = (-(-h // th) * -(-w // tw) * TILE_M, halo)
+        if best is None or key < best[0]:
+            best = (key, (th, tw))
+    return best[1]
+
+
+def streamed_schedule(n: int, h: int, w: int, c: int, pad: tuple[int, int] = SAME) -> dict:
+    """The work of one ``wgmma`` launch on ``h`` input rows, as the kernel's launch lays it out.
+
+    Pixel tiles (``pick_tile``) run x fastest, then y, then image; an item
+    is ``cluster`` neighbouring pixel tiles of one 128-channel tile, the
+    channel tile fastest, and the cluster's CTA of rank r computes the r-th
+    (a tail short of a tile computes the last tile again and stores
+    nothing). Each CTA loads 1/``cluster`` of every weight stage and
+    receives the rest from the others, so the weights read from L2 are
+    ``l2_weight_bytes`` = items x 9 taps x chunks x a stage.
+    """
+    th, tw = pick_tile(out_rows(h, pad), w)
+    tiles_x, tiles_y = -(-w // tw), -(-out_rows(h, pad) // th)
+    pix_tiles, co_tiles = n * tiles_y * tiles_x, -(-c // STREAMED_BN)
+    chunks = -(-c // CHUNK[torch.bfloat16])
+    items = -(-pix_tiles // STREAMED_CLUSTER) * co_tiles
+    return {"tile": (th, tw), "tiles": (tiles_y, tiles_x), "pix_tiles": pix_tiles,
+            "co_tiles": co_tiles, "chunks": chunks, "cluster": STREAMED_CLUSTER, "items": items,
+            "l2_weight_bytes": items * 9 * chunks * STREAMED_STAGE_BYTES}
 
 
 def conv3x3_path(c: int, dtype: torch.dtype) -> str:
