@@ -24,7 +24,10 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    gives its thread-block cluster size (``cluster``) and the weight bytes
    its launch reads from L2 (``l2_weight_bytes``, counted from the schedule
    by ``ops/conv3x3.py:streamed_schedule``) and their rate over ``ms``
-   (``l2_weight_bytes_per_s``). Then an in-place weight update
+   (``l2_weight_bytes_per_s``); a ``c64_persistent`` row (bf16, C <= 64) its
+   tile (TH, TW), items, items per CTA, halo pitch and the share of its MMA
+   columns computed and dropped (``ops/conv3x3.py:c64_schedule``). Then an
+   in-place weight update
    between two conv calls on signed inputs must change the result (the
    wrapper's packed-weight cache repacks).
 3. Backward sites, at the train shapes (512^2, batch 8, bf16) plus one f32
@@ -536,6 +539,14 @@ def measure_site(prefix: str, kernel: str, site: str, path: str, dtype, run, pla
         sched = streamed_schedule(n, h, w, c, tuple(shapes.get("pad", (1, 1))))
         row.update({"cluster": sched["cluster"], "l2_weight_bytes": sched["l2_weight_bytes"],
                     "l2_weight_bytes_per_s": sched["l2_weight_bytes"] / ms * 1e3})
+    if path == "c64_persistent":  # the bf16 C <= 64 kernel: its tile, items and halo pitch
+        from unet_embroidery_seg_torch.ops.conv3x3 import c64_schedule
+
+        n, c, h, w = shapes["shape"]
+        sched = c64_schedule(n, h, w, tuple(shapes.get("pad", (1, 1))))
+        row.update({"tile": list(sched["tile"]), "items": sched["items"],
+                    "items_per_cta": sched["items_per_cta"], "halo_pitch": sched["halo_pitch"],
+                    "dropped_share": sched["dropped_share"]})
     if fma is not None:
         row["fma_ms"] = graph_ms(fma, event_ms(fma))
         row["cuda_core_bound_ms"] = bound(nbytes, flops, dtype, "fma")[0]
@@ -2543,20 +2554,21 @@ def unbaked_artifact(model, weights: str, canvases, workdir: str, counters) -> d
 def _kernel_role(name: str) -> str | None:
     """Which hand-written kernel a CUDA kernel event's (demangled) name is, or None.
 
-    The conv kernel's last two template flags are BIAS_RELU, on in
+    The conv kernels' last two template flags are BIAS_RELU, on in
     unet_resnet50's forward, and DGRAD, on in its dgrad (``void (anonymous
-    namespace)::tc::conv3x3_wgmma_kernel<__nv_bfloat16, 64, true, true,
-    false>(...)``).
+    namespace)::tc::conv3x3_wgmma_kernel<__nv_bfloat16, 128, 0, true,
+    false>(...)`` at C > 64, ``...::tc::conv3x3_c64_kernel<true, false>(...)``
+    at C <= 64).
     """
     for role, key in (("upsample2x", "::upsample2x_kernel<"),
                       ("upsample2x_backward", "::upsample2x_bwd_kernel<")):
         if key in name:
             return role
-    if "::conv3x3_wgmma_kernel<" not in name:
+    key = next((k for k in ("::conv3x3_wgmma_kernel<", "::conv3x3_c64_kernel<") if k in name), None)
+    if key is None:
         return None
-    flags = [f.strip() for f in
-             name.split("::conv3x3_wgmma_kernel<", 1)[1].split(">", 1)[0].split(",")]
-    return ("conv3x3 forward" if flags[3] == "true" else "conv3x3 dgrad" if flags[4] == "true"
+    flags = [f.strip() for f in name.split(key, 1)[1].split(">", 1)[0].split(",")]
+    return ("conv3x3 forward" if flags[-2] == "true" else "conv3x3 dgrad" if flags[-1] == "true"
             else None)
 
 

@@ -147,22 +147,29 @@ def _setup():
 
 
 def _compile(_build, sources: dict[str, str], out: Path = OUT) -> tuple[dict[str, Path], dict[str, str]]:
-    """nvcc -Xptxas -v of each source text into ``out``, all at once: (.so by name, ptxas log by name)."""
+    """nvcc -Xptxas -v of each source text into ``out``, all at once: (.so by name, ptxas log by name).
+
+    A source whose text, library and log an earlier run left in ``out`` is not built again.
+    """
     out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, libs, logs = {}, {}, {}
     for name, text in sources.items():
         src = out / f"{name}.cu"
-        src.write_text(text)
         lib = out / f"{name}.so"
+        if lib.exists() and src.exists() and src.read_text() == text:  # built by an earlier run
+            libs[name], logs[name] = lib, (out / f"{name}.log").read_text()
+            continue
+        src.write_text(text)
+        lib.unlink(missing_ok=True)
         jobs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs, logs = {}, {}
     for name, (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         logs[name] = log.decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{logs[name][-4000:]}")
+        (out / f"{name}.log").write_text(logs[name])
         libs[name] = lib
     return libs, logs
 

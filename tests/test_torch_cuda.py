@@ -5,6 +5,7 @@ interpret mode). On the card: ``python -m pytest tests/test_torch_cuda.py -q``.
 Shapes are small and odd on purpose: ragged tiles, C not a multiple of the
 vector width or of the 64-channel block, and for the conv each of its paths
 (bf16 with C % 16 == 0 on the tensor cores: ``c64_persistent`` for C <= 64,
+its operands swapped (the weights as A, the pixels as B), at every pad,
 ``wgmma`` above, in clusters of two CTAs, also at halo pads and odd tile
 counts; f32 with C % 4 == 0 on the TF32 tensor cores,
 ``tf32x3_c64`` for C <= 64 (also at halo pads), ``tf32x3`` above, held to
@@ -436,6 +437,40 @@ def test_wgmma_clusters_match_plain_at_each_pad(device, shape, fn, pad):
     assert conv3x3_mod.streamed_schedule(n, h, w, c)["pix_tiles"] % 2 == 1
     x = _x(shape, torch.bfloat16, device, seed=c + sum(pad) + 31)
     weight, bias = _conv_params(c, device, seed=c + 32)
+    run, plain, counter = {
+        "bias_relu": (lambda: conv3x3_bias_relu(torch.relu(x), weight, bias, pad),
+                      lambda: conv3x3_bias_relu_plain(torch.relu(x), weight, bias, pad),
+                      conv3x3_bias_relu),
+        "same": (lambda: conv3x3_same(x, weight, pad), lambda: conv3x3_same_plain(x, weight, pad),
+                 conv3x3_same),
+        "dgrad": (lambda: conv3x3_dgrad(x, weight, pad), lambda: conv3x3_dgrad_plain(x, weight, pad),
+                  conv3x3_dgrad),
+    }[fn]
+    before = (counter.launches, counter.halo_launches)
+    with torch.no_grad():
+        got = run()
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.halo_launches) == (before[0] + 1,
+                                                         before[1] + (pad != (1, 1)))
+    want = plain()
+    assert got.shape == (n, c, h + sum(pad) - 2, w)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, f32_rel=0.0)
+
+
+@pytest.mark.parametrize("pad", [(1, 1), (1, 0), (0, 1), (1, 2), (2, 1), (0, 2)])
+@pytest.mark.parametrize("fn", ["bias_relu", "same", "dgrad"])
+@pytest.mark.parametrize("shape", [(1, 16, 19, 21), (8, 32, 17, 45), (1, 48, 33, 13),
+                                   (8, 64, 40, 70)])
+def test_c64_swapped_operands_match_plain_at_each_pad(device, shape, fn, pad):
+    # The bf16 C <= 64 kernel: M = output channels (the resident weights), N =
+    # 256 pixels of the halo stage at the tap's shift, at the pitch TW + 2.
+    # Widths 21, 45, 13, 70 leave a ragged last tile at each tile shape the
+    # launch picks (TW 14, 30, 40); C = 16, 32, 48 read zero-filled channels.
+    n, c, h, w = shape
+    assert conv3x3_mod.conv3x3_path(c, torch.bfloat16) == "c64_persistent"
+    assert w % conv3x3_mod.pick_tile_c64(h + sum(pad) - 2, w)[1] != 0
+    x = _x(shape, torch.bfloat16, device, seed=c + sum(pad) + 41)
+    weight, bias = _conv_params(c, device, seed=c + 42)
     run, plain, counter = {
         "bias_relu": (lambda: conv3x3_bias_relu(torch.relu(x), weight, bias, pad),
                       lambda: conv3x3_bias_relu_plain(torch.relu(x), weight, bias, pad),

@@ -50,20 +50,28 @@
 //      * MMA: wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate). B (the
 //        weights, [co][64 ci] rows, 128B-swizzled by TMA) comes from shared
 //        memory through a descriptor. A is the pixel window shifted by the
-//        tap, which no shared-memory descriptor can address (a one-pixel
-//        shift crosses 8-row core matrices), so A comes from registers:
-//        ldmatrix with one row address per lane into the halo tile at the
-//        tap's shift, un-swizzled by hand. A is double-buffered in
-//        registers: tap t+1's ldmatrix runs while tap t's wgmma does.
-//      * C <= 64 (up_concat1.conv2, up_conv.1/.3; bound by bytes):
-//        "c64_persistent". All 9 x 64 x 64 weights (72 KB) are loaded once
-//        per CTA and stay. Each consumer warpgroup is its own pipeline (own
-//        128-pixel tiles, own 3-stage halo ring, own producer thread), so
-//        one warpgroup's epilogue runs under the other's MMAs; N = 64. The
-//        smaller tile over-reads the halo 1.41x (a shared 256-pixel 16 x 16
-//        tile would be 1.27x), which L2 absorbs; at this C the limit on the
-//        SM is shared-memory bandwidth (ldmatrix of A plus wgmma's reads of
-//        B about equal the tensor-core time), not device memory.
+//        tap, taken from registers: ldmatrix with one row address per lane
+//        into the halo tile at the tap's shift, un-swizzled by hand, double-
+//        buffered (tap t+1's ldmatrix runs while tap t's wgmma does).
+//      * C <= 64 (up_concat1.conv2, up_conv.1/.3, the families' inc.conv2
+//        and up4.conv.conv2; bound by bytes and operations about equally):
+//        "c64_persistent", a kernel of its own (conv3x3_c64_kernel) with the
+//        operands swapped: M = the 64 output channels, A = the weights (all
+//        9 x 64 x 64, 72 KB, loaded once per CTA), N = 256 pixels, B = the
+//        halo stage read by descriptor from the tap's shifted row. The
+//        128-byte swizzle follows the address bits, so a descriptor whose
+//        start moves by whole 128-byte rows reads the window shifted by any
+//        number of pixels (scripts/torch_conv_bf16_probe.py shift). No
+//        ldmatrix, and each m64n256k16 reads 10 KB of shared memory per 128
+//        tensor-core cycles (80 bytes a cycle of the SM's 128; the old m64n64
+//        form with A by ldmatrix needed all 128). N runs across tile rows at
+//        the halo's pitch TW + 2, and 2 columns a row are computed and
+//        dropped. A probe of the old form (split --layout resident) put 9-17%
+//        of its time in ldmatrix and 18-25% in the epilogue, which one
+//        group's MMAs could not cover; here one group's back-to-back N = 256
+//        wgmmas keep the tensor cores busy while the other stores. With the
+//        MMAs taken away the loads and stores alone take 77-91% of the call
+//        (split --layout c64, no_mma): what bounds it now is device memory.
 //      * C > 64 (up_concat{4,3,2}.conv2; bound by operations): "wgmma".
 //        Tiles of 128 pixels x 128 output channels, one slab of m64 per
 //        consumer warpgroup; per 64-channel chunk one halo stage (reused by
@@ -220,7 +228,9 @@ constexpr int HALO_ROWS = 192;             // most (TH+2)*(TW+2) of a tile shape
 //    each warpgroup staging and storing its own half of the tile's rows.
 //  - RESIDENT (bf16, C <= 64): two groups of one warpgroup each (two slabs
 //    of m64), so one group's epilogue overlaps the other's MMAs; both read
-//    the one resident weight set.
+//    the one resident weight set. Not launched: bf16 at C <= 64 runs
+//    conv3x3_c64_kernel. Its branches stay, compile-time dead in the other
+//    layouts, so that those compile to the same code as before it went.
 //  - PIPES (f32, C <= 64): two groups of one warpgroup each, as RESIDENT,
 //    but each streams its own weight ring (two f32 planes are too large to
 //    stay). The epilogue stages in the halo stage just consumed.
@@ -1026,6 +1036,256 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---- bf16 at C <= 64 ("c64_persistent"): the operands swapped ------------------
+//
+// M = the 64 output channels (A = the resident weights, by descriptor), N =
+// 256 pixels of the halo stage at the tap's shift (B, by descriptor): no
+// register holds an operand, so no ldmatrix, and each wgmma.m64n256k16 (128
+// tensor-core cycles) reads 2 KB of A and 8 KB of B from shared memory.
+// Pixel n of a tile is halo row n + shift and output (n / P, n % P) at the
+// halo's pitch P = TW + 2; the 2 columns of each row past TW (and any pixel
+// past TH rows) are computed and dropped. An item is one tile: 36 wgmmas
+// into 128 accumulators a thread, one commit group, one wait. Each of the
+// two consumer warpgroups takes every other item of its CTA from one
+// 3-stage halo ring that the producer fills in item order, and releases its
+// stage as soon as its MMAs have read it; then its epilogue transposes the
+// accumulators (channels x pixels) into NHWC rows through 512 bytes of
+// shared memory per warp (stmatrix .trans) and stores them, 16 bytes (8
+// channels of a pixel) a lane, while the other warpgroup's MMAs run.
+constexpr int C64_N = 256;          // pixels per tile (wgmma N), TH * P of them live
+constexpr int C64_STAGES = 3;       // halo stages, shared by the two groups
+constexpr int C64_HALO_ROWS = 352;  // the rows any tile's last tap reads (see c64_tiles_fit)
+constexpr int C64_HALO_BYTES = C64_HALO_ROWS * ROW_BYTES;
+constexpr int C64_W_BYTES = 9 * 64 * ROW_BYTES;  // 9 taps of [64 co][64 ci]
+constexpr int C64_XBUF_BYTES = CONSUMERS / 32 * 512;  // the epilogue's transposes
+constexpr int C64_SMEM =
+    1024 + C64_STAGES * C64_HALO_BYTES + C64_W_BYTES + C64_XBUF_BYTES + 8 * 3 * C64_STAGES + 8;
+static_assert(C64_HALO_BYTES % 1024 == 0, "stages keep the swizzle's 1024-byte alignment");
+static_assert(C64_SMEM <= 232448, "over the 227 KB a block can have");
+
+// The tile shapes (TW, TH) a launch picks from (ops/conv3x3.py:C64_TILES): TH
+// rows at pitch P = TW + 2 fill at most the 256 pixels of N, and the rows the
+// last tap reads, 2P + 2 + 255, fit a stage (the box holds (TH + 2) P of them;
+// past it only dropped columns read).
+constexpr int C64_TILES[3][2] = {{30, 8}, {40, 6}, {14, 16}};
+
+constexpr bool c64_tiles_fit() {
+  for (const auto& t : C64_TILES) {
+    const int pitch = t[0] + 2;
+    if (t[1] * pitch > C64_N || 2 * pitch + 2 + C64_N > C64_HALO_ROWS || pitch < 16)
+      return false;
+  }
+  return true;
+}
+static_assert(c64_tiles_fit(), "a tile fills at most N, its last tap's rows fit a stage, and a "
+                               "row of it holds a pair of 8-pixel blocks");
+
+// m64n256k16 with A and B from shared memory by descriptor; TRANS_A = 1: A
+// MN-major (dgrad: the forward's [co][64 ci] tiles read as [ci][co]).
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t adesc,
+                                                    uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(adesc), "l"(bdesc), "r"(1), "n"(TRANS_A));
+}
+
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+struct C64Params {
+  const float* bias;
+  __nv_bfloat16* out;
+  int c, w, oh, th, tw, tiles_x, tiles_y, items, pad_top;
+  uint32_t halo_tx;
+};
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+template <bool BIAS_RELU, bool DGRAD>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_c64_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, const C64Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t halo0 = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t wgt = halo0 + C64_STAGES * C64_HALO_BYTES;
+  const uint32_t xbuf0 = wgt + C64_W_BYTES;  // 512 bytes per consumer warp
+  // hfull[stage][group]: a group waits only on its own items' loads, so a
+  // wait can never pass on an older phase (a stage alternates between the
+  // groups, and one parity bit tells apart only a barrier's last two phases).
+  const uint32_t hfull0 = xbuf0 + C64_XBUF_BYTES, hempty0 = hfull0 + 8 * 2 * C64_STAGES;
+  const uint32_t wfull = hempty0 + 8 * C64_STAGES;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < C64_STAGES; ++s) {
+      mbar_init(hfull0 + 8 * (2 * s), 1);
+      mbar_init(hfull0 + 8 * (2 * s + 1), 1);
+      mbar_init(hempty0 + 8 * s, 128);
+    }
+    mbar_init(wfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int pitch = p.tw + 2;
+  const int grid = gridDim.x;
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one thread loads the weights once, then every halo in item order ----
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(wfull, C64_W_BYTES);
+      for (int tap = 0; tap < 9; ++tap)
+        tma_load_2d(wgt + tap * 64 * ROW_BYTES, &wmap, wfull, 0, tap * 64);
+      for (int k = 0;; ++k) {
+        const int item = blockIdx.x + k * grid;
+        if (item >= p.items) break;
+        const int s = k % C64_STAGES;
+        mbar_wait(hempty0 + 8 * s, ((k / C64_STAGES) & 1) ^ 1);
+        const uint32_t full = hfull0 + 8 * (2 * s + k % 2);
+        mbar_expect_tx(full, p.halo_tx);
+        const int tx = item % p.tiles_x, rest = item / p.tiles_x;
+        const int ty = rest % p.tiles_y, n = rest / p.tiles_y;
+        tma_load_4d(halo0 + s * C64_HALO_BYTES, &xmap, full, 0, tx * p.tw - 1,
+                    ty * p.th - p.pad_top, n);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup g takes the CTA's items g, g + 2, ... ----------------
+  setmaxnreg_inc<232>();
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  // This thread's accumulators: output channels ch0 and ch0 + 8, pixels 8j + 2 (lane % 4) + {0, 1}.
+  const int ch0 = 16 * warp + lane / 4;
+  float b0 = 0.0f, b1 = 0.0f;
+  if constexpr (BIAS_RELU) {
+    b0 = ch0 < p.c ? p.bias[ch0] : 0.0f;
+    b1 = ch0 + 8 < p.c ? p.bias[ch0 + 8] : 0.0f;
+  }
+  // The epilogue, per pair of 8-pixel blocks (j, j + 1): stmatrix .trans puts
+  // the warp's 16 channels x 16 pixels into its own 512 bytes of shared memory
+  // as 32-byte pixel rows (lane l addresses row l % 8 of matrix l / 8: pixel
+  // 8 (l / 16) + l % 8, channels 8 ((l / 8) % 2) .. + 7 of the warp's 16; the
+  // two 16-byte halves of pixels 4-7 and 12-15 swapped, so no two rows of a
+  // matrix share banks), then lane l reads half l % 2 of pixel l / 2 and
+  // stores its 16 bytes to global memory.
+  const uint32_t xbuf = xbuf0 + (tid / 32) * 512;
+  const int st_p = 8 * (lane / 16) + lane % 8, st_u = (lane / 8) % 2;
+  const uint32_t st_addr = xbuf + st_p * 32 + ((st_u ^ ((st_p >> 2) & 1)) << 4);
+  const int ld_p = lane / 2, ld_u = lane % 2;
+  const uint32_t ld_addr = xbuf + ld_p * 32 + ((ld_u ^ ((ld_p >> 2) & 1)) << 4);
+  const int co = 16 * warp + 8 * ld_u;  // the channels this lane stores
+  mbar_wait(wfull, 0);
+  for (int k = g;; k += 2) {
+    const int item = blockIdx.x + k * grid;
+    if (item >= p.items) break;
+    const int s = k % C64_STAGES;
+    const uint32_t stage = halo0 + s * C64_HALO_BYTES;
+    mbar_wait(hfull0 + 8 * (2 * s + g), (k / (2 * C64_STAGES)) & 1);  // its k-th use: k / 6
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint32_t wtile = wgt + (DGRAD ? 8 - tap : tap) * 64 * ROW_BYTES;
+      const uint64_t adesc =
+          DGRAD ? smem_desc_sw128_mn(wtile, 64 * ROW_BYTES) : smem_desc_sw128(wtile);
+      // B: the halo stage's rows from the tap's shift on (K-major, 128-byte swizzle)
+      const uint64_t bdesc = smem_desc_sw128(stage + ((tap / 3) * pitch + tap % 3) * ROW_BYTES);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)  // A: +32 bytes per k16 (dgrad: +16 rows); B: +32 bytes
+        wgmma_m64n256k16_ss<DGRAD ? 1 : 0>(acc, adesc + (DGRAD ? 128 : 2) * ks, bdesc + 2 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(hempty0 + 8 * s);  // the MMAs have read the stage: the producer may refill it
+
+    // ---- epilogue: (+ bias, ReLU), bf16, transposed per warp, 16-byte stores ----
+    const int tx = item % p.tiles_x, rest = item / p.tiles_x;
+    const int ty = rest % p.tiles_y, n = rest / p.tiles_y;
+    const int x0 = tx * p.tw, y0 = ty * p.th;
+    __nv_bfloat16* const out =
+        p.out + ((static_cast<long long>(n) * p.oh + y0) * p.w + x0) * p.c + co;
+    const bool live_c = co < p.c;  // C is a multiple of 16: a warp's channels all live or none
+    int y = 0, x = ld_p;  // this lane's pixel of the pair (pitch >= 16: x < pitch)
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = acc[4 * j + i];
+      if constexpr (BIAS_RELU) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = fmaxf(v[i] + ((i / 2) % 2 ? b1 : b0), 0.0f);
+      }
+      stsm_x4_trans(st_addr, pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+      __syncwarp();
+      const uint4 val = ld_shared_v4(ld_addr);
+      if (live_c && x < p.tw && y < p.th && x0 + x < p.w && y0 + y < p.oh)
+        *reinterpret_cast<uint4*>(out + (static_cast<long long>(y) * p.w + x) * p.c) = val;
+      __syncwarp();  // read before the next pair's stmatrix writes
+      x += 16;  // the next pair (pitch >= 16: one row on at most)
+      if (x >= pitch) {
+        x -= pitch;
+        ++y;
+      }
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1196,6 +1456,94 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int n, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// The c64 kernel's tile for an oh x w output: the C64_TILES shape with the
+// fewest tiles (each a full wgmma N), ties to the first.
+Tile pick_tile_c64(int oh, int w) {
+  Tile best = {0, 0};
+  long long best_tiles = 0;
+  for (const auto& t : C64_TILES) {
+    const long long tiles =
+        static_cast<long long>((w + t[0] - 1) / t[0]) * ((oh + t[1] - 1) / t[1]);
+    if (best.th == 0 || tiles < best_tiles) {
+      best = {t[1], t[0]};
+      best_tiles = tiles;
+    }
+  }
+  return best;
+}
+
+// bf16 at C <= 64: x has h rows, out h + pad_top + pad_bottom - 2; wpk the
+// forward's packing [tap][1][64][64] (dgrad reads it flipped and transposed).
+template <bool BIAS_RELU, bool DGRAD>
+int launch_c64(const void* x, const void* wpk, const void* bias, void* out, int n, int h, int w,
+               int c, int pad_top, int pad_bottom, cudaStream_t stream) {
+  auto kernel = conv3x3_c64_kernel<BIAS_RELU, DGRAD>;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  if (c > 64 || reinterpret_cast<uintptr_t>(out) % 16 != 0)  // 16-byte stores of 8 channels
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C64_SMEM);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(e);
+    }
+  }
+  const int oh = h + pad_top + pad_bottom - 2;
+  const Tile t = pick_tile_c64(oh, w);
+  C64Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.c = c;
+  p.w = w;
+  p.oh = oh;
+  p.th = t.th;
+  p.tw = t.tw;
+  p.tiles_x = (w + t.tw - 1) / t.tw;
+  p.tiles_y = (oh + t.th - 1) / t.th;
+  const long long items = static_cast<long long>(n) * p.tiles_y * p.tiles_x;
+  if (items > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  p.items = static_cast<int>(items);
+  p.pad_top = pad_top;
+  p.halo_tx = static_cast<uint32_t>((t.th + 2) * (t.tw + 2) * ROW_BYTES);
+
+  alignas(64) CUtensorMap xmap, wmap;
+  constexpr cuuint64_t ES = 2;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  // The halo: boxes of (64 channels, TW + 2, TH + 2, 1) at (0, x0 - 1, y0 - pad_top, n);
+  // TMA's zero fill is the padding, in W and H and past C.
+  const cuuint64_t xdim[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t xstride[3] = {static_cast<cuuint64_t>(c) * ES,
+                                 static_cast<cuuint64_t>(w) * c * ES,
+                                 static_cast<cuuint64_t>(h) * w * c * ES};
+  const cuuint32_t xbox[4] = {64, static_cast<cuuint32_t>(t.tw + 2),
+                              static_cast<cuuint32_t>(t.th + 2), 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim, xstride, xbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The weights: [tap][64 co][64 ci] as rows of 128 bytes, one box of 64 rows per tap.
+  const cuuint64_t wdim[2] = {64, 9 * 64};
+  const cuuint64_t wstride[1] = {ROW_BYTES};
+  const cuuint32_t wbox[2] = {64, 64};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wpk), wdim, wstride,
+             wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // Persistent: at most one CTA per SM, and two items (one per group) per CTA at least.
+  const int ctas = (p.items + 1) / 2;
+  const int grid = ctas < sms ? ctas : sms;
+  kernel<<<grid, THREADS, C64_SMEM, stream>>>(xmap, wmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
 
 // ---- CUDA-core path: f32 with C % 4 != 0, bf16 with C % 16 != 0 ----------------
@@ -1359,6 +1707,16 @@ int tc_modes(int mode, const void* x, const void* wpk, const void* bias, void* o
   return tc::launch<T, BN, LAYOUT, false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
 }
 
+int c64_modes(int mode, const void* x, const void* wpk, const void* bias, void* out, int n, int h,
+              int w, int c, int pt, int pb, cudaStream_t s) {
+  if (mode == MODE_BIAS_RELU)
+    return tc::launch_c64<true, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  if (mode == MODE_DGRAD)
+    return tc::launch_c64<false, true>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+  if (mode != MODE_CONV) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_c64<false, false>(x, wpk, bias, out, n, h, w, c, pt, pb, s);
+}
+
 template <typename T, bool BIAS_RELU, bool DGRAD>
 int fma_launch(const void* x, const void* wt, const float* bias, void* out, dim3 grid, int h,
                int w, int c, int tiles_x, int oh, int pad_top, cudaStream_t s) {
@@ -1393,9 +1751,7 @@ extern "C" int conv3x3_wgmma_launch(const void* x, const void* wpk, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  if (c <= 64)
-    return tc_modes<bf16, 64, tc::RESIDENT>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
-                                            pad_bottom, s);
+  if (c <= 64) return c64_modes(mode, x, wpk, bias, out, n, h, w, c, pad_top, pad_bottom, s);
   return tc_modes<bf16, 128, tc::STREAMED>(mode, x, wpk, bias, out, n, h, w, c, pad_top,
                                            pad_bottom, s);
 }

@@ -20,8 +20,10 @@ which the JAX package computes with a flax ``nn.Conv``
   a call takes:
 
   - bf16 with C % 16 == 0 (every bf16 site): an implicit GEMM on the tensor
-    cores (TMA halo ring, ``wgmma``): ``c64_persistent`` for C <= 64,
-    ``wgmma`` above;
+    cores (TMA halo ring, ``wgmma``): ``c64_persistent`` for C <= 64, a
+    kernel of its own with the operands swapped (the weights as A, 256
+    pixels of the halo stage at each tap's shift as B, both read from shared
+    memory by descriptor; ``c64_schedule``), ``wgmma`` above;
   - f32 with C % 4 == 0 (every f32 site; TMA needs 16-byte strides, 4 f32):
     the same kernel on the TF32 tensor cores with each operand split into
     two tf32 parts (``tf32_split``) and three products summed in f32, which
@@ -101,8 +103,8 @@ from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel
 
 __all__ = ["TF32X3_PATHS", "conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad",
            "conv3x3_dgrad_plain", "conv3x3_path", "conv3x3_same", "conv3x3_same_plain",
-           "pack_conv3x3_grad", "pack_conv3x3_weight", "pick_tile", "streamed_schedule",
-           "tf32_split"]
+           "pack_conv3x3_grad", "pack_conv3x3_weight", "pick_tile", "pick_tile_c64",
+           "c64_schedule", "streamed_schedule", "tf32_split"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -196,6 +198,46 @@ def streamed_schedule(n: int, h: int, w: int, c: int, pad: tuple[int, int] = SAM
     return {"tile": (th, tw), "tiles": (tiles_y, tiles_x), "pix_tiles": pix_tiles,
             "co_tiles": co_tiles, "chunks": chunks, "cluster": STREAMED_CLUSTER, "items": items,
             "l2_weight_bytes": items * 9 * chunks * STREAMED_STAGE_BYTES}
+
+
+# The bf16 C <= 64 kernel (``c64_persistent``, ``conv3x3_c64_kernel``): pixels
+# per tile (the wgmma N), the tile shapes (TW, TH) its launch picks from, halo
+# stages (shared by its two consumer warpgroups), rows of a stage.
+C64_N, C64_TILES, C64_STAGES, C64_HALO_ROWS = 256, ((30, 8), (40, 6), (14, 16)), 3, 352
+
+
+def pick_tile_c64(h: int, w: int) -> tuple[int, int]:
+    """The C <= 64 kernel's (TH, TW) for an ``h`` x ``w`` output (``pick_tile_c64`` in the .cu).
+
+    The ``C64_TILES`` shape with the fewest tiles, ties to the first: every
+    tile is one full N of 256 pixels, TH rows at the halo's pitch TW + 2.
+    """
+    best = None
+    for tw, th in C64_TILES:
+        tiles = -(-w // tw) * -(-h // th)
+        if best is None or tiles < best[0]:
+            best = (tiles, (th, tw))
+    return best[1]
+
+
+def c64_schedule(n: int, h: int, w: int, pad: tuple[int, int] = SAME, sms: int = 132) -> dict:
+    """The work of one ``c64_persistent`` launch on ``h`` input rows, as the kernel lays it out.
+
+    Pixel tiles (``pick_tile_c64``) run x fastest, then y, then image. CTA b
+    of ``grid`` (at most ``sms``, at least two items each) takes items b, b +
+    grid, ...: its k-th goes to consumer warpgroup k % 2 and halo stage k % 3.
+    A tile is N = 256 pixels at the halo's pitch TW + 2 (``halo_pitch``): the
+    2 columns past TW of each row, and the pixels past TH rows, are computed
+    and dropped (``dropped_share`` of the MMA columns).
+    """
+    oh = out_rows(h, pad)
+    th, tw = pick_tile_c64(oh, w)
+    tiles_x, tiles_y = -(-w // tw), -(-oh // th)
+    items = n * tiles_x * tiles_y
+    grid = min(-(-items // 2), sms)
+    return {"tile": (th, tw), "halo_pitch": tw + 2, "tiles": (tiles_y, tiles_x), "items": items,
+            "grid": grid, "items_per_cta": -(-items // grid),
+            "dropped_share": 1 - th * tw / C64_N}
 
 
 def conv3x3_path(c: int, dtype: torch.dtype) -> str:

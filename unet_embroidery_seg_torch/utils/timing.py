@@ -65,7 +65,8 @@ KERNEL_GROUPS = [
     # packing, then every other conv3x3 launch.
     ("port conv3x3 f32 tf32x3 weight pack", ("conv3x3_pack_tf32x3",)),
     ("port conv3x3 f32 tf32x3 (forward and dgrad)", ("conv3x3_wgmma_kernel<float",)),
-    ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
+    ("port conv3x3 (forward and dgrad)", ("conv3x3_wgmma_kernel", "conv3x3_c64_kernel",
+                                          "conv3x3_fma_kernel")),
     ("memcpy", ("Memcpy", "memcpy")),
     # NCCL's kernels, waits for the other ranks included
     ("collectives (NCCL)", ("nccl", "Nccl")),
