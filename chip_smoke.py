@@ -42,9 +42,9 @@ Phases, each of which raises on failure (the script exits 0 only if all pass):
    (``grad_pack_ms``). Library yardsticks: ``aten.upsample_bilinear2d_backward`` and
    ``torch.nn.grad.conv2d_input``. Then, at one site of each kernel, the
    autograd Function's gradients against the plain version's autograd.
-   3c (run first, before any f32 capture): two bf16 train stages' forward +
-   dx captured in a CUDA graph, their weights changed in place, replayed:
-   dx equals eager's on the new weights (``dgrad_graph_check``).
+   3c: two bf16 train stages' forward + dx captured in a CUDA graph, their
+   weights changed in place, replayed: dx equals eager's on the new weights
+   (``dgrad_graph_check``).
 4. The predict path: full-width unet_resnet50 (2 classes, seeded random
    weights) predicting 16 seeded letterboxed 480^2 canvases in batches of
    8, bf16, through the port's batch-predict function. Launch counters are
@@ -155,7 +155,9 @@ card; a 1-rank NCCL group stands in for the CLI's backend on one card:
 - 12a. The synchronised BN (1-rank NCCL group) against the port's cuDNN BN
   at ResNet-50's layer1 ``bn3`` shape at 512^2, batch 8 (256 channels at
   128^2), f32 and bf16: output, input, weight and bias gradients, running
-  mean and variance; forward + backward timed for both;
+  mean and variance, each copied right after one call; forward + backward
+  then timed for both; each side's calls and the f32 dx ratio range
+  printed;
 - 12b. Two ranks on the one card (gloo with CUDA tensors: NCCL refuses two
   ranks on one device; the kernels built before the ranks start):
   unet_resnet50 at 512^2, global batch 8 (4 + 4), diff head, Lovasz. f32,
@@ -277,8 +279,7 @@ float64 within 4x the unpacked dW's, plus 1e-4) and bf16 within
 ``TOL_PACKED_BF16_FACTOR`` x the unpacked bf16 tail's own distance from
 its f32 tail (measured in the run; its dW alike by the largest element,
 and by the norm within ``TOL_PACKED_BF16_DW_NORM_FACTOR`` x); forward
-and forward + backward ms of each, graph replay (a capture invalidated
-once is tried again) and eager. 18b:
+and forward + backward ms of each, graph replay and eager. 18b:
 the ResNet stem at 512^2, batch 8, in each ``StemConv7x7`` mode, bf16 and
 f32: forward against ``direct`` (f32: 1e-4; bf16: one bf16 ulp) and dW
 (f32: phase 6's rule, 4x the floor of ``direct``'s dW with its input moved
@@ -1275,9 +1276,7 @@ def dgrad_graph_check(gen: torch.Generator) -> dict:
     place under ``no_grad`` (each value scaled by its own factor in [0.5,
     1.5): a sign flip alone leaves a BN stage's dx as it was) and the graph
     replayed again: dx must equal an eager call's on the new weights (bf16
-    tolerance; the same kernels) and differ from the first replay's. Runs
-    before any f32 capture (a bf16 backward captured after an f32 one loses
-    its capture, ROADMAP.md).
+    tolerance; the same kernels) and differ from the first replay's.
     """
     from unet_embroidery_seg_torch.models import blocks
     from unet_embroidery_seg_torch.ops.conv3x3 import conv3x3_dgrad
@@ -1974,41 +1973,59 @@ def _bn_state(c: int, seed: int) -> dict:
             "running_var": torch.rand(c, generator=g) + 0.5, "num_batches_tracked": torch.tensor(0)}
 
 
-def sync_bn_check(group) -> dict:
-    """12a: the synchronised BN on a 1-rank NCCL group against the port's cuDNN BN."""
-    from unet_embroidery_seg_torch.models.blocks import BatchNorm, set_batchnorm_group
-    from unet_embroidery_seg_torch.utils.timing import event_ms
+def sync_bn_check(group, device="cuda", shape=BN_SHAPE, timer=None) -> dict:
+    """12a: the synchronised BN on a 1-rank group against the port's cuDNN BN.
 
-    c = BN_SHAPE[1]
-    gen = torch.Generator("cuda").manual_seed(12)
+    Each side's record is a copy taken right after its first call, before
+    its timing (``timer``, default ``utils/timing.event_ms``) runs more
+    forward + backward calls, which autograd adds into the same ``x.grad``:
+    so the check does not depend on how many calls the timer makes. The
+    printed line gives each side's calls in all and the range of the
+    recorded dx, sync over cuDNN, over the elements whose cuDNN value is at
+    least 1% of its largest. ``device``, ``shape`` and ``timer`` let a CPU
+    test drive it on a gloo group.
+    """
+    from unet_embroidery_seg_torch.models.blocks import BatchNorm, set_batchnorm_group
+
+    if timer is None:
+        from unet_embroidery_seg_torch.utils.timing import event_ms as timer
+    device = torch.device(device)
+    c = shape[1]
+    gen = torch.Generator(device).manual_seed(12)
     cl = torch.channels_last
-    x0 = (2.0 * torch.randn(BN_SHAPE, generator=gen, device="cuda") + 0.5).contiguous(
+    x0 = (2.0 * torch.randn(shape, generator=gen, device=device) + 0.5).contiguous(
         memory_format=cl)
-    gy = torch.randn(BN_SHAPE, generator=gen, device="cuda").contiguous(memory_format=cl)
-    result = {"shape": list(BN_SHAPE), "site": "unet_resnet50 resnet.layer1.*.bn3 at 512^2"}
+    gy = torch.randn(shape, generator=gen, device=device).contiguous(memory_format=cl)
+    result = {"shape": list(shape), "site": "unet_resnet50 resnet.layer1.*.bn3 at 512^2"}
     for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        runs = {}
+        runs, calls = {}, {}
         for name, grp in (("cudnn", None), ("sync", group)):
-            bn = BatchNorm(c).cuda()
+            bn = BatchNorm(c).to(device)
             bn.load_state_dict(_bn_state(c, 12))
             set_batchnorm_group(bn.train(), grp)
             x = x0.to(dtype).clone().requires_grad_(True)
+            calls[name] = 0
 
-            def fwd_bwd(bn=bn, x=x):
-                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=label == "bf16"):
+            def fwd_bwd(bn=bn, x=x, name=name):
+                calls[name] += 1
+                with torch.autocast(device.type, dtype=torch.bfloat16, enabled=label == "bf16"):
                     y = bn(x)
                 (y.float() * gy).sum().backward()
                 return y
 
             y = fwd_bwd()
-            runs[name] = {"y": y.detach().float(), "dx": x.grad.float(),
+            runs[name] = {"y": y.detach().clone().float(), "dx": x.grad.clone().float(),
                           "dw": bn.weight.grad.clone(), "db": bn.bias.grad.clone(),
                           "running_mean": bn.running_mean.clone(),
                           "running_var": bn.running_var.clone()}
-            runs[name]["forward_backward_ms"] = event_ms(fwd_bwd)
+            runs[name]["forward_backward_ms"] = timer(fwd_bwd)
         errs = {k: ((runs["sync"][k] - v).abs().max() / v.abs().max()).item()
                 for k, v in runs["cudnn"].items() if k != "forward_backward_ms"}
-        result[label] = {"rel_err": errs,
+        ref = runs["cudnn"]["dx"]
+        big = ref.abs() >= 0.01 * ref.abs().max()
+        ratio = runs["sync"]["dx"][big] / ref[big]
+        result[label] = {"rel_err": errs, "calls": calls,
+                         "dx_ratio_range": [ratio.min().item(), ratio.max().item()],
                          "sync_forward_backward_ms": runs["sync"]["forward_backward_ms"],
                          "cudnn_forward_backward_ms": runs["cudnn"]["forward_backward_ms"],
                          "ms_method": "cuda_events_eager"}
@@ -3711,31 +3728,16 @@ def _alternates():
 
 
 def _ms_pair(fn) -> dict:
-    """Eager ms and graph-replay ms of ``fn``, the capture tried twice (graph: None, with the
-    reason, where both captures are invalidated; any other error is raised).
+    """Eager ms and graph-replay ms of ``fn``; a capture that does not hold raises.
 
-    Once an f32 autograd backward has been captured in a process, the first
-    bf16 one captured after it is invalidated, whatever the op (the port's
-    upsample alone too), and the same call warmed up and captured again
-    holds (``scripts/torch_capture_probe.py``).
+    ``fn``'s inputs are leaves: a backward that reaches a ``grad_fn`` made
+    outside the capture on another stream loses the capture
+    (``utils/timing.graph_ms``).
     """
     from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
 
     eager = event_ms(fn)
-    reasons = []
-    for attempt in (1, 2):
-        if attempt == 2:
-            event_ms(fn)  # the warm-up the probe's second capture had
-        try:
-            return {"ms": graph_ms(fn, eager), "eager_ms": eager, "ms_method": MS_METHOD,
-                    "capture_attempts": attempt}
-        except RuntimeError as e:
-            if "StreamCaptureInvalidated" not in str(e):
-                raise
-            torch.cuda.synchronize()
-            reasons.append(str(e)[:120])
-    return {"ms": None, "eager_ms": eager, "ms_method": f"eager only: {reasons[-1]}",
-            "capture_attempts": 2}
+    return {"ms": graph_ms(fn, eager), "eager_ms": eager, "ms_method": MS_METHOD}
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3797,11 +3799,12 @@ def packed_tail_check(gen: torch.Generator) -> dict:
         return fwd, fwd_bwd
 
     out, logits = {"shape": [BATCH, c, TAIL_H, TAIL_H], "classes": TAIL_CLASSES}, {}
-    # bf16 first: a bf16 backward captured after an f32 one loses its capture
-    # (``_ms_pair``); the other order held in every probe.
-    for dtype in (torch.bfloat16, torch.float32):
+    # Each dtype's input is a leaf copy: ``x0.to(torch.float32)`` would be x0
+    # itself, and requiring grad on it would make the next dtype's input a
+    # non-leaf, whose captured backward loses its capture (``_ms_pair``).
+    for dtype in (torch.float32, torch.bfloat16):
         key = "f32" if dtype == torch.float32 else "bf16"
-        x = x0.to(dtype).requires_grad_(True)
+        x = x0.to(dtype, copy=True).requires_grad_(True)
         for name, tail in (("packed", packed), ("unpacked", unpacked)):
             fwd, fwd_bwd = run(tail, x, dtype == torch.bfloat16)
             with torch.no_grad():
@@ -4376,12 +4379,11 @@ def main(argv=None) -> int:
         print(card)
         return 0 if result["ran"] and space["ran"] and family_space["ran"] else 1
 
-    # 3c first: a bf16 capture must come before any f32 one (see its docstring).
-    graph_check = dgrad_graph_check(torch.Generator().manual_seed(3))
     rows = check_sites(torch.Generator().manual_seed(0))
     update = weight_update_check(torch.Generator().manual_seed(2))
     bwd_rows = check_backward_sites(torch.Generator().manual_seed(4))
     functions = function_check(torch.Generator().manual_seed(5))
+    graph_check = dgrad_graph_check(torch.Generator().manual_seed(3))
     path = main_path([upsample2x, conv3x3_bias_relu])
     train = train_path([upsample2x, upsample2x_backward, conv3x3_bias_relu, conv3x3_dgrad])
     f32 = f32_card_vs_cpu()

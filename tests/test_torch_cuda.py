@@ -556,3 +556,70 @@ def test_fma_path_still_runs_f32_at_tensor_core_channels_when_asked(device):
     got = conv3x3_mod._launch(x, packed, None, "fma f32", path="fma")
     want = conv3x3_same_plain(x, weight)
     assert (got - want).abs().max().item() <= _tol(want, f32_rel=1e-4)
+
+
+# A bf16 forward + backward captured (``utils/timing.graph_ms``) after an f32
+# one in the same process holds at its first capture. Each dtype's input is
+# a leaf copy: ``x0.to(torch.float32)`` would be ``x0`` itself, and requiring
+# grad on it would make the bf16 input a non-leaf made on the eager stream,
+# whose captured backward loses its capture (``scripts/torch_capture_probe.py``).
+@pytest.mark.parametrize("op", ["upsample2x", "conv3x3_bias_relu", "head"])
+def test_bf16_capture_holds_after_an_f32_capture(device, op):
+    import torch.nn.functional as F
+
+    from unet_embroidery_seg_torch.utils.timing import event_ms, graph_ms
+
+    c = 64
+    x0 = _x((2, c, 16, 16), torch.float32, device, seed=40)
+    weight, bias = (t.requires_grad_() for t in _conv_params(c, device, seed=41))
+    head_w = (torch.randn(2, c, 1, 1, generator=torch.Generator().manual_seed(42)) / 8).to(device)
+    head_w.requires_grad_()
+    fns = {"upsample2x": lambda x: (upsample2x(x, True), [x]),
+           "conv3x3_bias_relu": lambda x: (conv3x3_bias_relu(x, weight, bias), [x, weight, bias]),
+           "head": lambda x: (F.conv2d(x, head_w), [x, head_w])}
+
+    def graph_ms_of(dtype):
+        x = x0.to(dtype, copy=True).requires_grad_(True)
+        amp = dtype == torch.bfloat16
+
+        def fwd_bwd():
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=amp, cache_enabled=False):
+                y, inputs = fns[op](x)
+            return torch.autograd.grad(y, inputs, torch.ones_like(y))
+
+        return graph_ms(fwd_bwd, event_ms(fwd_bwd, 5.0), 5.0)
+
+    assert graph_ms_of(torch.float32) > 0
+    assert graph_ms_of(torch.bfloat16) > 0  # raises if its first capture is invalidated
+
+
+@pytest.mark.parametrize("cudnn_calls,sync_calls", [(1, 5), (5, 1)])
+def test_sync_bn_check_record_is_independent_of_the_timer(device, tmp_path, cudnn_calls,
+                                                          sync_calls):
+    # chip_smoke.py 12a on its 1-rank NCCL group at its own shape; the timer
+    # calls the two sides different numbers of times.
+    import sys
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    timed = []
+
+    def timer(fn):
+        timed.append(sync_calls if len(timed) % 2 else cudnn_calls)
+        for _ in range(timed[-1]):
+            fn()
+        return 0.0
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        result = chip_smoke.sync_bn_check(dist.group.WORLD, timer=timer)
+    finally:
+        dist.destroy_process_group()
+    for label in ("f32", "bf16"):
+        assert result[label]["calls"] == {"cudnn": 1 + cudnn_calls, "sync": 1 + sync_calls}
+    assert result["f32"]["rel_err"]["dx"] <= chip_smoke.TOL_SYNC_BN["f32"]

@@ -37,14 +37,23 @@ def graph_ms(fn, probe_ms: float, budget_ms: float = 300.0) -> float:
     """Mean ms per call by replay of a CUDA graph holding calls of ``fn``.
 
     ``probe_ms`` (an eager time of one call) sizes the graph to ~2 ms of
-    calls and the replays to ``budget_ms``.
+    calls and the replays to ``budget_ms``. A backward in ``fn`` must not
+    reach a ``grad_fn`` made outside the capture on another stream (a
+    non-leaf input made eagerly): autograd joins that node's stream to the
+    capture stream by an event recorded outside the capture, and the
+    capture is invalidated. Give ``fn`` leaf inputs. A capture that does
+    not hold raises, with the caller's stream current again.
     """
     reps = int(max(1, min(50, 2.0 / max(probe_ms, 1e-3))))
     rounds = int(max(2, min(20, budget_ms / max(probe_ms * reps, 1e-3))))
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    stream = torch.cuda.current_stream()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    finally:
+        torch.cuda.set_stream(stream)  # a failed capture_end leaves the capture stream current
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
