@@ -623,3 +623,42 @@ def test_sync_bn_check_record_is_independent_of_the_timer(device, tmp_path, cudn
     for label in ("f32", "bf16"):
         assert result[label]["calls"] == {"cudnn": 1 + cudnn_calls, "sync": 1 + sync_calls}
     assert result["f32"]["rel_err"]["dx"] <= chip_smoke.TOL_SYNC_BN["f32"]
+
+
+def test_spans_record_under_a_card_only_profiler_on_autograd_thread(device):
+    # The benchmark's traced stretch profiles the card only: the program's spans must
+    # still record there, in a Function's forward and in its backward, which autograd
+    # runs on a thread of its own for a card's tensors.
+    import threading
+
+    from unet_embroidery_seg_torch.utils import profiling
+
+    class Twice(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            with profiling.span("op.conv3x3"):
+                return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            with profiling.span("op.conv3x3_dgrad"):
+                return g * 2
+
+    x = torch.ones(1024, device=device, requires_grad=True)
+    profiling.clear_spans()
+    Twice.apply(x).sum().backward()  # no profiler: nothing recorded
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        with profiling.span("step.train"):
+            Twice.apply(x).sum().backward()
+        torch.cuda.synchronize()
+    Twice.apply(x).sum().backward()  # stopped: nothing more
+    got = {s[0]: s for s in profiling.spans()}
+    profiling.clear_spans()
+    assert sorted(got) == ["op.conv3x3", "op.conv3x3_dgrad", "step.train"]
+    main = threading.get_ident()
+    assert got["op.conv3x3"][3] == got["step.train"][3] == main
+    assert got["op.conv3x3"][4] == "step.train"
+    assert got["op.conv3x3_dgrad"][3] != main and got["op.conv3x3_dgrad"][4] is None
+    root = got["step.train"]
+    assert all(root[1] <= s[1] <= s[2] <= root[2] for s in got.values())

@@ -1,4 +1,5 @@
-"""The port's profiling helpers and the train CLI's ``--profile``, on the CPU."""
+"""The port's profiling helpers and the train CLI's ``--profile``, on the CPU: its trace
+holds the operators' events and the program's own spans (``utils/profiling.span``) by name."""
 
 import glob
 import json
@@ -7,7 +8,6 @@ import shutil
 
 import pytest
 
-from unet_embroidery_seg_tpu.utils import profiling as jax_profiling
 from unet_embroidery_seg_torch import train as port_train
 from unet_embroidery_seg_torch.utils import profiling
 
@@ -15,18 +15,6 @@ from unet_embroidery_seg_torch.utils import profiling
 def test_device_memory_stats_is_empty_on_the_cpu():
     assert profiling.device_memory_stats("cpu") == ""
     assert profiling.device_memory_stats() == ""  # no card here
-
-
-@pytest.mark.parametrize("warmup,ticks", [(1, [8, 8, 8, 4]), (2, [8, 8]), (0, [2, 2, 2]),
-                                          (3, [8])])
-def test_step_timer_counts_as_jax(warmup, ticks):
-    port, ref = profiling.StepTimer(warmup), jax_profiling.StepTimer(warmup)
-    for n in ticks:
-        port.tick(n)
-        ref.tick(n)
-    assert (port._seen, port._images, port._t0 is None) == (ref._seen, ref._images, ref._t0 is None)
-    assert (port.steps_per_sec > 0) == (ref.steps_per_sec > 0)
-    assert (port.images_per_sec > 0) == (ref.images_per_sec > 0)
 
 
 def test_trace_context_writes_a_chrome_trace(tmp_path):
@@ -55,6 +43,10 @@ CLI_ARGS = ["--data-path", "synthetic:8", "--input-size", "64", "--batch-size", 
 # The kernels' operators per unet_resnet50 train step (forward and backward).
 PER_STEP = {"unet_seg::upsample2x": 5, "unet_seg::upsample2x_backward": 5,
             "unet_seg::conv3x3_bias_relu": 6, "unet_seg::conv3x3_dgrad": 6}
+# The program's spans per step (``utils/profiling.span``): the step's phases, and one
+# operator span per square-conv operator call above.
+SPANS_PER_STEP = {"step.train": 1, "step.forward": 1, "step.loss": 1, "step.backward": 1,
+                  "step.optimizer": 1, "op.conv3x3": 6, "op.conv3x3_dgrad": 6}
 
 
 @pytest.mark.parametrize("path", ["--no-device-augment", "--device-augment"])
@@ -64,6 +56,11 @@ def test_train_cli_profile_traces_the_window(workdir, path, capsys):
     events = json.load(open(trace))["traceEvents"]
     counts = {name: sum(e.get("name") == name for e in events) for name in PER_STEP}
     assert counts == {name: 2 * n for name, n in PER_STEP.items()}  # the window's 2 steps
+    spans = {name: sum(e.get("name") == name and e.get("ph") == "X" for e in events)
+             for name in [*SPANS_PER_STEP, "input.batch"]}
+    # the resident chunk gathers and augments each step's batch in an input.batch span
+    want = {**SPANS_PER_STEP, "input.batch": int(path == "--device-augment")}
+    assert spans == {name: 2 * n for name, n in want.items()}
     out = capsys.readouterr().out
     assert "[profile] trace written to" in out
     assert "HBM:" not in out  # the CPU has no card memory line

@@ -42,6 +42,7 @@ import torch
 
 from unet_embroidery_seg_torch.ops import device_augment
 from unet_embroidery_seg_torch.parallel.mesh import Mesh
+from unet_embroidery_seg_torch.utils.profiling import span
 
 
 @dataclass
@@ -184,7 +185,9 @@ def make_train_chunk_fn(
     takes this rank's rows of it and of the parameters drawn for all of it,
     and over the space axis this rank's band of the output rows.
     Returns the per-step losses stacked, (K,), on the card; for multitask a
-    tuple ((K,) total, (K,) seg, (K,) cls, (K,) n_correct).
+    tuple ((K,) total, (K,) seg, (K,) cls, (K,) n_correct). Each step's
+    gather, augmentation and seeding is an ``input.batch`` span
+    (``utils/profiling.span``).
     """
     nc = None if binary else num_classes
 
@@ -193,18 +196,19 @@ def make_train_chunk_fn(
         rows = _rows(mesh, idx.shape[1])
         band = _band(mesh, input_shape[0])
         for k, it in enumerate(its):
-            dropout_seed, aug_seed = step_seeds(seed, epoch, it)
-            imgs, masks, wh, cls = gather_batch(data, idx[k, rows])
-            if augment:
-                gen = torch.Generator(device=imgs.device).manual_seed(aug_seed)
-                params = device_augment.sample_params(gen, idx.shape[1])
-                images, pngs = device_augment.augment_batch(
-                    imgs, masks, wh, params=tuple(p[rows] for p in params),
-                    out_hw=tuple(input_shape), binary=binary, num_classes=nc, band=band)
-            else:
-                images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc,
-                                                                     band)
-            seed_default_generator(imgs.device, rank_seed(dropout_seed, mesh))
+            with span("input.batch"):
+                dropout_seed, aug_seed = step_seeds(seed, epoch, it)
+                imgs, masks, wh, cls = gather_batch(data, idx[k, rows])
+                if augment:
+                    gen = torch.Generator(device=imgs.device).manual_seed(aug_seed)
+                    params = device_augment.sample_params(gen, idx.shape[1])
+                    images, pngs = device_augment.augment_batch(
+                        imgs, masks, wh, params=tuple(p[rows] for p in params),
+                        out_hw=tuple(input_shape), binary=binary, num_classes=nc, band=band)
+                else:
+                    images, pngs = device_augment.preprocess_eval_batch(imgs, masks, binary, nc,
+                                                                         band)
+                seed_default_generator(imgs.device, rank_seed(dropout_seed, mesh))
             if multitask:
                 losses, correct = train_step(images, pngs, cls, mask[k, rows])
                 outs.append((*losses, correct.to(torch.float32)))

@@ -30,10 +30,20 @@ whole images. What is per image (multitask's class CE, correct count and
 confusion; the per-sample eval's losses and metrics) is summed over the
 image's space group where it is a sum of bands, and counted by space
 index 0 only.
+
+Spans (``utils/profiling.span``, recorded only while a profiler records):
+every train step is ``step.train``, its phases ``step.forward`` (the
+inputs to the card and the forward), ``step.loss``, ``step.backward`` and
+``step.optimizer`` (``optimizer.step()``), in that order. The gradients'
+``zero_grad`` (set to None: no card work) opens ``step.backward``, so the
+gradients stay readable after the step, as before. A predict call is
+``predict.h2d`` (the inputs' upload) then ``predict.forward``, inside
+``predict.predict_probs``' ``predict.call``. Eval steps have no spans.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Callable
 
@@ -46,6 +56,7 @@ import torch.nn.functional as F
 from unet_embroidery_seg_torch.models.blocks import set_batchnorm_group, set_space_axis
 from unet_embroidery_seg_torch.ops import losses, metrics
 from unet_embroidery_seg_torch.parallel.mesh import Group, global_count
+from unet_embroidery_seg_torch.utils.profiling import span
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -104,9 +115,22 @@ def _once(sample_mask: torch.Tensor, space) -> torch.Tensor:
 
 
 def _backward_and_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    with span("step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("step.optimizer"):
+        optimizer.step()
+
+
+def _train_span(train_step: Callable) -> Callable:
+    """``train_step`` inside a ``step.train`` span, the root of the step's phases."""
+
+    @functools.wraps(train_step)
+    def spanned(*args):
+        with span("step.train"):
+            return train_step(*args)
+
+    return spanned
 
 
 def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
@@ -121,8 +145,10 @@ def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
 
     def predict(images: np.ndarray | torch.Tensor):
         set_space_axis(model, None)
-        x, _, _, _ = _inputs(device, images)
-        with torch.inference_mode(), torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+        with span("predict.h2d"):
+            x, _, _, _ = _inputs(device, images)
+        with span("predict.forward"), torch.inference_mode(), \
+                torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             logits = model(x)
         return _nhwc(logits)
 
@@ -148,16 +174,19 @@ def make_binary_train_step(
     device = _device(model)
     net = _replica(model, group)
 
+    @_train_span
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
-        model.train()
-        set_space_axis(model, space)
-        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            outputs = net(x)
-        loss = losses.binary_segmentation_loss(
-            _nhwc(outputs), t, loss_name=loss_name, pos_weight=pos_weight,
-            ignore_index=ignore_index, sample_mask=sm, group=group, space=space,
-        )
+        with span("step.forward"):
+            model.train()
+            set_space_axis(model, space)
+            x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                outputs = net(x)
+        with span("step.loss"):
+            loss = losses.binary_segmentation_loss(
+                _nhwc(outputs), t, loss_name=loss_name, pos_weight=pos_weight,
+                ignore_index=ignore_index, sample_mask=sm, group=group, space=space,
+            )
         _backward_and_step(optimizer, loss)
         return loss.detach()
 
@@ -214,14 +243,17 @@ def make_multiclass_train_step(
     device = _device(model)
     net = _replica(model, group)
 
+    @_train_span
     def train_step(images, pngs, sample_mask) -> torch.Tensor:
-        model.train()
-        set_space_axis(model, space)
-        x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            outputs = net(x)
-        loss = losses.multiclass_loss(_nhwc(outputs), t, num_classes, focal, use_dice, sm,
-                                      group=group)
+        with span("step.forward"):
+            model.train()
+            set_space_axis(model, space)
+            x, t, sm, _ = _inputs(device, images, pngs, sample_mask)
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                outputs = net(x)
+        with span("step.loss"):
+            loss = losses.multiclass_loss(_nhwc(outputs), t, num_classes, focal, use_dice, sm,
+                                          group=group)
         _backward_and_step(optimizer, loss)
         return loss.detach()
 
@@ -314,15 +346,19 @@ def make_multitask_train_step(
     device = _device(model)
     net = _replica(model, group)
 
+    @_train_span
     def train_step(images, pngs, cls_targets, sample_mask):
-        model.train()
-        set_space_axis(model, space)
-        x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
-            seg, logits = _nhwc(net(x))
-        total, seg_l, cls_l = losses.multitask_loss(
-            seg, logits, t, cls, seg_loss_name=seg_loss_name, cls_loss_weight=cls_loss_weight,
-            sample_mask=sm, pos_weight=pos_weight, group=group, space=space)
+        with span("step.forward"):
+            model.train()
+            set_space_axis(model, space)
+            x, t, sm, cls = _inputs(device, images, pngs, sample_mask, cls_targets)
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
+                seg, logits = _nhwc(net(x))
+        with span("step.loss"):
+            total, seg_l, cls_l = losses.multitask_loss(
+                seg, logits, t, cls, seg_loss_name=seg_loss_name,
+                cls_loss_weight=cls_loss_weight, sample_mask=sm, pos_weight=pos_weight,
+                group=group, space=space)
         _backward_and_step(optimizer, total)
         hits = (logits.detach().argmax(-1) == cls).float() * _once(sm, space)
         correct = global_count(hits.sum().long(), group)

@@ -60,7 +60,11 @@ which the JAX package computes with a flax ``nn.Conv``
   versions; a CUDA tensor launches the kernel or raises on what the kernel
   does not take. ``conv3x3_bias_relu.launches``, ``conv3x3_same.launches``
   and ``conv3x3_dgrad.launches`` count kernel launches and nothing else
-  (not calls traced with fake tensors).
+  (not calls traced with fake tensors). Spans (``utils/profiling.span``,
+  while a profiler records): ``op.conv3x3``, a Function's forward with its
+  packing (``pack_conv3x3_grad``, or the grad-off cache's), and
+  ``op.conv3x3_dgrad``, the dgrad operator's call in its backward (not
+  cuDNN's wgrad).
 
 Halo-padded mode (the mesh's ``space`` axis, ``parallel/halo.py``): every
 form takes ``pad=(pad_top, pad_bottom)``, the zero rows above and below x
@@ -100,6 +104,7 @@ from torch.autograd.function import once_differentiable
 
 from unet_embroidery_seg_torch.ops import _build
 from unet_embroidery_seg_torch.ops.library import as_kernel_layout, empty_kernel_output
+from unet_embroidery_seg_torch.utils.profiling import span
 
 __all__ = ["TF32X3_PATHS", "conv3x3_bias_relu", "conv3x3_bias_relu_plain", "conv3x3_dgrad",
            "conv3x3_dgrad_plain", "conv3x3_path", "conv3x3_same", "conv3x3_same_plain",
@@ -678,8 +683,9 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, cache: bool, pad: tuple[int, int]):
-        packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
-        y = conv3x3_bias_relu_op(x, weight, bias, cache, *pad, packed=packed)
+        with span("op.conv3x3"):
+            packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
+            y = conv3x3_bias_relu_op(x, weight, bias, cache, *pad, packed=packed)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight, y, packed)
             ctx.bias_dtype, ctx.pad = bias.dtype, pad
@@ -693,7 +699,8 @@ class _Conv3x3BiasRelu(torch.autograd.Function):
         torch.ops.aten.threshold_backward.grad_input(g, y, 0, grad_input=g_pre)
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad_op(g_pre, weight, packed, *dgrad_pad(ctx.pad)).to(x.dtype)
+            with span("op.conv3x3_dgrad"):
+                dx = conv3x3_dgrad_op(g_pre, weight, packed, *dgrad_pad(ctx.pad)).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = _wgrad(x, weight, g_pre.to(x.dtype), ctx.pad)
         if ctx.needs_input_grad[2]:
@@ -766,8 +773,9 @@ class _Conv3x3Same(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, cache: bool, pad: tuple[int, int]):
-        packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
-        y = conv3x3_same_op(x, weight, cache, *pad, packed=packed)
+        with span("op.conv3x3"):
+            packed = None if cache else pack_conv3x3_grad(weight, x.dtype)
+            y = conv3x3_same_op(x, weight, cache, *pad, packed=packed)
         if not cache:  # grad mode on: a backward may follow
             ctx.save_for_backward(x, weight, packed)
             ctx.pad = pad
@@ -780,7 +788,8 @@ class _Conv3x3Same(torch.autograd.Function):
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3_dgrad_op(g, weight, packed, *dgrad_pad(ctx.pad))
+            with span("op.conv3x3_dgrad"):
+                dx = conv3x3_dgrad_op(g, weight, packed, *dgrad_pad(ctx.pad))
         if ctx.needs_input_grad[1]:
             dw = _wgrad(x, weight, g, ctx.pad)
         return dx, dw, None, None

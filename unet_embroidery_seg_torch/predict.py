@@ -27,6 +27,7 @@ from unet_embroidery_seg_torch.engine import checkpoint, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_val_exp_folder
+from unet_embroidery_seg_torch.utils.profiling import span
 
 VOC_COLORS = [
     (0, 0, 0), (128, 0, 0), (0, 128, 0), (128, 128, 0), (0, 0, 128),
@@ -73,9 +74,16 @@ def load_model(model_name: str, model_path: str, num_classes: int, amp: bool,
 
 
 def predict_probs(predict_fn, canvases: np.ndarray) -> np.ndarray:
-    """Softmax probabilities (N, H, W, K) of a batch of NHWC float32 canvases."""
-    logits = predict_fn(canvases)
-    return torch.softmax(logits, dim=-1).cpu().numpy()
+    """Softmax probabilities (N, H, W, K) of a batch of NHWC float32 canvases.
+
+    Spans (while a profiler records): ``predict.call``, and inside it
+    ``predict_fn``'s own (``predict.h2d``, ``predict.forward``) and
+    ``predict.d2h``, the softmax and the probabilities' copy to the host.
+    """
+    with span("predict.call"):
+        logits = predict_fn(canvases)
+        with span("predict.d2h"):
+            return torch.softmax(logits, dim=-1).cpu().numpy()
 
 
 def load_and_letterbox(file_path: str, input_size: int):

@@ -13,17 +13,99 @@
   on a card the profiler (CUPTI) is there, so these raise: a ``--profile``
   run that writes no trace fails. ``safe_start_trace`` returns the running
   profiler, which ``safe_stop_trace`` takes.
-- ``StepTimer``: steps/s and images/s with a warm-up skip, copied.
+- ``span(name)``: the program's own spans, where the work happens (the
+  chunk's input, the train step's phases, the predict call's copies and
+  forward, the square conv's operators). A span records exactly while a
+  ``torch.profiler`` records in this process, whatever its activities
+  (``torch.autograd.profiler._is_profiler_enabled``, which every profiler
+  start sets and every stop clears): the CLI's ``--profile`` window and a
+  benchmark's traced stretch. Off, ``span`` returns one shared object that
+  does nothing: no allocation, no clock read. On, it appends
+  ``(name, t0_ns, t1_ns, thread id, parent name)`` to a bounded buffer
+  (``spans()``, ``clear_spans()``), timed by ``time.time_ns()``, and opens
+  a record-function range of that name, so a trace that records host
+  operators shows the span by name. The range is ``_RecordFunctionFast``,
+  the C++ one: ``torch.profiler.record_function`` dispatches two operators
+  and cost 10-15 us a span under a card-only profiler, which records no
+  host range. The parent is the innermost span open on the same thread:
+  autograd runs the card's backward on a thread of its own, where the
+  operators' spans have none, so a reader places them by time. The buffer
+  keeps the newest ``SPAN_BUFFER`` spans.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import socket
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+SPAN_BUFFER = 1 << 16
+# (name, start ns, end ns, thread id, parent name or None), oldest first
+_spans: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_open = threading.local()  # .names: the names of the spans open on this thread
+
+
+class _NoSpan:
+    """What ``span`` returns while nothing profiles: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    # named arguments, not ``*exc``: packing a tuple on every call doubled the off cost
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        names = getattr(_open, "names", None)
+        if names is None:
+            names = _open.names = []
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        self.t0 = time.time_ns()
+        self.rf = _RecordFunctionFast(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.rf.__exit__(exc_type, exc, tb)
+        t1 = time.time_ns()
+        _open.names.pop()
+        _spans.append((self.name, self.t0, t1, threading.get_ident(), self.parent))
+
+
+def span(name: str):
+    """A context manager timing ``name`` while a profiler records; else a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spans() -> list[tuple[str, int, int, int, str | None]]:
+    """The recorded spans, oldest first: (name, start ns, end ns, thread id, parent name)."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
 
 
 def device_memory_stats(device: torch.device | str | None = None) -> str:
@@ -70,31 +152,3 @@ def trace(logdir: str | None):
     finally:
         safe_stop_trace(prof, logdir)
 
-
-class StepTimer:
-    """Steps/sec + images/sec counter that skips the warm-up steps."""
-
-    def __init__(self, warmup_steps: int = 1):
-        self.warmup_steps = warmup_steps
-        self._seen = 0
-        self._images = 0
-        self._t0 = None
-
-    def tick(self, n_images: int) -> None:
-        self._seen += 1
-        if self._seen <= self.warmup_steps:
-            self._t0 = time.perf_counter()
-            return
-        self._images += n_images
-
-    @property
-    def images_per_sec(self) -> float:
-        if self._t0 is None or self._images == 0:
-            return 0.0
-        return self._images / max(time.perf_counter() - self._t0, 1e-9)
-
-    @property
-    def steps_per_sec(self) -> float:
-        if self._t0 is None or self._seen <= self.warmup_steps:
-            return 0.0
-        return (self._seen - self.warmup_steps) / max(time.perf_counter() - self._t0, 1e-9)
