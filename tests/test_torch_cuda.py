@@ -13,9 +13,13 @@ f32's tolerance; the rest on the CUDA cores, ``fma``). The backward kernels
 (upsample2x's, conv3x3's dgrad) run at the same shapes, and the autograd
 Functions' gradients are held against the plain versions' autograd. The
 bias-free conv (``conv3x3_same``, epilogue off) runs at the same paths and
-at C = 1024, the widest DoubleConv of unet_plain and attention_unet.
+at C = 1024, the widest DoubleConv of unet_plain and attention_unet. The predict call's
+page-locked staging (``engine/host_copy.py``) is held to the pageable
+copies bit for bit at the predict cells' 480^2, for unet_resnet50 and
+unet_plain in bf16, and its results made ahead are fresh pageable arrays.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -662,3 +666,104 @@ def test_spans_record_under_a_card_only_profiler_on_autograd_thread(device):
     assert got["op.conv3x3_dgrad"][3] != main and got["op.conv3x3_dgrad"][4] is None
     root = got["step.train"]
     assert all(root[1] <= s[1] <= s[2] <= root[2] for s in got.values())
+
+
+# -- the predict call's page-locked staging (``engine/host_copy.py``) ----------------------
+
+PREDICT_SIZE = 480
+
+
+@pytest.fixture(scope="module", params=["unet_resnet50", "unet_plain"])
+def predict_fn(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from unet_embroidery_seg_torch.engine import steps
+    from unet_embroidery_seg_torch.models import build_model
+
+    torch.manual_seed(0)
+    model = build_model(request.param, 2, device="cuda")
+    yield steps.make_predict_fn(model, amp=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _canvases(batch: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.random((batch, PREDICT_SIZE, PREDICT_SIZE, 3), dtype=np.float32)
+
+
+def _pageable_probs(predict_fn, images: np.ndarray) -> np.ndarray:
+    # the pageable copies: a card tensor goes in as it is, ``.cpu()`` brings the result back
+    logits = predict_fn(torch.as_tensor(images).to("cuda"))
+    return torch.softmax(logits, dim=-1).cpu().numpy()
+
+
+def _counts():
+    from unet_embroidery_seg_torch.engine import host_copy
+
+    up, down = host_copy.upload, host_copy.download
+    return (up.staged_uploads, down.staged_downloads,
+            up.staging_allocs + down.staging_allocs)
+
+
+@pytest.mark.parametrize("batch", [32, 1, 7])
+def test_staged_predict_is_the_pageable_path_bit_for_bit(predict_fn, batch):
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    images = _canvases(batch, seed=batch)
+    before = images.copy()
+    ups, downs, _ = _counts()
+    want = _pageable_probs(predict_fn, images)
+    assert _counts()[:2] == (ups, downs)
+    got = predict_probs(predict_fn, images)
+    assert _counts()[:2] == (ups + 1, downs + 1)
+    assert np.isfinite(want).all()
+    assert got.dtype == np.float32 and got.shape == want.shape and got.flags.c_contiguous
+    assert np.array_equal(got, want)
+    assert np.array_equal(images, before)
+
+
+def test_staged_results_are_fresh_pageable_arrays(predict_fn):
+    from unet_embroidery_seg_torch.engine import host_copy
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    images = _canvases(7, seed=1)
+    a = predict_probs(predict_fn, images)
+    ahead = host_copy.download.made_ahead
+    b = predict_probs(predict_fn, images)  # made ahead: the last download had these images
+    c = predict_probs(predict_fn, images[:5])  # not: another batch
+    assert host_copy.download.made_ahead == ahead + 1
+    # another batch size may take other conv algorithms: c is held to its own batch's copies
+    assert np.array_equal(a, b) and np.array_equal(c, _pageable_probs(predict_fn, images[:5]))
+    assert not (np.shares_memory(a, b) or np.shares_memory(b, c) or np.shares_memory(a, c))
+    for r in (a, b, c):
+        assert r.flags.owndata and r.flags.c_contiguous and not torch.from_numpy(r).is_pinned()
+
+
+def test_a_card_tensor_input_is_not_copied_through_the_slots(predict_fn):
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    images = _canvases(3, seed=2)
+    x = torch.as_tensor(images).to("cuda")
+    ups, downs, _ = _counts()
+    got = predict_probs(predict_fn, x)
+    assert _counts()[:2] == (ups, downs + 1)  # the probabilities still come down staged
+    assert np.array_equal(got, _pageable_probs(predict_fn, images))
+
+
+def test_staging_allocs_stay_fixed_over_mixed_batches(predict_fn):
+    from unet_embroidery_seg_torch.engine import host_copy
+    from unet_embroidery_seg_torch.predict import predict_probs
+
+    predict_probs(predict_fn, _canvases(32, seed=0))
+    ups, downs, allocs = _counts()
+    ahead = host_copy.download.made_ahead
+    batches = [1, 7, 32, 3, 1, 16, 32, 32, 5, 2, 7, 7]
+    for i, batch in enumerate(batches):
+        probs = predict_probs(predict_fn, _canvases(batch, seed=100 + i))
+        assert probs.shape == (batch, PREDICT_SIZE, PREDICT_SIZE, 2)
+    assert _counts() == (ups + len(batches), downs + len(batches), allocs)
+    assert host_copy.download.made_ahead == ahead + 2  # the two repeated batches
+    # one card, two directions: the page-locked bytes held are the stated constant
+    held = sum(b.numel() for ring in host_copy._rings.values() for b in ring.bufs)
+    assert held == 2 * host_copy.SLOTS * host_copy.CHUNK_BYTES

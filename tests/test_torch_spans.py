@@ -15,7 +15,7 @@ import torch
 from portbench import counts, program_spans
 from portbench.trace import Trace
 from unet_embroidery_seg_torch import predict as port_predict
-from unet_embroidery_seg_torch.engine import steps
+from unet_embroidery_seg_torch.engine import host_copy, steps
 from unet_embroidery_seg_torch.models import build_model
 from unet_embroidery_seg_torch.ops import schedules
 from unet_embroidery_seg_torch.utils import profiling
@@ -112,6 +112,22 @@ def test_predict_probs_records_the_call_and_its_three_parts(plain):
         assert [s[4] for s in call] == ["predict.call"] * 3 + [None]
         assert all(root[1] <= s[1] <= s[2] <= root[2] for s in call[:3])
         assert call[0][2] <= call[1][1] and call[1][2] <= call[2][1]
+
+
+def test_predict_probs_on_the_cpu_keeps_its_copies_and_leaves_the_staging_alone(plain):
+    models, images, _, _ = plain
+    fn = steps.make_predict_fn(models["two"], amp=False)
+    up, down = host_copy.upload, host_copy.download
+
+    def counters():
+        return (up.staged_uploads, down.staged_downloads, up.staging_allocs,
+                down.staging_allocs, down.made_ahead)
+
+    before = counters()
+    got = port_predict.predict_probs(fn, images)
+    want = torch.softmax(fn(torch.as_tensor(images)), dim=-1).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert counters() == before and not host_copy._rings and not host_copy._ahead
 
 
 def test_a_span_on_another_thread_is_kept_with_its_thread_id():

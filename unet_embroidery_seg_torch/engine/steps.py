@@ -53,6 +53,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_embroidery_seg_torch.engine import host_copy
 from unet_embroidery_seg_torch.models.blocks import set_batchnorm_group, set_space_axis
 from unet_embroidery_seg_torch.ops import losses, metrics
 from unet_embroidery_seg_torch.parallel.mesh import Group, global_count
@@ -133,12 +134,23 @@ def _train_span(train_step: Callable) -> Callable:
     return spanned
 
 
+def _predict_input(device: torch.device, images) -> torch.Tensor:
+    """The predict call's images NCHW on ``device``: a host array bound for the card through
+    ``host_copy.upload``'s page-locked slots, anything else as ``_inputs`` takes it."""
+    host = isinstance(images, np.ndarray) or (isinstance(images, torch.Tensor)
+                                              and images.device.type == "cpu")
+    if device.type == "cuda" and host:
+        return host_copy.upload(images, device).permute(0, 3, 1, 2)
+    return _inputs(device, images)[0]
+
+
 def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
     """predict(images) -> logits: the inference forward with BN in eval mode.
 
     The logits come back NHWC float32 on the model's device (multitask:
     the ``(seg, cls)`` pair). Runs under ``torch.inference_mode``, on whole
-    images (no space axis, as JAX's predict has no mesh).
+    images (no space axis, as JAX's predict has no mesh). Host images go to
+    a card through ``engine/host_copy.py``; a card tensor is used as it is.
     """
     model.eval()
     device = _device(model)
@@ -146,7 +158,7 @@ def make_predict_fn(model: nn.Module, amp: bool) -> Callable:
     def predict(images: np.ndarray | torch.Tensor):
         set_space_axis(model, None)
         with span("predict.h2d"):
-            x, _, _, _ = _inputs(device, images)
+            x = _predict_input(device, images)
         with span("predict.forward"), torch.inference_mode(), \
                 torch.autocast(device.type, dtype=torch.bfloat16, enabled=amp):
             logits = model(x)

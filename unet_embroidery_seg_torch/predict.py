@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from unet_embroidery_seg_torch.data.augment import letterbox
-from unet_embroidery_seg_torch.engine import checkpoint, steps
+from unet_embroidery_seg_torch.engine import checkpoint, host_copy, steps
 from unet_embroidery_seg_torch.models import SUPPORTED_MODELS, build_model
 from unet_embroidery_seg_torch.utils.device import resolve_device, set_float32_precision
 from unet_embroidery_seg_torch.utils.exp_folder import create_val_exp_folder
@@ -76,6 +76,9 @@ def load_model(model_name: str, model_path: str, num_classes: int, amp: bool,
 def predict_probs(predict_fn, canvases: np.ndarray) -> np.ndarray:
     """Softmax probabilities (N, H, W, K) of a batch of NHWC float32 canvases.
 
+    From a card the probabilities come through ``engine/host_copy.download``'s
+    page-locked slots into a fresh array the caller owns.
+
     Spans (while a profiler records): ``predict.call``, and inside it
     ``predict_fn``'s own (``predict.h2d``, ``predict.forward``) and
     ``predict.d2h``, the softmax and the probabilities' copy to the host.
@@ -83,7 +86,8 @@ def predict_probs(predict_fn, canvases: np.ndarray) -> np.ndarray:
     with span("predict.call"):
         logits = predict_fn(canvases)
         with span("predict.d2h"):
-            return torch.softmax(logits, dim=-1).cpu().numpy()
+            probs = torch.softmax(logits, dim=-1)
+            return host_copy.download(probs) if probs.is_cuda else probs.cpu().numpy()
 
 
 def load_and_letterbox(file_path: str, input_size: int):
